@@ -1,0 +1,5 @@
+"""Device choice."""
+
+from bigdl_tpu_torch.core.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,1 @@
+"""Functional ops and the hand-written CUDA kernels' wrappers."""
