@@ -18,13 +18,15 @@
 // block walks 32-row K/V tiles (the TPU's sequential `ki` grid axis). Each
 // K/V tile is staged once in shared memory as fp32 (K rows padded to D+1
 // floats so that lane j reading row j hits distinct banks) and reused by
-// all 16 query rows. Each of the 4 warps owns 4 query rows; within a warp,
-// lane j scores key j of the tile, the warp reduces max/sum with shuffles,
-// and the P.V product broadcasts p_j by shuffle while each lane accumulates
-// the output columns d = lane + 32c in registers. Causal tiles wholly above
-// the diagonal are never loaded. The bias is read through the strides the
-// wrapper passes (an expanded view), never materialised as (B,H,Sq,Sk).
-// Ragged Sq / Sk edges are masked here, so any shapes are accepted.
+// all 16 query rows, while the NEXT tile's loads are already in flight into
+// registers, so global latency overlaps compute. Each of the 16 warps owns
+// one query row: lane j scores key j of the tile, the warp reduces
+// max/sum with shuffles, and the P.V product broadcasts p_j by shuffle
+// while each lane accumulates the output columns d = lane + 32c in
+// registers. Causal tiles wholly above the diagonal are never loaded. The
+// bias is read through the strides the wrapper passes (an expanded view),
+// never materialised as (B,H,Sq,Sk). Ragged Sq / Sk edges are masked here,
+// so any shapes are accepted.
 #include <math.h>
 
 #include "common.cuh"
@@ -33,16 +35,39 @@ namespace {
 
 constexpr int kBlockQ = 16;
 constexpr int kBlockK = 32;
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = kBlockQ / kWarps;
+constexpr int kWarps = kBlockQ;          // one query row per warp
+constexpr int kThreads = kWarps * 32;
+
+// Load K/V tile rows k0 .. k0 + kBlockK - 1 (zeros past Sk) into this
+// thread's registers: element u of thread t is tile element t + u*kThreads.
+template <typename T, int kPer>
+__device__ __forceinline__ void fetch_tile(const T* __restrict__ kb,
+                                           const T* __restrict__ vb, int k0,
+                                           int Sk, int D, float (&kreg)[kPer],
+                                           float (&vreg)[kPer]) {
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    float kv = 0.f, vv = 0.f;
+    if (i < kBlockK * D && k0 + i / D < Sk) {
+      const size_t g = (size_t)k0 * D + i;
+      kv = bigdl::to_float(kb[g]);
+      vv = bigdl::to_float(vb[g]);
+    }
+    kreg[u] = kv;
+    vreg[u] = vv;
+  }
+}
 
 template <typename T, int NC>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      long long bs_b, long long bs_h, long long bs_q,
                      long long bs_k, T* __restrict__ out, int H, int Sq,
                      int Sk, int D, float scale, int causal) {
+  // each thread's share of one K (and one V) tile, D <= 32 * NC
+  constexpr int kPer = (kBlockK * 32 * NC + kThreads - 1) / kThreads;
   extern __shared__ float smem[];
   const int ks = D + 1;
   float* sq = smem;                   // kBlockQ x D
@@ -60,20 +85,12 @@ __global__ void __launch_bounds__(kWarps * 32)
   const T* vb = v + (size_t)bh * Sk * D;
   const float* biasb = bias ? bias + b * bs_b + h * bs_h : nullptr;
 
-  for (int i = threadIdx.x; i < kBlockQ * D; i += blockDim.x) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
     sq[i] = (q0 + r < Sq) ? bigdl::to_float(qb[(size_t)(q0 + r) * D + c])
                           : 0.f;
-  }
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][NC];
-#pragma unroll
-  for (int j = 0; j < kRowsPerWarp; ++j) {
-    m[j] = -INFINITY;
-    l[j] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[j][c] = 0.f;
   }
 
   const int offset = Sk - Sq;
@@ -85,66 +102,76 @@ __global__ void __launch_bounds__(kWarps * 32)
     k_end = max(0, min(Sk, last + offset + 1));
   }
 
+  // the next K/V tile travels through registers: its loads are issued
+  // before the current tile's compute and land while it runs
+  float kreg[kPer], vreg[kPer];
+  if (k_end > 0) fetch_tile<T, kPer>(kb, vb, 0, Sk, D, kreg, vreg);
+
+  const int row = q0 + warp;
+  const bool row_ok = row < Sq;
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile is consumed by every warp
-    for (int i = threadIdx.x; i < kBlockK * D; i += blockDim.x) {
-      const int r = i / D;
-      const int c = i - r * D;
-      const bool in = k0 + r < Sk;
-      const size_t g = (size_t)(k0 + r) * D + c;
-      sk[r * ks + c] = in ? bigdl::to_float(kb[g]) : 0.f;
-      sv[r * D + c] = in ? bigdl::to_float(vb[g]) : 0.f;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (i < kBlockK * D) {
+        const int r = i / D;
+        const int c = i - r * D;
+        sk[r * ks + c] = kreg[u];
+        sv[r * D + c] = vreg[u];
+      }
     }
     __syncthreads();
+    if (k0 + kBlockK < k_end)
+      fetch_tile<T, kPer>(kb, vb, k0 + kBlockK, Sk, D, kreg, vreg);
+    if (!row_ok) continue;  // warp-uniform
 
-#pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j) {
-      const int r = warp + kWarps * j;
-      const int row = q0 + r;
-      if (row >= Sq) continue;  // warp-uniform
-      const int col = k0 + lane;
-      const bool valid = col < Sk && (!causal || col <= row + offset);
-      float s = -INFINITY;
-      if (valid) {
-        const float* qr = sq + r * D;
-        const float* kr = sk + lane * ks;
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
-        if (biasb) s += biasb[row * bs_q + col * bs_k];
-      }
-      const float tile_max = bigdl::warp_max(s);
-      if (tile_max == -INFINITY) continue;  // warp-uniform: nothing visible
-      const float m_new = fmaxf(m[j], tile_max);
-      const float alpha = expf(m[j] - m_new);
-      const float p = valid ? expf(s - m_new) : 0.f;
-      l[j] = l[j] * alpha + bigdl::warp_sum(p);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[j][c] *= alpha;
-      for (int kk = 0; kk < kBlockK; ++kk) {
-        const float pk = __shfl_sync(0xffffffffu, p, kk);
-        const float* vr = sv + kk * D;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int d = lane + 32 * c;
-          if (d < D) acc[j][c] = fmaf(pk, vr[d], acc[j][c]);
-        }
-      }
-      m[j] = m_new;
+    const int col = k0 + lane;
+    const bool valid = col < Sk && (!causal || col <= row + offset);
+    float s = -INFINITY;
+    if (valid) {
+      const float* qr = sq + warp * D;
+      const float* kr = sk + lane * ks;
+      float dot = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
+      s = dot * scale;
+      if (biasb) s += biasb[row * bs_q + col * bs_k];
     }
+    const float tile_max = bigdl::warp_max(s);
+    if (tile_max == -INFINITY) continue;  // warp-uniform: nothing visible
+    const float m_new = fmaxf(m, tile_max);
+    const float alpha = expf(m - m_new);
+    const float p = valid ? expf(s - m_new) : 0.f;
+    l = l * alpha + bigdl::warp_sum(p);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[c] *= alpha;
+#pragma unroll 8
+    for (int kk = 0; kk < kBlockK; ++kk) {
+      const float pk = __shfl_sync(0xffffffffu, p, kk);
+      const float* vr = sv + kk * D;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int d = lane + 32 * c;
+        if (d < D) acc[c] = fmaf(pk, vr[d], acc[c]);
+      }
+    }
+    m = m_new;
   }
 
-  T* ob = out + (size_t)bh * Sq * D;
+  if (!row_ok) return;
+  T* orow = out + ((size_t)bh * Sq + row) * D;
+  const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
-  for (int j = 0; j < kRowsPerWarp; ++j) {
-    const int row = q0 + warp + kWarps * j;
-    if (row >= Sq) continue;
-    const float inv = l[j] > 0.f ? 1.f / l[j] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) ob[(size_t)row * D + d] = bigdl::from_float<T>(acc[j][c] * inv);
-    }
+  for (int c = 0; c < NC; ++c) {
+    const int d = lane + 32 * c;
+    if (d < D) orow[d] = bigdl::from_float<T>(acc[c] * inv);
   }
 }
 
@@ -163,7 +190,7 @@ int launch_nc(const void* q, const void* k, const void* v, const void* bias,
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(B * H, (Sq + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias), bs_b, bs_h,
       bs_q, bs_k, static_cast<T*>(out), H, Sq, Sk, D, scale, causal);

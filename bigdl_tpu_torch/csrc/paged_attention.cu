@@ -21,10 +21,11 @@
 // warps in parallel; each warp keeps its own online-softmax state. For a
 // key row, each lane multiplies the D/32 columns it owns (coalesced loads
 // straight from the physical page), the warp sums the partial dots with
-// shuffles, and each lane updates its D/32 output columns. Columns past
-// pos are never read (the TPU kernel loads them and masks to -1e30: same
-// result). At the end the warps' (max, sum, acc) triples are merged once
-// through shared memory.
+// shuffles, and each lane updates its D/32 output columns; the row loop
+// is unrolled so the next rows' loads issue before this row's reductions
+// finish. Columns past pos are never read (the TPU kernel loads them and
+// masks to -1e30: same result). At the end the warps' (max, sum, acc)
+// triples are merged once through shared memory.
 #include <math.h>
 
 #include "common.cuh"
@@ -72,6 +73,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     const T* kp = k_pages + base;
     const T* vp = v_pages + base;
     const int rows = min(page_size, pos - p * page_size + 1);
+#pragma unroll 4
     for (int r = 0; r < rows; ++r) {
       const T* kr = kp + (size_t)r * D;
       float part = 0.f;

@@ -3,8 +3,8 @@
 On the CPU the port's wrappers run the kernels' plain versions; these are
 held against the JAX package's Pallas kernels run in interpret mode (as
 ``tests/test_attention.py`` and ``tests/test_paged_generation.py`` run
-them) and against its XLA reference math. The CUDA kernels themselves run
-only on a card (``gpu`` marker).
+them) and against its XLA reference math. The CUDA kernels themselves
+run only on a card: ``test_torch_gpu.py``.
 
 Tolerances, fp32 throughout (JAX at ``jax_default_matmul_precision=
 highest``, from ``tests/conftest.py``): 2e-5 absolute against the Pallas
@@ -165,78 +165,3 @@ def test_gather_kv_lanes_is_exact_data_movement():
     out = tfa.gather_kv_lanes(torch.from_numpy(pages), torch.from_numpy(pm))
     np.testing.assert_array_equal(out.numpy(), ref)
     np.testing.assert_array_equal(out.numpy()[0, :, 4:8], pages[0])
-
-
-# ------------------------------------------------------- on the card ----
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4),
-                                        (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("sq, sk, causal, bias", [
-    (16, 256, False, True), (1, 256, False, True), (256, 256, True, False),
-    (100, 300, True, False), (5, 9, False, False)])
-def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, sq, sk,
-                                            causal, bias):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(2, 4, s, 64, generator=g, device=cuda).to(dtype)
-               for s in (sq, sk, sk))
-    b = None
-    if bias:
-        b = torch.where(torch.arange(sk, device=cuda)[None, :]
-                        <= torch.arange(sq, device=cuda)[:, None] + 3,
-                        0.0, -1e9)[None, None]
-    before = tfa.flash_attention.launches
-    out = tfa.flash_attention(q, k, v, b, None, causal)
-    assert tfa.flash_attention.launches == before + 1
-    ref = tfa.plain_attention(q, k, v, b, None, causal)
-    torch.cuda.synchronize()
-    assert (out.float() - ref.float()).abs().max().item() < tol
-
-
-@pytest.mark.gpu
-def test_flash_kernel_gradient_is_plain_gradient(cuda):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    q, k, v = (torch.randn(1, 2, 48, 32, generator=g, device=cuda,
-                           requires_grad=True) for _ in range(3))
-    grads = torch.autograd.grad(
-        tfa.flash_attention(q, k, v, None, None, True).sum(), (q, k, v))
-    refs = torch.autograd.grad(
-        tfa.plain_attention(q, k, v, None, None, True).sum(), (q, k, v))
-    for a, b in zip(grads, refs):
-        assert (a - b).abs().max().item() < 1e-4
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4),
-                                        (torch.bfloat16, 3e-2)])
-def test_paged_kernel_matches_plain_on_card(cuda, dtype, tol):
-    g = torch.Generator(device=cuda).manual_seed(2)
-    kp, vp = (torch.randn(129, 8, 16, 64, generator=g, device=cuda).to(dtype)
-              for _ in range(2))
-    pm = torch.randperm(128, device=cuda, generator=g)[:128].reshape(8, 16)
-    pm = pm.to(torch.int32)
-    pos = torch.tensor([0, 15, 16, 255, 37, 100, 128, 200],
-                       dtype=torch.int32, device=cuda)
-    q = torch.randn(8, 8, 64, generator=g, device=cuda).to(dtype)
-    before = tfa.paged_flash_attention.launches
-    out = tfa.paged_flash_attention(q, kp, vp, pm, pos)
-    assert tfa.paged_flash_attention.launches == before + 1
-    ref = tfa.paged_attention_reference(q, kp, vp, pm, pos)
-    torch.cuda.synchronize()
-    assert (out.float() - ref.float()).abs().max().item() < tol
-
-
-@pytest.mark.gpu
-def test_kernel_wrappers_raise_on_unsupported_input(cuda):
-    q = torch.zeros(1, 1, 4, 8, device=cuda, dtype=torch.float16)
-    with pytest.raises(TypeError):
-        tfa.flash_attention(q, q, q)
-    q = torch.zeros(1, 1, 4, 300, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_attention(q, q, q)
-    q = torch.zeros(2, 1, 8, device=cuda)
-    pools = torch.zeros(3, 1, 4, 8, device=cuda)
-    pm64 = torch.zeros(2, 1, dtype=torch.int64, device=cuda)
-    with pytest.raises(TypeError, match="int32"):
-        tfa.paged_flash_attention(q, pools, pools, pm64, pm64[:, 0])
