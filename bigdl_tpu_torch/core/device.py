@@ -9,7 +9,7 @@ the tests, a CPU reference run — say so with ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 

@@ -40,9 +40,9 @@ constexpr int kThreads = kWarps * 32;
 
 // Load K/V tile rows k0 .. k0 + kBlockK - 1 (zeros past Sk) into this
 // thread's registers: element u of thread t is tile element t + u*kThreads.
-template <typename T, int kPer>
-__device__ __forceinline__ void fetch_tile(const T* __restrict__ kb,
-                                           const T* __restrict__ vb, int k0,
+template <typename TKV, int kPer>
+__device__ __forceinline__ void fetch_tile(const TKV* __restrict__ kb,
+                                           const TKV* __restrict__ vb, int k0,
                                            int Sk, int D, float (&kreg)[kPer],
                                            float (&vreg)[kPer]) {
 #pragma unroll
@@ -59,13 +59,14 @@ __device__ __forceinline__ void fetch_tile(const T* __restrict__ kb,
   }
 }
 
-template <typename T, int NC>
+template <typename TQ, typename TKV, int NC>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     long long bs_b, long long bs_h, long long bs_q,
-                     long long bs_k, T* __restrict__ out, int H, int Sq,
-                     int Sk, int D, float scale, int causal) {
+    flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                     const TKV* __restrict__ v,
+                     const float* __restrict__ bias, long long bs_b,
+                     long long bs_h, long long bs_q, long long bs_k,
+                     TQ* __restrict__ out, int H, int Sq, int Sk, int D,
+                     float scale, int causal) {
   // each thread's share of one K (and one V) tile, D <= 32 * NC
   constexpr int kPer = (kBlockK * 32 * NC + kThreads - 1) / kThreads;
   extern __shared__ float smem[];
@@ -80,9 +81,9 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.y * kBlockQ;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* kb = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
+  const TQ* qb = q + (size_t)bh * Sq * D;
+  const TKV* kb = k + (size_t)bh * Sk * D;
+  const TKV* vb = v + (size_t)bh * Sk * D;
   const float* biasb = bias ? bias + b * bs_b + h * bs_h : nullptr;
 
 #pragma unroll 4
@@ -105,7 +106,7 @@ __global__ void __launch_bounds__(kThreads)
   // the next K/V tile travels through registers: its loads are issued
   // before the current tile's compute and land while it runs
   float kreg[kPer], vreg[kPer];
-  if (k_end > 0) fetch_tile<T, kPer>(kb, vb, 0, Sk, D, kreg, vreg);
+  if (k_end > 0) fetch_tile<TKV, kPer>(kb, vb, 0, Sk, D, kreg, vreg);
 
   const int row = q0 + warp;
   const bool row_ok = row < Sq;
@@ -129,7 +130,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     if (k0 + kBlockK < k_end)
-      fetch_tile<T, kPer>(kb, vb, k0 + kBlockK, Sk, D, kreg, vreg);
+      fetch_tile<TKV, kPer>(kb, vb, k0 + kBlockK, Sk, D, kreg, vreg);
     if (!row_ok) continue;  // warp-uniform
 
     const int col = k0 + lane;
@@ -166,16 +167,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (!row_ok) return;
-  T* orow = out + ((size_t)bh * Sq + row) * D;
+  TQ* orow = out + ((size_t)bh * Sq + row) * D;
   const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int d = lane + 32 * c;
-    if (d < D) orow[d] = bigdl::from_float<T>(acc[c] * inv);
+    if (d < D) orow[d] = bigdl::from_float<TQ>(acc[c] * inv);
   }
 }
 
-template <typename T, int NC>
+template <typename TQ, typename TKV, int NC>
 int launch_nc(const void* q, const void* k, const void* v, const void* bias,
               long long bs_b, long long bs_h, long long bs_q, long long bs_k,
               void* out, int B, int H, int Sq, int Sk, int D, float scale,
@@ -183,7 +184,7 @@ int launch_nc(const void* q, const void* k, const void* v, const void* bias,
   const size_t smem =
       sizeof(float) * ((size_t)kBlockQ * D + (size_t)kBlockK * (D + 1) +
                        (size_t)kBlockK * D);
-  auto kernel = flash_fwd_kernel<T, NC>;
+  auto kernel = flash_fwd_kernel<TQ, TKV, NC>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -191,21 +192,22 @@ int launch_nc(const void* q, const void* k, const void* v, const void* bias,
   }
   dim3 grid(B * H, (Sq + kBlockQ - 1) / kBlockQ);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias), bs_b, bs_h,
-      bs_q, bs_k, static_cast<T*>(out), H, Sq, Sk, D, scale, causal);
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), static_cast<const float*>(bias), bs_b,
+      bs_h, bs_q, bs_k, static_cast<TQ*>(out), H, Sq, Sk, D, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            long long bs_b, long long bs_h, long long bs_q, long long bs_k,
            void* out, int B, int H, int Sq, int Sk, int D, float scale,
            int causal, cudaStream_t stream) {
 #define BIGDL_FLASH_CASE(NC)                                               \
   case NC:                                                                 \
-    return launch_nc<T, NC>(q, k, v, bias, bs_b, bs_h, bs_q, bs_k, out, B, \
-                            H, Sq, Sk, D, scale, causal, stream);
+    return launch_nc<TQ, TKV, NC>(q, k, v, bias, bs_b, bs_h, bs_q, bs_k,   \
+                                  out, B, H, Sq, Sk, D, scale, causal,   \
+                                  stream);
   switch ((D + 31) / 32) {
     BIGDL_FLASH_CASE(1)
     BIGDL_FLASH_CASE(2)
@@ -224,20 +226,27 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = launched). `bias` may be NULL;
-// its strides are in elements and may be 0 (broadcast dimensions).
+// its strides are in elements and may be 0 (broadcast dimensions). Element
+// types: q/out and k/v as (q_dtype, kv_dtype) = (f32, f32), (bf16, bf16)
+// or (f32, bf16) — bf16 K/V under fp32 activations.
 extern "C" int bigdl_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias,
     long long bs_b, long long bs_h, long long bs_q, long long bs_k, void* out,
-    int B, int H, int Sq, int Sk, int D, float scale, int causal, int dtype,
-    void* stream) {
+    int B, int H, int Sq, int Sk, int D, float scale, int causal, int q_dtype,
+    int kv_dtype, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || D < 1 || D > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == bigdl::kF32)
-    return launch<float>(q, k, v, bias, bs_b, bs_h, bs_q, bs_k, out, B, H,
-                         Sq, Sk, D, scale, causal, s);
-  if (dtype == bigdl::kBF16)
-    return launch<__nv_bfloat16>(q, k, v, bias, bs_b, bs_h, bs_q, bs_k, out,
-                                 B, H, Sq, Sk, D, scale, causal, s);
+  if (q_dtype == bigdl::kF32 && kv_dtype == bigdl::kF32)
+    return launch<float, float>(q, k, v, bias, bs_b, bs_h, bs_q, bs_k, out,
+                                B, H, Sq, Sk, D, scale, causal, s);
+  if (q_dtype == bigdl::kBF16 && kv_dtype == bigdl::kBF16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, bias, bs_b, bs_h,
+                                                bs_q, bs_k, out, B, H, Sq, Sk,
+                                                D, scale, causal, s);
+  if (q_dtype == bigdl::kF32 && kv_dtype == bigdl::kBF16)
+    return launch<float, __nv_bfloat16>(q, k, v, bias, bs_b, bs_h, bs_q,
+                                        bs_k, out, B, H, Sq, Sk, D, scale,
+                                        causal, s);
   return (int)cudaErrorInvalidValue;
 }

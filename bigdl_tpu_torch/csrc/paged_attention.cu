@@ -34,15 +34,15 @@ namespace {
 
 constexpr int kWarps = 8;
 
-template <typename T, int NC>
+template <typename TQ, typename TKV, int NC>
 __global__ void __launch_bounds__(kWarps * 32)
-    paged_attention_kernel(const T* __restrict__ q,
-                           const T* __restrict__ k_pages,
-                           const T* __restrict__ v_pages,
+    paged_attention_kernel(const TQ* __restrict__ q,
+                           const TKV* __restrict__ k_pages,
+                           const TKV* __restrict__ v_pages,
                            const int* __restrict__ page_map,
                            const int* __restrict__ positions,
-                           T* __restrict__ out, int H, int page_size, int ppn,
-                           int D, float scale) {
+                           TQ* __restrict__ out, int H, int page_size,
+                           int ppn, int D, float scale) {
   extern __shared__ float s_acc[];  // kWarps x D
   __shared__ float s_m[kWarps];
   __shared__ float s_l[kWarps];
@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int warp = threadIdx.x >> 5;
   const int pos = positions[s];
   const int* map_row = page_map + (size_t)s * ppn;
-  const T* qv = q + ((size_t)s * H + h) * D;
+  const TQ* qv = q + ((size_t)s * H + h) * D;
 
   float qreg[NC], acc[NC];
 #pragma unroll
@@ -70,12 +70,12 @@ __global__ void __launch_bounds__(kWarps * 32)
   const size_t head_off = (size_t)h * page_size * D;
   for (int p = warp; p < n_pages; p += kWarps) {
     const size_t base = (size_t)map_row[p] * page_stride + head_off;
-    const T* kp = k_pages + base;
-    const T* vp = v_pages + base;
+    const TKV* kp = k_pages + base;
+    const TKV* vp = v_pages + base;
     const int rows = min(page_size, pos - p * page_size + 1);
 #pragma unroll 4
     for (int r = 0; r < rows; ++r) {
-      const T* kr = kp + (size_t)r * D;
+      const TKV* kr = kp + (size_t)r * D;
       float part = 0.f;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
@@ -87,7 +87,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const float alpha = expf(m - m_new);
       const float w = expf(score - m_new);
       l = l * alpha + w;
-      const T* vr = vp + (size_t)r * D;
+      const TKV* vr = vp + (size_t)r * D;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int d = lane + 32 * c;
@@ -120,39 +120,39 @@ __global__ void __launch_bounds__(kWarps * 32)
     l_all += s_l[w] * wgt[w];
   }
   const float inv = l_all > 0.f ? 1.f / l_all : 0.f;
-  T* ov = out + ((size_t)s * H + h) * D;
+  TQ* ov = out + ((size_t)s * H + h) * D;
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float o = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) o = fmaf(s_acc[w * D + d], wgt[w], o);
-    ov[d] = bigdl::from_float<T>(o * inv);
+    ov[d] = bigdl::from_float<TQ>(o * inv);
   }
 }
 
-template <typename T, int NC>
+template <typename TQ, typename TKV, int NC>
 int launch_nc(const void* q, const void* kp, const void* vp,
               const void* page_map, const void* positions, void* out, int S,
               int H, int page_size, int ppn, int D, float scale,
               cudaStream_t stream) {
   dim3 grid(S, H);
   const size_t smem = sizeof(float) * kWarps * D;
-  paged_attention_kernel<T, NC><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(page_map),
-      static_cast<const int*>(positions), static_cast<T*>(out), H, page_size,
-      ppn, D, scale);
+  paged_attention_kernel<TQ, TKV, NC><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
+      static_cast<const TKV*>(vp), static_cast<const int*>(page_map),
+      static_cast<const int*>(positions), static_cast<TQ*>(out), H,
+      page_size, ppn, D, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename TKV>
 int launch(const void* q, const void* kp, const void* vp,
            const void* page_map, const void* positions, void* out, int S,
            int H, int page_size, int ppn, int D, float scale,
            cudaStream_t stream) {
 #define BIGDL_PAGED_CASE(NC)                                                \
   case NC:                                                                  \
-    return launch_nc<T, NC>(q, kp, vp, page_map, positions, out, S, H,      \
-                            page_size, ppn, D, scale, stream);
+    return launch_nc<TQ, TKV, NC>(q, kp, vp, page_map, positions, out, S, \
+                                  H, page_size, ppn, D, scale, stream);
   switch ((D + 31) / 32) {
     BIGDL_PAGED_CASE(1)
     BIGDL_PAGED_CASE(2)
@@ -172,20 +172,28 @@ int launch(const void* q, const void* kp, const void* vp,
 
 // Returns the cudaError_t of the launch (0 = launched). Page ids in
 // `page_map` must lie in [0, num_pages): the kernel reads them unchecked.
+// Element types as (q_dtype, kv_dtype): (f32, f32), (bf16, bf16) or
+// (f32, bf16) — bf16 pools under fp32 activations; out has q's type.
 extern "C" int bigdl_paged_attention(const void* q, const void* k_pages,
                                      const void* v_pages,
                                      const void* page_map,
                                      const void* positions, void* out, int S,
                                      int H, int page_size, int ppn, int D,
-                                     float scale, int dtype, void* stream) {
+                                     float scale, int q_dtype, int kv_dtype,
+                                     void* stream) {
   if (S < 1 || H < 1 || page_size < 1 || ppn < 1 || D < 1 || D > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == bigdl::kF32)
-    return launch<float>(q, k_pages, v_pages, page_map, positions, out, S, H,
-                         page_size, ppn, D, scale, st);
-  if (dtype == bigdl::kBF16)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, page_map, positions,
-                                 out, S, H, page_size, ppn, D, scale, st);
+  if (q_dtype == bigdl::kF32 && kv_dtype == bigdl::kF32)
+    return launch<float, float>(q, k_pages, v_pages, page_map, positions,
+                                out, S, H, page_size, ppn, D, scale, st);
+  if (q_dtype == bigdl::kBF16 && kv_dtype == bigdl::kBF16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, page_map, positions, out, S, H, page_size, ppn,
+        D, scale, st);
+  if (q_dtype == bigdl::kF32 && kv_dtype == bigdl::kBF16)
+    return launch<float, __nv_bfloat16>(q, k_pages, v_pages, page_map,
+                                        positions, out, S, H, page_size, ppn,
+                                        D, scale, st);
   return (int)cudaErrorInvalidValue;
 }

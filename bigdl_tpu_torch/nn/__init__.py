@@ -1,7 +1,6 @@
 """Layers of the port (``bigdl_tpu/nn`` counterparts)."""
 
 from bigdl_tpu_torch.nn.layers.attention import (
-    LANGUAGE_MODEL,
     Attention,
     FeedForwardNetwork,
     Transformer,
@@ -12,6 +11,6 @@ from bigdl_tpu_torch.nn.layers.dropout import Dropout
 from bigdl_tpu_torch.nn.layers.linear import Linear
 from bigdl_tpu_torch.nn.layers.norm import LayerNormalization
 
-__all__ = ["LANGUAGE_MODEL", "Attention", "Dropout", "FeedForwardNetwork",
+__all__ = ["Attention", "Dropout", "FeedForwardNetwork",
            "LayerNormalization", "Linear", "Transformer", "TransformerLayer",
            "position_encoding"]

@@ -23,21 +23,13 @@ class InitializationMethod:
 
 
 class RandomUniform(InitializationMethod):
-    """Uniform in [lower, upper]; default Torch-style 1/sqrt(fan_in)."""
-
-    def __init__(self, lower: Optional[float] = None,
-                 upper: Optional[float] = None):
-        self.lower, self.upper = lower, upper
+    """Torch-style uniform in [-1/sqrt(fan_in), 1/sqrt(fan_in)]."""
 
     def __call__(self, generator, shape, fan_in, fan_out,
                  dtype=torch.float32):
-        if self.lower is None:
-            stdv = 1.0 / math.sqrt(max(1, fan_in))
-            lo, hi = -stdv, stdv
-        else:
-            lo, hi = self.lower, self.upper
+        stdv = 1.0 / math.sqrt(max(1, fan_in))
         u = torch.rand(tuple(shape), generator=generator, dtype=dtype)
-        return lo + (hi - lo) * u
+        return stdv * (2.0 * u - 1.0)
 
 
 class RandomNormal(InitializationMethod):

@@ -33,9 +33,6 @@ from bigdl_tpu_torch.nn.layers.norm import LayerNormalization
 from bigdl_tpu_torch.ops.attention import dot_product_attention, paged_attention
 from bigdl_tpu_torch.ops.flash_attention import gather_kv_lanes
 
-LANGUAGE_MODEL = "language_model"
-TRANSLATION = "translation"
-
 Cache = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -219,10 +216,10 @@ class TransformerLayer(nn.Module):
 
 class Transformer(nn.Module):
     """Decoder-only transformer language model (reference
-    ``DL/nn/Transformer.scala:53``, ``language_model`` mode): token ids
-    (B, S) -> logits (B, S, vocab). The embedding is scaled by
-    sqrt(hidden) and, with ``with_share_weights_linear``, shared with the
-    output projection.
+    ``DL/nn/Transformer.scala:53``, ``language_model`` mode with shared
+    embedding/output weights): token ids (B, S) -> logits (B, S, vocab).
+    The embedding is scaled by sqrt(hidden). Translation mode and an
+    untied output projection come with the training slice.
 
     ``device=None`` means ``"cuda"`` (raises without a card). Weights are
     drawn from ``generator`` (a seeded CPU ``torch.Generator``; default
@@ -234,25 +231,15 @@ class Transformer(nn.Module):
                  filter_size: int, num_hidden_layers: int,
                  embedding_dropout: float = 0.0,
                  attention_dropout: float = 0.0, ffn_dropout: float = 0.0,
-                 padding_value: int = 0,
-                 with_share_weights_linear: bool = True,
-                 transformer_type: str = LANGUAGE_MODEL, *,
-                 device: DeviceLike = None,
+                 *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if transformer_type != LANGUAGE_MODEL:
-            raise NotImplementedError(
-                f"transformer_type {transformer_type!r}: the port has the "
-                f"{LANGUAGE_MODEL!r} mode only so far")
         device = resolve_device(device)
         gen = default_generator(generator)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_heads = num_heads
         self.num_hidden_layers = num_hidden_layers
-        self.padding_value = padding_value
-        self.transformer_type = transformer_type
-        self.share_embedding = with_share_weights_linear
         self.embed_drop = Dropout(embedding_dropout)
         for i in range(num_hidden_layers):
             self.add_module(f"decoder_{i}", TransformerLayer(
@@ -260,9 +247,6 @@ class Transformer(nn.Module):
                 ffn_dropout, residual_dropout=embedding_dropout,
                 device=device, generator=gen))
         self.final_norm = LayerNormalization(hidden_size, device=device)
-        if not with_share_weights_linear:
-            self.project = Linear(hidden_size, vocab_size, with_bias=False,
-                                  device=device, generator=gen)
         emb = RandomNormal(0.0, hidden_size ** -0.5)(
             gen, (vocab_size, hidden_size), vocab_size, hidden_size)
         self.embedding = nn.Parameter(emb.to(device))
@@ -286,9 +270,7 @@ class Transformer(nn.Module):
                 if n.startswith("decoder_")]
 
     def _logits(self, h):
-        if self.share_embedding:
-            return torch.matmul(h, self.embedding.to(h.dtype).t())
-        return self.project(h)
+        return torch.matmul(h, self.embedding.to(h.dtype).t())
 
     def _as_ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(ids, device=self.device).long()

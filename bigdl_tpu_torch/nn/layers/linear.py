@@ -23,8 +23,7 @@ from bigdl_tpu_torch.nn.init import (
 class Linear(nn.Module):
     def __init__(self, input_size: int, output_size: int,
                  with_bias: bool = True,
-                 weight_init: Optional[InitializationMethod] = None,
-                 bias_init: Optional[InitializationMethod] = None, *,
+                 weight_init: Optional[InitializationMethod] = None, *,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -37,8 +36,7 @@ class Linear(nn.Module):
             gen, (output_size, input_size), input_size, output_size)
         self.weight = nn.Parameter(w.to(device))
         if with_bias:
-            b = (bias_init or RandomUniform())(
-                gen, (output_size,), input_size, output_size)
+            b = RandomUniform()(gen, (output_size,), input_size, output_size)
             self.bias = nn.Parameter(b.to(device))
         else:
             self.register_parameter("bias", None)

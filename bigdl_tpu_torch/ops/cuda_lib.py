@@ -19,7 +19,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -34,21 +33,20 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "flash_attention": ("bigdl_flash_attention_fwd",
                         [_P, _P, _P, _P, _L, _L, _L, _L, _P,
-                         _I, _I, _I, _I, _I, _F, _I, _I, _P]),
+                         _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]),
     "paged_attention": ("bigdl_paged_attention",
                         [_P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _F, _I, _P]),
+                         _I, _I, _I, _I, _I, _F, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}   # process-wide: one dlopen per library
+_loaded: Dict[str, object] = {}   # process-wide: one dlopen per library
 
 
 @dataclass
 class BuildResult:
     name: str
     path: Path
-    seconds: float        # 0.0 when an up-to-date library was reused
     ptxas: str            # nvcc's -Xptxas -v report (registers, smem, spills)
 
 
@@ -99,52 +97,44 @@ def _build_locked(names) -> Dict[str, BuildResult]:
         so, log = _paths(name)
         if so.exists():
             results[name] = BuildResult(
-                name, so, 0.0, log.read_text() if log.exists() else "")
+                name, so, log.read_text() if log.exists() else "")
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, so, log, time.monotonic())
+        running[name] = (proc, tmp, so, log)
     failures = []
-    for name, (proc, tmp, so, log, t0) in running.items():
+    for name, (proc, tmp, so, log) in running.items():
         output, _ = proc.communicate()
-        seconds = time.monotonic() - t0
         if proc.returncode != 0:
             failures.append(f"--- {name} (nvcc exit {proc.returncode})\n"
                             f"{output}")
             continue
         log.write_text(output)
         os.replace(tmp, so)   # atomic: a reader never sees half a library
-        results[name] = BuildResult(name, so, seconds, output)
+        results[name] = BuildResult(name, so, output)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return results
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel ``name``, building it on first use;
-    its entry point has ``argtypes``/``restype`` declared."""
-    lib = _loaded.get(name)
-    if lib is not None:
-        return lib
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            path = _build_locked([name])[name].path
-            lib = ctypes.CDLL(str(path))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _loaded[name] = lib
-    return lib
-
-
 def entry(name: str):
-    """The C launch function of kernel library ``name``."""
-    return getattr(library(name), SIGNATURES[name][0])
+    """The C launch function of kernel library ``name`` (``argtypes`` and
+    ``restype`` declared), building and loading the library on first use."""
+    fn = _loaded.get(name)
+    if fn is None:
+        with _lock:
+            fn = _loaded.get(name)
+            if fn is None:
+                lib = ctypes.CDLL(str(_build_locked([name])[name].path))
+                fn_name, argtypes = SIGNATURES[name]
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _loaded[name] = fn   # the function keeps its library loaded
+    return fn
 
 
 def check(err: int, what: str) -> None:

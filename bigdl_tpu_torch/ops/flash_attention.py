@@ -24,6 +24,11 @@ from bigdl_tpu_torch.ops import cuda_lib
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# (q dtype, K/V dtype) pairs the kernels take: one dtype, or bf16 K/V
+# under fp32 activations (the engine with a bf16 KV cache)
+_DTYPE_PAIRS = {(torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.bfloat16)}
 MAX_HEAD_DIM = 256
 
 
@@ -86,24 +91,32 @@ def _device_kind(*tensors) -> str:
     return kind
 
 
-def _check_float(name, t, dtype):
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _dtype_codes(q, kv, what):
+    """The kernels' (q, K/V) dtype codes; raises on any other pairing."""
+    if (q.dtype, kv.dtype) not in _DTYPE_PAIRS:
+        raise TypeError(f"{what} kernel takes q/K/V dtypes float32/float32, "
+                        f"bfloat16/bfloat16 or float32/bfloat16, got "
+                        f"{q.dtype}/{kv.dtype}")
+    return _DTYPE_CODES[q.dtype], _DTYPE_CODES[kv.dtype]
+
+
+def _check_contiguous(**tensors):
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 # ------------------------------------------------------------- B2 ----
 
 
 def _launch_flash(q, k, v, bias, scale: float, causal: bool) -> torch.Tensor:
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be (B, H, S, D), got {tuple(t.shape)}")
-        _check_float(name, t, q.dtype)
+    if v.dtype != k.dtype:
+        raise TypeError(f"k and v dtypes differ: {k.dtype} vs {v.dtype}")
+    codes = _dtype_codes(q, k, "flash_attention")
+    _check_contiguous(q=q, k=k, v=v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
@@ -128,7 +141,7 @@ def _launch_flash(q, k, v, bias, scale: float, causal: bool) -> torch.Tensor:
         err = cuda_lib.entry("flash_attention")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
             out.data_ptr(), b, h, sq, sk, d, float(scale), int(causal),
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+            *codes, torch.cuda.current_stream().cuda_stream)
         flash_attention.launches += 1
     cuda_lib.check(err, "flash_attention")
     return out
@@ -153,7 +166,7 @@ class _FlashAttention(torch.autograd.Function):
             leaves = [None if t is None else t.detach().requires_grad_(need)
                       for t, need in zip(inputs, ctx.needs_input_grad[:4])]
             out = plain_attention(leaves[0], leaves[1], leaves[2], leaves[3],
-                                  ctx.scale, ctx.causal)
+                                  ctx.scale, ctx.causal).to(g.dtype)
             wanted = [t for t in leaves if t is not None and t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, g)) if wanted else iter(())
         return tuple(next(grads) if t is not None and t.requires_grad else None
@@ -165,8 +178,9 @@ def flash_attention(q, k, v, bias=None, sm_scale: Optional[float] = None,
     """Fused online-softmax attention (kernel B2). q (B,H,Sq,D), k/v
     (B,H,Sk,D), optional additive bias broadcastable to (B,H,Sq,Sk).
     CPU tensors take :func:`plain_attention`; CUDA tensors launch the
-    kernel, which takes float32 and bfloat16, any Sq/Sk, D <= 256, and
-    contiguous q/k/v (anything else raises)."""
+    kernel, which takes float32 or bfloat16 (bf16 K/V may sit under fp32
+    q), any Sq/Sk, D <= 256 and contiguous q/k/v, and returns q's dtype
+    (anything else raises)."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _device_kind(q, k, v, bias) == "cpu":
         return plain_attention(q, k, v, bias, scale, causal)
@@ -181,9 +195,6 @@ flash_attention.launches = 0
 
 def _launch_paged(q, k_pages, v_pages, page_map, positions,
                   scale: float) -> torch.Tensor:
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"paged attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError(f"q must be (S, H, D) and pools (P, H, page_size, "
                          f"D); got {tuple(q.shape)}, {tuple(k_pages.shape)}")
@@ -196,8 +207,12 @@ def _launch_paged(q, k_pages, v_pages, page_map, positions,
                          f"{tuple(q.shape)}")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} outside [1, {MAX_HEAD_DIM}]")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        _check_float(name, t, q.dtype)
+    if v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"pool dtypes differ: {k_pages.dtype} vs "
+                        f"{v_pages.dtype}")
+    codes = _dtype_codes(q, k_pages, "paged attention")
+    _check_contiguous(q=q, k_pages=k_pages, v_pages=v_pages,
+                      page_map=page_map, positions=positions)
     if page_map.dim() != 2 or page_map.shape[0] != n_slots:
         raise ValueError(f"page_map must be (S, ppn), got "
                          f"{tuple(page_map.shape)}")
@@ -207,8 +222,6 @@ def _launch_paged(q, k_pages, v_pages, page_map, positions,
     for name, t in (("page_map", page_map), ("positions", positions)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if len({t.device for t in (q, k_pages, v_pages, page_map,
                                positions)}) != 1:
         raise ValueError("paged attention inputs must be on one device")
@@ -218,7 +231,7 @@ def _launch_paged(q, k_pages, v_pages, page_map, positions,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_map.data_ptr(), positions.data_ptr(), out.data_ptr(),
             n_slots, heads, page_size, page_map.shape[1], d, float(scale),
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+            *codes, torch.cuda.current_stream().cuda_stream)
         paged_flash_attention.launches += 1
     cuda_lib.check(err, "paged_attention")
     return out
@@ -230,7 +243,9 @@ def paged_flash_attention(q, k_pages, v_pages, page_map, positions,
     (num_pages,H,page_size,D); ``page_map`` (S,ppn) int32 with ids in
     [0, num_pages); ``positions`` (S,) int32 — key col j of slot s is
     visible iff j <= positions[s]. CPU tensors take
-    :func:`paged_attention_reference`; CUDA tensors launch the kernel."""
+    :func:`paged_attention_reference`; CUDA tensors launch the kernel
+    (float32 or bfloat16 pools, q float32 or the pools' dtype; output in
+    q's dtype)."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if _device_kind(q, k_pages, v_pages, page_map, positions) == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, page_map,

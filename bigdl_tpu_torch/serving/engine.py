@@ -39,7 +39,7 @@ import threading
 import time
 import weakref
 from collections import deque
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,16 +76,11 @@ class PagedDecodeKernels:
     (``init_paged_cache`` / ``prefill_paged`` / ``decode_step_paged``).
     Host inputs (numpy or lists) are copied to the model's device; only
     the int32 next-token vector comes back. Greedy selection runs on the
-    device. ``prefill_calls`` / ``chunk_calls`` / ``decode_calls`` count
-    invocations (the JAX triple counts compilations; eager PyTorch has
-    none)."""
+    device."""
 
     def __init__(self, model):
         self.model = model
         self.device = next(model.parameters()).device
-        self.prefill_calls = 0
-        self.chunk_calls = 0
-        self.decode_calls = 0
 
     def _ids(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
@@ -95,7 +90,6 @@ class PagedDecodeKernels:
                 trash: int):
         """Final (or only) chunk of one prompt: writes its K/V rows and
         returns ``(first generated token (device int32 scalar), cache)``."""
-        self.prefill_calls += 1
         logits, cache = self.model.prefill_paged(
             cache, self._ids(pages), self._ids(tokens), int(start),
             int(length), int(trash))
@@ -105,7 +99,6 @@ class PagedDecodeKernels:
     def chunk(self, cache, pages, tokens, start: int, length: int,
               trash: int):
         """Non-final prompt chunk: K/V writes only. -> cache."""
-        self.chunk_calls += 1
         return self.model.prefill_paged(
             cache, self._ids(pages), self._ids(tokens), int(start),
             int(length), int(trash), need_logits=False)
@@ -114,7 +107,6 @@ class PagedDecodeKernels:
     def decode(self, cache, tokens, positions, page_map):
         """One decode step for every slot -> ``(next token per slot (S,)
         device int32, cache)``."""
-        self.decode_calls += 1
         logits, cache = self.model.decode_step_paged(
             cache, self._ids(tokens), self._ids(positions),
             self._ids(page_map))
@@ -135,23 +127,17 @@ class GenerationStream:
         self._error: Optional[BaseException] = None
         self._cancelled = False
         self.t_submit = time.monotonic()
-        self.t_first: Optional[float] = None
-        self.t_done: Optional[float] = None
 
-    def _push(self, token: int, now: float) -> None:
+    def _push(self, token: int) -> None:
         with self._lock:
-            if self.t_first is None:
-                self.t_first = now
             self._tokens.append(token)
         self._q.put(token)
 
-    def _finish(self, error: Optional[BaseException] = None,
-                now: Optional[float] = None) -> None:
+    def _finish(self, error: Optional[BaseException] = None) -> None:
         with self._lock:
             if self._done.is_set():
                 return
             self._error = error
-            self.t_done = now if now is not None else time.monotonic()
             self._done.set()
         self._q.put(_SENTINEL)
 
@@ -203,10 +189,6 @@ class GenerationStream:
     def error(self) -> Optional[BaseException]:
         return self._error
 
-    @property
-    def ttft_s(self) -> Optional[float]:
-        return None if self.t_first is None else self.t_first - self.t_submit
-
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new_tokens", "deadline", "stream")
@@ -223,16 +205,15 @@ class _SlotState:
     """Host bookkeeping for one occupied slot: admitted in phase
     "prefill", flipped to "decode" once the final prompt chunk has run."""
 
-    __slots__ = ("req", "last_token", "position", "generated", "t_admit",
-                 "phase", "pages", "page_row", "prefill_pos")
+    __slots__ = ("req", "last_token", "position", "generated", "phase",
+                 "pages", "page_row", "prefill_pos")
 
     def __init__(self, req: _GenRequest, pages: List[int], page_row,
-                 t_admit: float, pad_id: int):
+                 pad_id: int):
         self.req = req
         self.last_token = pad_id
         self.position = 0          # cache row the NEXT token writes
         self.generated = 0
-        self.t_admit = t_admit
         self.phase = "prefill"
         self.pages: Optional[List[int]] = pages
         self.page_row = page_row   # (ppn,) int32 map row
@@ -336,7 +317,6 @@ class GenerationEngine:
                  max_prompt_len: Optional[int] = None,
                  eos_id: Optional[int] = None, pad_id: int = 0,
                  max_queue: int = 64,
-                 metrics: Optional[ServingMetrics] = None,
                  cache_dtype: torch.dtype = torch.float32,
                  kernels: Optional[PagedDecodeKernels] = None,
                  page_size: int = 16, num_pages: Optional[int] = None,
@@ -352,7 +332,7 @@ class GenerationEngine:
         self.eos_id = None if eos_id is None else int(eos_id)
         self.pad_id = int(pad_id)
         self.max_queue = int(max_queue)
-        self.metrics = metrics or ServingMetrics()
+        self.metrics = ServingMetrics()
         self.max_prompt_len = int(max_prompt_len or (max_len - 1))
         if not 1 <= self.max_prompt_len < self.max_len:
             raise ValueError(
@@ -429,9 +409,7 @@ class GenerationEngine:
                 self.metrics.record_rejected()
                 raise Overloaded(len(core.pending), self.max_queue)
             core.pending.append(req)
-            depth = len(core.pending)
             core.cond.notify_all()
-        self.metrics.set_queue_depth(depth)
         return stream
 
     def generate(self, prompt: Sequence[int], *,
@@ -475,8 +453,6 @@ class GenerationEngine:
                         self._pages_needed(core.pending[0])):
                     break   # page pressure delays the FIFO head, never reorders
                 req = core.pending.popleft()
-                depth = len(core.pending)
-            self.metrics.set_queue_depth(depth)
             self._admit_paged(req)
         with core.cond:
             prefilling = sorted((s, st) for s, st in core.active.items()
@@ -492,7 +468,7 @@ class GenerationEngine:
         now = time.monotonic()
         why = self._retire_why(None, req, now)
         if why is not None:
-            self._finish_request(req, why, now, generated=0)
+            self._finish_request(req, why)
             return
         core = self._core
         with core.cond:
@@ -502,7 +478,7 @@ class GenerationEngine:
         row = np.full((self._pool.pages_per_slot,), self._pool.trash,
                       np.int32)
         row[:len(pages)] = pages
-        st = _SlotState(req, pages, row, now, self.pad_id)
+        st = _SlotState(req, pages, row, self.pad_id)
         with core.cond:
             core.active[slot] = st
         self._report_pages()
@@ -516,7 +492,7 @@ class GenerationEngine:
         why = self._retire_why(None, req, now)
         if why is not None:
             self._release_slot(slot, st)
-            self._finish_slot(st, why, now)
+            self._finish_request(req, why)
             return
         prompt = req.prompt
         start = st.prefill_pos
@@ -528,7 +504,7 @@ class GenerationEngine:
                 self.prefill_chunk, self._pool.trash)
             st.prefill_pos += self.prefill_chunk
             st.position = st.prefill_pos
-            self.metrics.record_chunk(self.prefill_chunk)
+            self.metrics.record_chunk()
             return
         bucket = next(b for b in self.prompt_buckets if b >= remaining)
         padded = np.full((bucket,), self.pad_id, np.int32)
@@ -539,9 +515,8 @@ class GenerationEngine:
         tok = int(tok_dev.item())
         self._page_map[slot] = st.page_row   # K/V written: go live
         now = time.monotonic()
-        self.metrics.record_prefill(remaining, bucket,
-                                    now - req.stream.t_submit)
-        req.stream._push(tok, now)
+        self.metrics.record_prefill(now - req.stream.t_submit)
+        req.stream._push(tok)
         st.phase = "decode"
         st.last_token = tok
         st.position = len(prompt)
@@ -549,7 +524,7 @@ class GenerationEngine:
         why = self._retire_why(st, req, now)
         if why is not None:
             self._release_slot(slot, st)
-            self._finish_slot(st, why, now)
+            self._finish_request(req, why)
 
     def _decode_once(self, active: List[Tuple[int, _SlotState]]) -> None:
         tokens = np.zeros((self.max_slots,), np.int32)
@@ -561,20 +536,20 @@ class GenerationEngine:
             self._cache, tokens, positions, self._page_map)
         toks = toks_dev.cpu().numpy()
         now = time.monotonic()
-        self.metrics.record_decode_step(len(active), self.max_slots)
+        self.metrics.record_decode_step(len(active))
         retired = []
         for slot, st in active:
             tok = int(toks[slot])
             st.last_token = tok
             st.position += 1
             st.generated += 1
-            st.req.stream._push(tok, now)
+            st.req.stream._push(tok)
             why = self._retire_why(st, st.req, now)
             if why is not None:
                 retired.append((slot, st, why))
         for slot, st, why in retired:
             self._release_slot(slot, st)
-            self._finish_slot(st, why, now)
+            self._finish_request(st.req, why)
 
     def _release_slot(self, slot: int, st: _SlotState) -> None:
         """Free the slot and its pages; its page-map row parks on the trash
@@ -607,23 +582,19 @@ class GenerationEngine:
             return "expired"
         return None
 
-    def _finish_slot(self, st: _SlotState, why: str, now: float) -> None:
-        self._finish_request(st.req, why, now, generated=st.generated)
-
-    def _finish_request(self, req: _GenRequest, why: str, now: float, *,
-                        generated: int) -> None:
+    def _finish_request(self, req: _GenRequest, why: str) -> None:
         stream = req.stream
-        dur = now - stream.t_submit
         if why == "expired":
             self.metrics.record_expired()
             stream._finish(DeadlineExceeded(
-                dur, req.deadline - stream.t_submit), now)
+                time.monotonic() - stream.t_submit,
+                req.deadline - stream.t_submit))
         elif why == "cancelled":
             stream._finish(StreamCancelled(
-                "generation stream cancelled by its consumer"), now)
+                "generation stream cancelled by its consumer"))
         else:
-            self.metrics.record_served(dur)
-            stream._finish(None, now)
+            self.metrics.record_served()
+            stream._finish(None)
 
     def _report_pages(self) -> None:
         self.metrics.set_pages(self._pool.in_use, self._pool.num_pages)
@@ -673,28 +644,12 @@ class GenerationEngine:
             _fail_streams(core, RuntimeError(
                 "generation engine closed before request ran"), self)
 
-    def __enter__(self) -> "GenerationEngine":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.close()
-
     # --------------------------------------------------------- queries ----
 
     @property
     def failed(self) -> Optional[BaseException]:
         with self._core.cond:
             return self._failed
-
-    @property
-    def active_slots(self) -> int:
-        with self._core.cond:
-            return len(self._core.active)
-
-    @property
-    def pending_requests(self) -> int:
-        with self._core.cond:
-            return len(self._core.pending)
 
     @property
     def pages_in_use(self) -> int:

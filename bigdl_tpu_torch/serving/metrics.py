@@ -1,8 +1,8 @@
 """Serving metrics for the generation engine (a subset of
 ``bigdl_tpu/serving/metrics.py``): request outcomes, prefills and prompt
-chunks, decode steps, tokens out, time to first token, page occupancy.
-Lock-protected counters plus bounded-reservoir latency samples; the
-snapshot keys keep the JAX package's names.
+chunks, decode steps, tokens out, time to first token (p50/p95/p99 over a
+bounded reservoir), page occupancy. Lock-protected; the snapshot keys
+keep the JAX package's names.
 """
 
 from __future__ import annotations
@@ -60,25 +60,18 @@ class ServingMetrics:
         self.served = 0
         self.rejected = 0
         self.expired = 0
-        self.queue_depth = 0
         self.prefills = 0         # final prompt chunks (one first token each)
-        self.prefill_tokens = 0   # real prompt tokens written to the cache
-        self.prefill_padded = 0   # pad tokens added to reach a bucket
         self.prefill_chunks = 0   # non-final chunk forwards
         self.decode_steps = 0
-        self.decode_active = 0    # sum over steps of slots serving
-        self.decode_slot_rows = 0  # sum over steps of all slots
         self.tokens_out = 0
         self.pages_in_use = 0
         self.pages_total = 0
         self.pages_peak = 0
-        self._latency = _Reservoir(reservoir_size)   # submit -> done
         self._ttft = _Reservoir(reservoir_size)      # submit -> 1st token
 
-    def record_served(self, latency_s: float) -> None:
+    def record_served(self) -> None:
         with self._lock:
             self.served += 1
-            self._latency.add(latency_s)
 
     def record_rejected(self) -> None:
         with self._lock:
@@ -88,33 +81,22 @@ class ServingMetrics:
         with self._lock:
             self.expired += 1
 
-    def set_queue_depth(self, depth: int) -> None:
-        with self._lock:
-            self.queue_depth = depth
-
-    def record_prefill(self, n_prompt: int, n_padded: int,
-                       ttft_s: Optional[float] = None) -> None:
-        """One final prompt chunk: ``n_prompt`` real tokens padded to
-        ``n_padded``, plus the first generated token it emits."""
+    def record_prefill(self, ttft_s: float) -> None:
+        """One final prompt chunk, which emits the first token."""
         with self._lock:
             self.prefills += 1
-            self.prefill_tokens += n_prompt
-            self.prefill_padded += n_padded - n_prompt
             self.tokens_out += 1
-            if ttft_s is not None:
-                self._ttft.add(ttft_s)
+            self._ttft.add(ttft_s)
 
-    def record_chunk(self, n_real: int) -> None:
-        """One non-final prompt chunk forward (no padding, no token)."""
+    def record_chunk(self) -> None:
+        """One non-final prompt chunk forward (no token)."""
         with self._lock:
             self.prefill_chunks += 1
-            self.prefill_tokens += n_real
 
-    def record_decode_step(self, n_active: int, n_slots: int) -> None:
+    def record_decode_step(self, n_active: int) -> None:
+        """One decode step; each of ``n_active`` slots emits a token."""
         with self._lock:
             self.decode_steps += 1
-            self.decode_active += n_active
-            self.decode_slot_rows += n_slots
             self.tokens_out += n_active
 
     def set_pages(self, in_use: int, total: int) -> None:
@@ -124,28 +106,18 @@ class ServingMetrics:
             self.pages_peak = max(self.pages_peak, in_use)
 
     def snapshot(self) -> dict:
-        def ms(res):
-            p = res.percentiles(self.LATENCY_QS)
-            return None if p is None else {
-                f"p{q}": round(v * 1e3, 3) for q, v in zip(self.LATENCY_QS, p)}
-
         with self._lock:
+            ttft = self._ttft.percentiles(self.LATENCY_QS)
             return {
                 "served": self.served,
                 "rejected": self.rejected,
                 "expired": self.expired,
-                "queue_depth": self.queue_depth,
-                "latency_ms": ms(self._latency),
                 "prefills": self.prefills,
                 "decode_steps": self.decode_steps,
                 "tokens_out": self.tokens_out,
-                "slot_occupancy": (self.decode_active / self.decode_slot_rows
-                                   if self.decode_slot_rows else 0.0),
-                "prompt_padding_waste": (
-                    self.prefill_padded
-                    / (self.prefill_tokens + self.prefill_padded)
-                    if self.prefill_tokens + self.prefill_padded else 0.0),
-                "ttft_ms": ms(self._ttft),
+                "ttft_ms": None if ttft is None else {
+                    f"p{q}": round(v * 1e3, 3)
+                    for q, v in zip(self.LATENCY_QS, ttft)},
                 "prefill_chunks": self.prefill_chunks,
                 "pages_in_use": self.pages_in_use,
                 "pages_total": self.pages_total,

@@ -94,12 +94,3 @@ class PagePool:
     @property
     def free_pages(self) -> int:
         return len(self._free)
-
-    def snapshot(self) -> dict:
-        return {
-            "pages_total": self.num_pages,
-            "pages_in_use": self.in_use,
-            "pages_free": len(self._free),
-            "page_size": self.page_size,
-            "pages_per_slot": self.pages_per_slot,
-        }

@@ -16,11 +16,13 @@ fails. Phases, each printed with a ``[phase]`` prefix:
 3. B2      — the flash-attention kernel against its plain PyTorch version
              at the serving shapes (every prompt bucket C against a
              256-row lane, with the validity bias), a causal square and an
-             end-aligned Sq != Sk case, fp32 and bf16; error, kernel time,
-             plain time and ``scaled_dot_product_attention`` time.
+             end-aligned Sq != Sk case, in fp32, bf16 and bf16 K/V under
+             fp32 q; error, kernel time, plain time and
+             ``scaled_dot_product_attention`` time.
 4. B3      — the paged decode-attention kernel against its plain version
              at the serving shapes (8 slots x 8 heads, fragmented page map,
-             positions 0/15/16/255/...), fp32 and bf16; error and times.
+             positions 0/15/16/255/...), same three dtype pairs; error and
+             times.
 5. engine  — the port's ``GenerationEngine`` serving a ``Transformer`` at
              the width of the JAX package's on-chip serving bench (vocab
              8192, hidden 512, 8 heads, filter 2048, 4 layers; max_len
@@ -69,11 +71,15 @@ MAX_LEN, MAX_PROMPT, PAGE, SLOTS = 256, 16, 16, 8
 HEAD_DIM = HIDDEN // HEADS
 N_REQUESTS, SHORT_NEW, LONG_NEW = 32, 8, 96
 
-# kernel vs plain version on the same inputs. fp32: both accumulate in
-# fp32 over <= 300 keys of O(1) values; only the summation order differs
-# (observed ~1e-6). bf16: the plain version rounds the probabilities to
-# bf16 before P.V and both round the output to bf16 (ulp 2^-7 at 1.0).
+# kernel vs plain version on the same inputs, by K/V dtype. fp32: both
+# accumulate in fp32 over <= 300 keys of O(1) values; only the summation
+# order differs (observed ~1e-6). bf16 K/V (under bf16 or fp32 q): the
+# plain version rounds the probabilities to bf16 before P.V and its output
+# to bf16 (ulp 2^-7 at 1.0).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# (q dtype, K/V dtype) pairs the kernels take
+DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+          (torch.float32, torch.bfloat16))
 # card vs CPU logits, fp32 end to end with TF32 off: cuBLAS and the
 # kernels sum in another order than the CPU through 4 layers of width 512
 # and an 8192-wide head, logits of magnitude ~1-5
@@ -164,8 +170,9 @@ def phase_build():
     results = cuda_lib.build()
     print(f"[build] {len(results)} libraries in "
           f"{time.monotonic() - t0:.1f} s (parallel nvcc, sm_90a)")
-    # ptxas -v: one block per template instantiation (dtype x D/32 chunks);
-    # print the D=64 ones the serving path runs, and the worst of the rest
+    # ptxas -v: one block per template instantiation (q/KV dtypes x D/32
+    # chunks); print the D=64 ones the serving path runs, and the worst of
+    # them all
     usage = re.compile(r"Function properties for (\S+)\n\s*(.*?)\n"
                        r"ptxas info\s*: (Used [^\n]*)")
     for res in results.values():
@@ -174,10 +181,12 @@ def phase_build():
             regs.append(int(re.search(r"Used (\d+) registers", used)[1]))
             spills += sum(int(n) for n in re.findall(r"(\d+) bytes spill",
                                                      stack))
-            tag = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d)E", fn)
+            tag = re.search(r"kernelI(.*?)Li(\d)E", fn)
             if tag and tag[2] == "2":
-                dtype = "fp32" if tag[1] == "f" else "bf16"
-                print(f"[build] {res.name} {dtype} D=64: {used}; {stack}")
+                types = {"ff": "fp32/fp32", "f13__nv_bfloat16": "fp32/bf16"}
+                dtype = types.get(tag[1], "bf16/bf16")
+                print(f"[build] {res.name} q/kv {dtype} D=64: {used}; "
+                      f"{stack}")
         print(f"[build] {res.name}: {len(regs)} instantiations, max "
               f"{max(regs, default=0)} registers, {spills} spill bytes")
 
@@ -188,9 +197,9 @@ def phase_b2(card):
     def rand(*shape, dtype):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}   # by K/V dtype
     timed = None
-    for dtype in (torch.float32, torch.bfloat16):
+    for qdt, kvdt in DTYPES:
         cases = []
         for c in (1, 2, 4, 8, 16):   # the prompt buckets of max_prompt 16
             rows = torch.arange(c, device="cuda")[:, None]
@@ -204,20 +213,21 @@ def phase_b2(card):
                       (1, HEADS, 100, HEAD_DIM), 300, None, True))
         for label, qshape, sk, bias, causal in cases:
             b, h, sq, d = qshape
-            q = rand(b, h, sq, d, dtype=dtype)
-            k = rand(b, h, sk, d, dtype=dtype)
-            v = rand(b, h, sk, d, dtype=dtype)
+            q = rand(b, h, sq, d, dtype=qdt)
+            k = rand(b, h, sk, d, dtype=kvdt)
+            v = rand(b, h, sk, d, dtype=kvdt)
             out = fa.flash_attention(q, k, v, bias, None, causal)
             ref = fa.plain_attention(q, k, v, bias, None, causal)
             torch.cuda.synchronize()
             err = max_err(out, ref)
-            worst[dtype] = max(worst[dtype], err)
-            print(f"[B2] {str(dtype)[6:]:8s} {label:34s} max_abs_err={err:.3e}"
-                  f" (tol {TOL[dtype]:g})")
-            if err > TOL[dtype]:
-                raise AssertionError(f"B2 {label} {dtype}: error {err} > "
-                                     f"{TOL[dtype]}")
-            if dtype == torch.float32 and label.startswith("chunk C=16"):
+            worst[kvdt] = max(worst[kvdt], err)
+            tag = f"{str(qdt)[6:]}/{str(kvdt)[6:]}"
+            print(f"[B2] q/kv {tag:17s} {label:34s} max_abs_err={err:.3e}"
+                  f" (tol {TOL[kvdt]:g})")
+            if err > TOL[kvdt] or out.dtype != qdt:
+                raise AssertionError(f"B2 {label} {tag}: error {err} > "
+                                     f"{TOL[kvdt]} or output {out.dtype}")
+            if kvdt == qdt == torch.float32 and label.startswith("chunk C=16"):
                 timed = (q, k, v, bias)
     q, k, v, bias = timed
     ms = device_ms(lambda: fa.flash_attention(q, k, v, bias))
@@ -245,24 +255,27 @@ def phase_b3(card):
         SLOTS, MAX_LEN // PAGE).to(torch.int32)
     positions = torch.tensor([0, 15, 16, 255, 37, 100, 128, 200],
                              dtype=torch.int32, device="cuda")
-    worst = {}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}   # by K/V dtype
     timed = None
-    for dtype in (torch.float32, torch.bfloat16):
+    for qdt, kvdt in DTYPES:
         kp, vp = (torch.randn(n_pages + 1, HEADS, PAGE, HEAD_DIM,
-                              generator=g, device="cuda").to(dtype)
+                              generator=g, device="cuda").to(kvdt)
                   for _ in range(2))
         q = torch.randn(SLOTS, HEADS, HEAD_DIM, generator=g,
-                        device="cuda").to(dtype)
+                        device="cuda").to(qdt)
         out = fa.paged_flash_attention(q, kp, vp, page_map, positions)
         ref = fa.paged_attention_reference(q, kp, vp, page_map, positions)
         torch.cuda.synchronize()
-        err = worst[dtype] = max_err(out, ref)
-        print(f"[B3] {str(dtype)[6:]:8s} 8 slots x 8 heads, fragmented map, "
+        err = max_err(out, ref)
+        worst[kvdt] = max(worst[kvdt], err)
+        tag = f"{str(qdt)[6:]}/{str(kvdt)[6:]}"
+        print(f"[B3] q/kv {tag:17s} 8 slots x 8 heads, fragmented map, "
               f"positions {positions.tolist()}: max_abs_err={err:.3e} "
-              f"(tol {TOL[dtype]:g})")
-        if err > TOL[dtype]:
-            raise AssertionError(f"B3 {dtype}: error {err} > {TOL[dtype]}")
-        if dtype == torch.float32:
+              f"(tol {TOL[kvdt]:g})")
+        if err > TOL[kvdt] or out.dtype != qdt:
+            raise AssertionError(f"B3 {tag}: error {err} > {TOL[kvdt]} or "
+                                 f"output {out.dtype}")
+        if kvdt == qdt == torch.float32:
             timed = (q, kp, vp)
     q, kp, vp = timed
     ms = device_ms(lambda: fa.paged_flash_attention(q, kp, vp, page_map,

@@ -93,6 +93,21 @@ def test_engine_equals_static_generate(lm, port_streams):
     assert steps >= max(len(o) for o in outs) - 1
 
 
+def test_bf16_kv_cache_engine_equals_static(lm):
+    """bf16 KV pools under fp32 weights and activations (the JAX
+    ``cache_dtype=bfloat16`` configuration): engine == static holds."""
+    _, _, tm, requests = lm
+    engine = _engine(tm, cache_dtype=torch.bfloat16)
+    assert engine._cache["decoder_0"][0].dtype == torch.bfloat16
+    outs = _run(engine, requests)
+    static, _ = static_generate(
+        tm, requests, max_slots=4, max_len=32, device="cpu", page_size=4,
+        prefill_chunk=4, prompt_buckets=engine.prompt_buckets,
+        cache_dtype=torch.bfloat16)
+    assert static == outs
+    assert [len(o) for o in outs] == [m for _, m in requests]
+
+
 def test_metrics_and_pages_after_traffic(lm, port_streams):
     _, _, _, requests = lm
     outs, engine = port_streams

@@ -10,8 +10,9 @@ machine with a card and no JAX it runs on its own::
 
 Tolerances against the plain PyTorch versions on the same inputs: fp32
 1e-4 (both accumulate in fp32 over <= 300 keys of O(1) values; only the
-summation order differs), bf16 3e-2 (the plain version rounds the
-probabilities to bf16 before P.V and both round the output to bf16).
+summation order differs); bf16 K/V, under bf16 or fp32 q, 3e-2 (the plain
+version rounds the probabilities to bf16 before P.V and its output to
+bf16).
 """
 
 import numpy as np
@@ -23,6 +24,9 @@ from bigdl_tpu_torch.ops import flash_attention as tfa
 from bigdl_tpu_torch.serving import GenerationEngine, static_generate
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# (q dtype, K/V dtype): one dtype, or bf16 K/V under fp32 activations
+DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+          (torch.float32, torch.bfloat16)]
 
 
 @pytest.fixture
@@ -35,14 +39,15 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qdt, kvdt", DTYPES)
 @pytest.mark.parametrize("sq, sk, causal, bias", [
     (16, 256, False, True), (1, 256, False, True), (256, 256, True, False),
     (100, 300, True, False), (5, 9, False, False)])
-def test_flash_kernel_matches_plain(cuda, dtype, sq, sk, causal, bias):
+def test_flash_kernel_matches_plain(cuda, qdt, kvdt, sq, sk, causal, bias):
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(2, 4, s, 64, generator=g, device=cuda).to(dtype)
-               for s in (sq, sk, sk))
+    q = torch.randn(2, 4, sq, 64, generator=g, device=cuda).to(qdt)
+    k, v = (torch.randn(2, 4, sk, 64, generator=g, device=cuda).to(kvdt)
+            for _ in range(2))
     b = None
     if bias:
         b = torch.where(torch.arange(sk, device=cuda)[None, :]
@@ -53,7 +58,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, sq, sk, causal, bias):
     assert tfa.flash_attention.launches == before + 1
     ref = tfa.plain_attention(q, k, v, b, None, causal)
     torch.cuda.synchronize()
-    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+    assert out.dtype == qdt
+    assert (out.float() - ref.float()).abs().max().item() < TOL[kvdt]
 
 
 @pytest.mark.gpu
@@ -84,22 +90,23 @@ def test_flash_kernel_gradient_is_plain_gradient(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_kernel_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("qdt, kvdt", DTYPES)
+def test_paged_kernel_matches_plain(cuda, qdt, kvdt):
     g = torch.Generator(device=cuda).manual_seed(2)
-    kp, vp = (torch.randn(129, 8, 16, 64, generator=g, device=cuda).to(dtype)
+    kp, vp = (torch.randn(129, 8, 16, 64, generator=g, device=cuda).to(kvdt)
               for _ in range(2))
     pm = torch.randperm(128, device=cuda, generator=g).reshape(8, 16)
     pm = pm.to(torch.int32)
     pos = torch.tensor([0, 15, 16, 255, 37, 100, 128, 200],
                        dtype=torch.int32, device=cuda)
-    q = torch.randn(8, 8, 64, generator=g, device=cuda).to(dtype)
+    q = torch.randn(8, 8, 64, generator=g, device=cuda).to(qdt)
     before = tfa.paged_flash_attention.launches
     out = tfa.paged_flash_attention(q, kp, vp, pm, pos)
     assert tfa.paged_flash_attention.launches == before + 1
     ref = tfa.paged_attention_reference(q, kp, vp, pm, pos)
     torch.cuda.synchronize()
-    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+    assert out.dtype == qdt
+    assert (out.float() - ref.float()).abs().max().item() < TOL[kvdt]
 
 
 @pytest.mark.gpu
@@ -118,7 +125,9 @@ def test_kernel_wrappers_raise_on_unsupported_input(cuda):
 
 
 @pytest.mark.gpu
-def test_engine_on_card_uses_both_kernels_and_equals_static(cuda):
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+def test_engine_on_card_uses_both_kernels_and_equals_static(cuda,
+                                                            cache_dtype):
     model = Transformer(128, 64, 4, 128, 2, device=cuda,
                         generator=torch.Generator().manual_seed(0))
     rs = np.random.RandomState(0)
@@ -126,7 +135,7 @@ def test_engine_on_card_uses_both_kernels_and_equals_static(cuda):
                  int(rs.choice([4, 20]))) for _ in range(12)]
     engine = GenerationEngine(model, max_slots=4, max_len=48,
                               max_prompt_len=12, page_size=8,
-                              prefill_chunk=8)
+                              prefill_chunk=8, cache_dtype=cache_dtype)
     engine.warmup()
     tfa.flash_attention.launches = 0
     tfa.paged_flash_attention.launches = 0
@@ -139,5 +148,6 @@ def test_engine_on_card_uses_both_kernels_and_equals_static(cuda):
     assert tfa.paged_flash_attention.launches == 2 * snap["decode_steps"] > 0
     static, _ = static_generate(model, requests, max_slots=4, max_len=48,
                                 page_size=8, prefill_chunk=8,
-                                prompt_buckets=engine.prompt_buckets)
+                                prompt_buckets=engine.prompt_buckets,
+                                cache_dtype=cache_dtype)
     assert static == outs

@@ -170,8 +170,3 @@ def test_device_none_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Transformer(VOCAB, HIDDEN, HEADS, FILTER, LAYERS)
 
-
-def test_only_language_model_mode_is_ported():
-    with pytest.raises(NotImplementedError, match="language_model"):
-        Transformer(VOCAB, HIDDEN, HEADS, FILTER, LAYERS,
-                    transformer_type="translation", device="cpu")
