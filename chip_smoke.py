@@ -32,7 +32,10 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              of every step, that the streams equal ``static_generate``'s,
              and that prefill and 8 teacher-forced decode steps on the card
              match the plain path on the CPU. Prints tokens/s, TTFT p50,
-             decode-step ms and peak memory.
+             decode-step ms and peak memory; then (``[trace]``) a
+             torch.profiler window over 20 eager decode steps: device time
+             and kernels per step, the card's busy share of a step, and the
+             kernels that take most of it.
 6. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -366,6 +369,7 @@ def phase_engine(card):
           f"{wall:.3f} s) ttft_p50_ms={snap['ttft_ms']['p50']} "
           f"decode_step_ms={step_ms:.3f} peak_mem_MiB={peak / 2**20:.1f} "
           f"on {card}")
+    trace_decode_steps(model, card, step_ms)
     return launches
 
 
@@ -422,6 +426,46 @@ def decode_step_ms(model, steps=50) -> float:
         toks, cache = kernels.decode(cache, tokens, positions + i, page_map)
         toks.cpu()
     return (time.monotonic() - t0) / steps * 1e3
+
+
+def trace_decode_steps(model, card, step_ms: float, steps=20):
+    """torch.profiler over ``steps`` eager decode steps (8 slots, position
+    ~100): device time per step, kernels per step, the device's busy share
+    of an unprofiled step (``step_ms``), and the kernels that take most of
+    the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels = PagedDecodeKernels(model)
+    ppn = MAX_LEN // PAGE
+    rs = np.random.RandomState(2)
+    page_map = rs.permutation(SLOTS * ppn).reshape(SLOTS, ppn).astype(np.int32)
+    cache = model.init_paged_cache(SLOTS * ppn + 1, PAGE)
+    tokens = rs.randint(1, VOCAB, (SLOTS,)).astype(np.int32)
+    positions = np.full((SLOTS,), 100, np.int32)
+    for _ in range(5):
+        toks, cache = kernels.decode(cache, tokens, positions, page_map)
+        toks.cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            toks, cache = kernels.decode(cache, tokens, positions + i,
+                                         page_map)
+            toks.cpu()
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA":
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time
+    n_kernels = sum(1 for ev in prof.events()
+                    if ev.device_type.name == "CUDA")
+    device_ms = sum(by_name.values()) / 1e3 / steps
+    assert device_ms > 0, "the profiler saw no device time"
+    print(f"[trace] eager decode step: {device_ms:.3f} ms device time in "
+          f"{n_kernels / steps:.0f} kernels; busy share of a "
+          f"{step_ms:.3f} ms step = {device_ms / step_ms:.1%} on {card}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    for name, us in top:
+        print(f"[trace]   {us / 1e3 / steps:.4f} ms/step "
+              f"({us / sum(by_name.values()):.1%}) {name[:90]}")
 
 
 def main() -> int:
