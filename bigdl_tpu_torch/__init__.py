@@ -10,7 +10,10 @@ version beside it.
 
 Ported so far: the paged greedy generation engine serving a decoder-only
 ``Transformer`` (``serving.GenerationEngine``, ``serving.static_generate``)
-with kernels B2 (flash-attention forward) and B3 (paged decode attention).
+with kernels B2 (flash-attention forward) and B3 (paged decode attention);
+single-device training (``optim.optimizer``, ``optim.SGD``,
+``dataset.DataSet.tensors``) of the ResNets in ``models.resnet``, with
+kernel B1 (the residual add) under ``BIGDL_RESIDUAL_ADD=pallas``.
 """
 
 __version__ = "0.1.0"

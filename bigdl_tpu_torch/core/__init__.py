@@ -1,5 +1,8 @@
-"""Device choice."""
+"""Device choice, configuration and host-side randomness."""
 
+from bigdl_tpu_torch.core.config import DtypePolicy, EngineConfig
 from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.core.rng import RandomGenerator, element_seed, np_rng
 
-__all__ = ["resolve_device"]
+__all__ = ["DtypePolicy", "EngineConfig", "RandomGenerator", "element_seed",
+           "np_rng", "resolve_device"]

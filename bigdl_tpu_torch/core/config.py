@@ -1,0 +1,56 @@
+"""Typed configuration (``bigdl_tpu/core/config.py`` counterpart).
+
+The fields the training loop reads: the seed, the default batch size, the
+log interval and the dtype policy. Each may be overridden from an
+environment variable prefixed ``BIGDL_TPU_``, read when an instance is
+built, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+
+def _env(name: str, default, cast=str):
+    raw = os.environ.get("BIGDL_TPU_" + name)
+    if raw is None:
+        return default
+    return cast(raw)
+
+
+@dataclasses.dataclass(frozen=True)
+class DtypePolicy:
+    """Mixed-precision policy: bf16 compute with fp32 parameter masters,
+    fp32 outputs and fp32 reductions (``mixed()``, the default), or fp32
+    throughout (``full_precision()``)."""
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    output_dtype: torch.dtype = torch.float32
+    reduce_dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def full_precision() -> "DtypePolicy":
+        return DtypePolicy(compute_dtype=torch.float32)
+
+    @staticmethod
+    def mixed() -> "DtypePolicy":
+        return DtypePolicy()
+
+    def cast_compute(self, x: torch.Tensor) -> torch.Tensor:
+        """A floating tensor cast to ``compute_dtype``; any other as given."""
+        return x.to(self.compute_dtype) if x.is_floating_point() else x
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    seed: int = dataclasses.field(default_factory=lambda: _env("SEED", 1, int))
+    default_batch_size: int = dataclasses.field(
+        default_factory=lambda: _env("BATCH_SIZE", 128, int))
+    log_every_n_steps: int = dataclasses.field(
+        default_factory=lambda: _env("LOG_EVERY", 1, int))
+    dtypes: DtypePolicy = dataclasses.field(
+        default_factory=DtypePolicy.full_precision)

@@ -1,0 +1,66 @@
+"""Host-side deterministic randomness (``bigdl_tpu/core/rng.py``
+counterpart, numpy half only).
+
+The JAX package's ``RandomGenerator`` wraps a numpy ``default_rng`` for
+host draws (shuffles, augmentation) beside a lazy threefry key for device
+code. The port keeps the numpy half bit for bit — one seed gives the same
+shuffle order in both packages — and draws device-side init from explicit
+``torch.Generator``s instead of keys.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+_M64 = (1 << 64) - 1
+
+
+def element_seed(base_seed: int, index: int, stream: int = 0) -> int:
+    """Stable per-element seed: splitmix64 finalizer over the mixed inputs
+    (pure integer operations; the same value as the JAX package's)."""
+    x = (int(base_seed) * 0x9E3779B97F4A7C15
+         + int(index) * 0xBF58476D1CE4E5B9
+         + int(stream) * 0x94D049BB133111EB + 0x2545F4914F6CDD1D) & _M64
+    x ^= x >> 30
+    x = (x * 0xBF58476D1CE4E5B9) & _M64
+    x ^= x >> 27
+    x = (x * 0x94D049BB133111EB) & _M64
+    x ^= x >> 31
+    return x >> 1  # non-negative, < 2**63
+
+
+def np_rng(seed: int, index: int = 0, stream: int = 0) -> np.random.Generator:
+    """``np.random.default_rng(seed)``, or with ``index``/``stream`` an
+    independent keyed sub-stream through :func:`element_seed`."""
+    if index or stream:
+        seed = element_seed(seed, index, stream)
+    return np.random.default_rng(int(seed))
+
+
+class RandomGenerator:
+    """Stateful host generator over numpy's ``default_rng(seed)``.
+
+    ``default()`` is one process-wide instance, as in the JAX package;
+    code that needs a reproducible order passes its own
+    ``RandomGenerator(seed)``."""
+
+    _default: Optional["RandomGenerator"] = None
+
+    def __init__(self, seed: int = 1):
+        self._seed = seed
+        self._np = np.random.default_rng(seed)
+
+    @classmethod
+    def default(cls) -> "RandomGenerator":
+        if cls._default is None:
+            cls._default = RandomGenerator()
+        return cls._default
+
+    @property
+    def seed(self) -> int:
+        return self._seed
+
+    def permutation(self, n: int):
+        return self._np.permutation(n)

@@ -3,7 +3,7 @@
 // Every kernel here is built by nvcc into its own shared library with a
 // plain C interface (no PyTorch headers), loaded with ctypes by
 // bigdl_tpu_torch/ops/cuda_lib.py. Element types arrive as an int code
-// (kF32 / kBF16) chosen by the Python wrapper from the tensor dtype.
+// (kF32 / kBF16 / kF16) chosen by the Python wrapper from the tensor dtype.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,7 +11,7 @@
 
 namespace bigdl {
 
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {

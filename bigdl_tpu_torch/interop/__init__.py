@@ -1,5 +1,12 @@
-"""Weight interchange with the JAX package."""
+"""Weight and state interchange with the JAX package."""
 
-from bigdl_tpu_torch.interop.jax_params import load_jax_params
+from bigdl_tpu_torch.interop.jax_params import (
+    export_optim_state,
+    export_params,
+    export_state,
+    load_jax_params,
+    to_numpy_tree,
+)
 
-__all__ = ["load_jax_params"]
+__all__ = ["export_optim_state", "export_params", "export_state",
+           "load_jax_params", "to_numpy_tree"]

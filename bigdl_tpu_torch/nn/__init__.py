@@ -1,5 +1,16 @@
 """Layers of the port (``bigdl_tpu/nn`` counterparts)."""
 
+from bigdl_tpu_torch.nn.containers import (
+    ConcatTable,
+    Container,
+    Sequential,
+    named,
+)
+from bigdl_tpu_torch.nn.criterion import (
+    ClassNLLCriterion,
+    CrossEntropyCriterion,
+)
+from bigdl_tpu_torch.nn.layers.activation import ReLU
 from bigdl_tpu_torch.nn.layers.attention import (
     Attention,
     FeedForwardNetwork,
@@ -7,10 +18,28 @@ from bigdl_tpu_torch.nn.layers.attention import (
     TransformerLayer,
     position_encoding,
 )
+from bigdl_tpu_torch.nn.layers.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.layers.dropout import Dropout
-from bigdl_tpu_torch.nn.layers.linear import Linear
-from bigdl_tpu_torch.nn.layers.norm import LayerNormalization
+from bigdl_tpu_torch.nn.layers.linear import Identity, Linear
+from bigdl_tpu_torch.nn.layers.norm import (
+    BatchNormalization,
+    LayerNormalization,
+    SpatialBatchNormalization,
+)
+from bigdl_tpu_torch.nn.layers.pooling import (
+    GlobalAveragePooling2D,
+    SpatialAveragePooling,
+    SpatialMaxPooling,
+)
+from bigdl_tpu_torch.nn.layers.shape_ops import Padding
+from bigdl_tpu_torch.nn.layers.table_ops import CAddTable
+from bigdl_tpu_torch.nn.module import Criterion
 
-__all__ = ["Attention", "Dropout", "FeedForwardNetwork",
-           "LayerNormalization", "Linear", "Transformer", "TransformerLayer",
+__all__ = ["Attention", "BatchNormalization", "CAddTable",
+           "ClassNLLCriterion", "ConcatTable", "Container", "Criterion",
+           "CrossEntropyCriterion", "Dropout", "FeedForwardNetwork",
+           "GlobalAveragePooling2D", "Identity", "LayerNormalization",
+           "Linear", "Padding", "ReLU", "Sequential", "SpatialAveragePooling",
+           "SpatialBatchNormalization", "SpatialConvolution",
+           "SpatialMaxPooling", "Transformer", "TransformerLayer", "named",
            "position_encoding"]

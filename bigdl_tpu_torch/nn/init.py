@@ -22,6 +22,27 @@ class InitializationMethod:
         raise NotImplementedError
 
 
+class Zeros(InitializationMethod):
+    def __call__(self, generator, shape, fan_in, fan_out,
+                 dtype=torch.float32):
+        return torch.zeros(tuple(shape), dtype=dtype)
+
+
+class Ones(InitializationMethod):
+    def __call__(self, generator, shape, fan_in, fan_out,
+                 dtype=torch.float32):
+        return torch.ones(tuple(shape), dtype=dtype)
+
+
+class ConstInitMethod(InitializationMethod):
+    def __init__(self, value: float):
+        self.value = value
+
+    def __call__(self, generator, shape, fan_in, fan_out,
+                 dtype=torch.float32):
+        return torch.full(tuple(shape), self.value, dtype=dtype)
+
+
 class RandomUniform(InitializationMethod):
     """Torch-style uniform in [-1/sqrt(fan_in), 1/sqrt(fan_in)]."""
 
@@ -40,6 +61,32 @@ class RandomNormal(InitializationMethod):
                  dtype=torch.float32):
         return self.mean + self.stdv * torch.randn(
             tuple(shape), generator=generator, dtype=dtype)
+
+
+class Xavier(InitializationMethod):
+    """Glorot uniform in [-sqrt(6/(fan_in+fan_out)), +sqrt(...)]."""
+
+    def __call__(self, generator, shape, fan_in, fan_out,
+                 dtype=torch.float32):
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        u = torch.rand(tuple(shape), generator=generator, dtype=dtype)
+        return limit * (2.0 * u - 1.0)
+
+
+class MsraFiller(InitializationMethod):
+    """Kaiming/He normal: std sqrt(2 / n), n = fan_out (or the mean of
+    fan_in and fan_out with ``variance_norm_average``)."""
+
+    def __init__(self, variance_norm_average: bool = False):
+        self.variance_norm_average = variance_norm_average
+
+    def __call__(self, generator, shape, fan_in, fan_out,
+                 dtype=torch.float32):
+        n = (fan_in + fan_out) / 2.0 if self.variance_norm_average \
+            else fan_out
+        std = math.sqrt(2.0 / max(1.0, n))
+        return std * torch.randn(tuple(shape), generator=generator,
+                                 dtype=dtype)
 
 
 def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:

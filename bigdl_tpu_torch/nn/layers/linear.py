@@ -1,4 +1,5 @@
-"""Linear layer (``bigdl_tpu/nn/layers/linear.py``), float path.
+"""Linear layer and ``Identity`` (``bigdl_tpu/nn/layers/linear.py``),
+float path.
 
 ``weight`` is ``(out, in)`` and ``bias`` ``(out,)``, as in the JAX
 package, so bridged weights copy across unchanged. The product is a plain
@@ -46,3 +47,8 @@ class Linear(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
+
+
+class Identity(nn.Module):
+    def forward(self, x):
+        return x

@@ -30,3 +30,28 @@ def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
         else:
             flat[path] = value
     return flat
+
+
+def unflatten_tree(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{dotted path: leaf}`` -> nested dict; inverse of
+    :func:`flatten_tree`."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, last = path.split(SEP)
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[last] = leaf
+    return tree
+
+
+class Criterion:
+    """Loss function base (``bigdl_tpu/nn/module.py::Criterion``):
+    ``loss = criterion.forward(output, target)``, a scalar tensor that
+    autograd differentiates."""
+
+    def forward(self, output, target):
+        raise NotImplementedError
+
+    def __call__(self, output, target):
+        return self.forward(output, target)

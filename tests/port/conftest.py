@@ -1,5 +1,7 @@
 """Shared set-up for the PyTorch port's tests."""
 
+import gc
+
 import pytest
 
 
@@ -11,8 +13,11 @@ def _drop_jax_executables():
     size, and the JAX package's compile-once tests, which run later in the
     same process, read their functions' entries in it. Drop this module's
     entries when it is done, so the later tests see the cache as if the
-    port's tests had not run."""
+    port's tests had not run. Collect the module's garbage too (models,
+    engines, autograd graphs), so the later tests start from a heap that
+    holds none of it."""
     yield
     import jax
 
     jax.clear_caches()
+    gc.collect()

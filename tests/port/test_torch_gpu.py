@@ -12,15 +12,31 @@ Tolerances against the plain PyTorch versions on the same inputs: fp32
 1e-4 (both accumulate in fp32 over <= 300 keys of O(1) values; only the
 summation order differs); bf16 K/V, under bf16 or fp32 q, 3e-2 (the plain
 version rounds the probabilities to bf16 before P.V and its output to
-bf16).
+bf16). The residual-add kernel (B1) is exact: bitwise equal to
+``torch.add``. A ResNet training step on the card against the CPU, fp32
+with TF32 off: 1e-4 relative to each tensor's largest entry (cuDNN and
+the CPU sum the convolutions in other orders). The same step under the
+bf16 mixed policy: 24 bf16 spacings (2**-7 relative) at each tensor's
+largest entry (both sides round each layer's output to bf16; a sum that
+rounds the other way moves an entry by a spacing that later layers
+amplify, 7-17 spacings measured on an H100), while the bf16 step against
+the fp32 one differs by 40-45, which the test checks it would catch.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
-from bigdl_tpu_torch.nn import Transformer
+from bigdl_tpu_torch.core import DtypePolicy
+from bigdl_tpu_torch.dataset import MiniBatch
+from bigdl_tpu_torch.dataset.prefetch import device_prefetch
+from bigdl_tpu_torch.models.resnet import build_cifar
+from bigdl_tpu_torch.nn import CAddTable, CrossEntropyCriterion, Transformer
 from bigdl_tpu_torch.ops import flash_attention as tfa
+from bigdl_tpu_torch.ops import residual_add as ra
+from bigdl_tpu_torch.optim import SGD
 from bigdl_tpu_torch.serving import GenerationEngine, static_generate
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -151,3 +167,165 @@ def test_engine_on_card_uses_both_kernels_and_equals_static(cuda,
                                 prompt_buckets=engine.prompt_buckets,
                                 cache_dtype=cache_dtype)
     assert static == outs
+
+
+# the residual adds of ResNet-50 at batch 128, one per stage
+RESNET50_ADDS = [(128, 256, 56, 56), (128, 512, 28, 28), (128, 1024, 14, 14),
+                 (128, 2048, 7, 7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", RESNET50_ADDS, ids=str)
+def test_residual_add_kernel_is_torch_add_bitwise(cuda, dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x, y = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    before = ra.residual_add.launches
+    out = ra.residual_add(x, y)
+    assert ra.residual_add.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.equal(out, torch.add(x, y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_residual_add_kernel_tail_and_alignment(cuda, offset):
+    """2**20 + 3 elements (a scalar tail after the 16-byte vectors), and
+    operands 4 bytes past a 16-byte boundary (the scalar path)."""
+    n = (1 << 20) + 3
+    g = torch.Generator(device=cuda).manual_seed(5)
+    bx, by = (torch.randn(n + 1, generator=g, device=cuda) for _ in range(2))
+    x = bx[offset:offset + n].view(1, n)
+    y = by[offset:offset + n].view(1, n)
+    out = ra.residual_add(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(out, x + y)
+
+
+@pytest.mark.gpu
+def test_residual_add_kernel_gradient(cuda):
+    x, y = (torch.randn(4, 64, 64, 64, device=cuda, requires_grad=True)
+            for _ in range(2))
+    w = torch.randn(4, 64, 64, 64, device=cuda)
+    before = ra.residual_add.launches
+    gx, gy = torch.autograd.grad((ra.residual_add(x, y) * w).sum(), (x, y))
+    assert ra.residual_add.launches == before + 1
+    assert torch.equal(gx, w) and torch.equal(gy, w)
+
+
+@pytest.mark.gpu
+def test_cadd_table_knob_on_the_card(cuda, monkeypatch):
+    x, y = (torch.randn(2, 64, 128, 128, device=cuda) for _ in range(2))
+    monkeypatch.delenv("BIGDL_RESIDUAL_ADD", raising=False)
+    before = ra.residual_add.launches
+    plain = CAddTable()((x, y))
+    assert ra.residual_add.launches == before
+    monkeypatch.setenv("BIGDL_RESIDUAL_ADD", "pallas")
+    kernel = CAddTable()((x, y))
+    assert ra.residual_add.launches == before + 1
+    assert torch.equal(plain, kernel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["sliced", "channels_last"])
+def test_residual_add_kernel_strided_operands(cuda, layout):
+    """A strided operand still launches the kernel (the wrapper makes it
+    contiguous first), and the sum is torch.add's, bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    if layout == "sliced":
+        x = torch.randn(2, 8, 256, 512, generator=g, device=cuda)[..., ::2]
+        y = torch.randn(2, 8, 256, 256, generator=g, device=cuda)
+    else:
+        x = torch.randn(8, 256, 32, 32, generator=g, device=cuda)
+        x = x.to(memory_format=torch.channels_last)
+        y = torch.randn(8, 256, 32, 32, generator=g, device=cuda)
+    assert not x.is_contiguous()
+    for a, b in ((x, y), (y, x)):
+        before = ra.residual_add.launches
+        out = ra.residual_add(a, b)
+        assert ra.residual_add.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.add(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("busy", [False, True], ids=["idle", "busy"])
+def test_device_prefetch_side_stream_delivers_every_batch(cuda, busy):
+    """Large batches through the pinned side-stream copy. Idle: the compute
+    stream reads each batch as soon as it is handed over (a missing wait
+    reads a half-copied batch). Busy: matmuls queued on the compute stream
+    before each read while the next copies run (a block recycled without
+    record_stream is overwritten before the read)."""
+    rs = np.random.RandomState(7)
+    host = [MiniBatch(rs.rand(16, 1024, 1024).astype(np.float32),
+                      rs.randint(0, 1000, (16,))) for _ in range(6)]
+    a = torch.rand(4096, 4096, device=cuda)
+    got = []
+    for inp, tgt in device_prefetch(iter(host), cuda):
+        assert inp.device.type == "cuda" and tgt.device.type == "cuda"
+        if busy:
+            for _ in range(20):
+                a = torch.tanh(a @ a)
+        got.append((inp.clone(), tgt.clone()))
+        del inp, tgt
+    torch.cuda.synchronize()
+    assert len(got) == len(host)
+    for (inp, tgt), want in zip(got, host):
+        assert torch.equal(inp.cpu(), torch.from_numpy(want.input))
+        assert torch.equal(tgt.cpu(), torch.from_numpy(want.target))
+
+
+POLICIES = {"fp32": DtypePolicy.full_precision(), "bf16": DtypePolicy.mixed()}
+BF16_STEP_ULPS = 24
+
+
+def _cifar_step(device, policy):
+    model = build_cifar(8, device=device,
+                        generator=torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(6)
+    x = torch.from_numpy(rs.standard_normal((8, 3, 32, 32)).astype(
+        np.float32)).to(device)
+    y = torch.from_numpy(rs.randint(0, 10, (8,))).to(device)
+    params = dict(model.named_parameters())
+    out = model(policy.cast_compute(x))
+    assert out.dtype == policy.compute_dtype
+    loss = CrossEntropyCriterion()(out.float(), y)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    sgd = SGD(0.1, momentum=0.9)
+    sgd.update(grads, params, sgd.init_state(params), 1)
+    tensors = {**{"grad " + k: v for k, v in grads.items()},
+               **{"param " + k: v for k, v in params.items()},
+               **{"state " + k: v for k, v in model.named_buffers()}}
+    return loss.detach().cpu(), {k: v.detach().float().cpu()
+                                 for k, v in tensors.items()}
+
+
+def _bf16_spacing(t):
+    m = t.abs().max().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m else 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_cifar_sgd_step_card_matches_cpu(cuda, policy):
+    loss_c, card = _cifar_step(cuda, POLICIES[policy])
+    loss_h, host = _cifar_step("cpu", POLICIES[policy])
+    if policy == "fp32":
+        assert abs(loss_c.item() - loss_h.item()) <= 1e-4 * abs(loss_h.item())
+        for name, want in host.items():
+            scale = max(1.0, want.abs().max().item())
+            assert (card[name] - want).abs().max().item() <= 1e-4 * scale, \
+                name
+        return
+    host["loss"], card["loss"] = loss_h.reshape(1), loss_c.reshape(1)
+    for name, want in host.items():
+        err = (card[name] - want).abs().max().item()
+        assert err <= BF16_STEP_ULPS * _bf16_spacing(want), (name, err)
+    # the tolerance tells a bf16 step from an fp32 one
+    _, fp32 = _cifar_step("cpu", POLICIES["fp32"])
+    assert max((card[k] - v).abs().max().item() / _bf16_spacing(v)
+               for k, v in fp32.items() if k.startswith("grad")) \
+        > BF16_STEP_ULPS
