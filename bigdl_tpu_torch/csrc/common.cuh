@@ -3,17 +3,22 @@
 // Every kernel here is built by nvcc into its own shared library with a
 // plain C interface (no PyTorch headers), loaded with ctypes by
 // bigdl_tpu_torch/ops/cuda_lib.py. Element types arrive as an int code
-// (kF32 / kBF16 / kF16) chosen by the Python wrapper from the tensor dtype.
+// (kF32 / kBF16 / kF16 / kI8) chosen by the Python wrapper from the tensor
+// dtype.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace bigdl {
 
-enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }

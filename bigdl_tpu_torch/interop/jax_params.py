@@ -10,7 +10,9 @@ Leaves arrive as numpy arrays (the caller runs ``jax.device_get`` on the
 tree; this module never imports JAX). Every leaf must find its tensor
 and every tensor its leaf, with equal shapes — anything else raises
 before any copy happens. Layouts are copied as stored: an HWIO-stored
-convolution weight stays HWIO.
+convolution weight stays HWIO. Integer leaves (the int8 weights of a
+quantized serving tree) copy as they are, and only into integer tensors
+of the same dtype; float leaves only into float tensors.
 """
 
 from __future__ import annotations
@@ -37,9 +39,17 @@ def _match(kind: str, targets: Dict[str, torch.Tensor],
         arr = np.asarray(leaf)
         if arr.dtype.name == "bfloat16":
             arr = arr.astype(np.float32)   # ml_dtypes bfloat16 -> float32
-        if tuple(arr.shape) != tuple(targets[name].shape):
+        target = targets[name]
+        if target.is_floating_point():
+            fits = arr.dtype.kind == "f"
+        else:
+            fits = arr.dtype == np.dtype(str(target.dtype).split(".")[-1])
+        if not fits:
+            raise ValueError(f"{name}: {kind} leaf has dtype {arr.dtype}, "
+                             f"the module's {target.dtype}")
+        if tuple(arr.shape) != tuple(target.shape):
             raise ValueError(f"{name}: {kind} leaf has shape {arr.shape}, "
-                             f"the module's {tuple(targets[name].shape)}")
+                             f"the module's {tuple(target.shape)}")
         arrays[name] = arr
     return arrays
 

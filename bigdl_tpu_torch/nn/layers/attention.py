@@ -4,7 +4,11 @@ model with its paged KV-cache step API.
 
 Child modules carry the JAX package's module-path names, so a parameter's
 dotted name here (``decoder_0.self_attention.inner.q_layer.weight``) is
-its path in the JAX ``params`` tree. Two differences from the JAX code:
+its path in the JAX ``params`` tree. A model rewritten by
+``nn.quantized.quantize_for_serving`` runs its GEMMs and its lm head in
+int8; int8 KV pools carry per-token fp32 scale pools beside the pages
+(quantize on scatter, dequantize on gather, ``nn.int8``). Two
+differences from the JAX code:
 
 - the paged KV pools are updated IN PLACE (``index_put``) instead of
   functionally: the port keeps one pool per layer for the engine's
@@ -12,9 +16,9 @@ its path in the JAX ``params`` tree. Two differences from the JAX code:
   recovers by donating the cache to every jitted call;
 - this slice ports the language-model paged path only: the full causal
   forward, ``init_paged_cache``, ``prefill_paged`` (prompt chunks) and
-  ``decode_step_paged`` (one token per slot, no external bias). The dense
-  slot-table cache, the speculative verify step, int8 KV and translation
-  mode come with later slices.
+  ``decode_step_paged`` (one token per slot, no external bias), with
+  float or int8 pools. The dense slot-table cache, the speculative verify
+  step and translation mode come with later slices.
 """
 
 from __future__ import annotations
@@ -27,13 +31,23 @@ from torch import nn
 
 from bigdl_tpu_torch.core.device import DeviceLike, resolve_device
 from bigdl_tpu_torch.nn.init import RandomNormal, default_generator
+from bigdl_tpu_torch.nn.int8 import (
+    dequantize_lanes,
+    int8_linear,
+    quantize_kv_rows,
+)
 from bigdl_tpu_torch.nn.layers.dropout import Dropout
 from bigdl_tpu_torch.nn.layers.linear import Linear
 from bigdl_tpu_torch.nn.layers.norm import LayerNormalization
 from bigdl_tpu_torch.ops.attention import dot_product_attention, paged_attention
-from bigdl_tpu_torch.ops.flash_attention import gather_kv_lanes
+from bigdl_tpu_torch.ops.flash_attention import (
+    gather_kv_lanes,
+    gather_scale_lanes,
+)
 
-Cache = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+# {layer: (K, V)} for float pools, {layer: (K, V, K_scale, V_scale)} for
+# int8 pools
+Cache = Dict[str, Tuple[torch.Tensor, ...]]
 
 
 def position_encoding(length: int, hidden_size: int,
@@ -98,8 +112,13 @@ class Attention(nn.Module):
 
         # Block-table KV cache: pools "k"/"v" (num_pages, H, page_size, D)
         # and "map", int32 physical-page ids. New K/V rows are scattered
-        # into the pools in place, then attention reads them back.
+        # into the pools in place, then attention reads them back. Int8
+        # pools come with "k_scale"/"v_scale" (num_pages, page_size):
+        # the scatter quantizes each new row (one fp32 scale per row,
+        # shared across heads), the gather dequantizes.
         pk, pv = paged["k"], paged["v"]
+        pks, pvs = paged.get("k_scale"), paged.get("v_scale")
+        int8_kv = pks is not None
         page_size = pk.shape[2]
         if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
             # decode: one token per slot; map is (S, ppn)
@@ -111,11 +130,12 @@ class Attention(nn.Module):
             slots = torch.arange(pos.shape[0], device=pos.device)
             pg = page_map.long()[slots, pos // page_size]
             row = pos % page_size
-            pk[pg, :, row] = k[:, :, 0, :].to(pk.dtype)
-            pv[pg, :, row] = v[:, :, 0, :].to(pv.dtype)
+            _scatter_rows(pk, pks, pg, row, k[:, :, 0, :])
+            _scatter_rows(pv, pvs, pg, row, v[:, :, 0, :])
             out3 = paged_attention(q[:, :, 0, :].contiguous(), pk, pv,
                                    page_map, cache_index,
-                                   use_kernel=paged.get("use_kernel"))
+                                   use_kernel=paged.get("use_kernel"),
+                                   k_scales=pks, v_scales=pvs)
             out = out3[:, :, None, :]
         else:
             # prefill chunk: q rows are positions idx..idx+C-1 of ONE
@@ -133,17 +153,33 @@ class Attention(nn.Module):
                              pages_row[(pos // page_size).clamp(0, ppn - 1)],
                              torch.full_like(pos, int(paged["trash"])))
             row = pos % page_size
-            pk[pg, :, row] = k[0].transpose(0, 1).to(pk.dtype)
-            pv[pg, :, row] = v[0].transpose(0, 1).to(pv.dtype)
-            lk = gather_kv_lanes(pk, pages_row)[None]      # (1, H, L, D)
-            lv = gather_kv_lanes(pv, pages_row)[None]
+            _scatter_rows(pk, pks, pg, row, k[0].transpose(0, 1))
+            _scatter_rows(pv, pvs, pg, row, v[0].transpose(0, 1))
+            lk = gather_kv_lanes(pk, pages_row)            # (H, L, D)
+            lv = gather_kv_lanes(pv, pages_row)
+            if int8_kv:
+                lk = dequantize_lanes(lk, gather_scale_lanes(pks, pages_row))
+                lv = dequantize_lanes(lv, gather_scale_lanes(pvs, pages_row))
+            lk, lv = lk[None], lv[None]                    # (1, H, L, D)
             rows = pos[:, None]
             cols = torch.arange(lk.shape[2], device=q.device)[None, :]
             validity = torch.where(cols <= rows, 0.0, -1e9)[None, None]
             out = dot_product_attention(
                 q, lk, lv, validity if bias is None else bias + validity)
         out = self.output_layer(self._join_heads(out))
-        return out, (pk, pv)
+        return out, ((pk, pv, pks, pvs) if int8_kv else (pk, pv))
+
+
+def _scatter_rows(pool, scales, pg, row, rows):
+    """Write K or V ``rows`` (N, H, D) into ``pool`` at (page ``pg``, row
+    ``row``) in place; for an int8 pool, quantize them and write their
+    scales into ``scales`` (num_pages, page_size) too."""
+    if scales is None:
+        pool[pg, :, row] = rows.to(pool.dtype)
+        return
+    rq, rs = quantize_kv_rows(rows)
+    pool[pg, :, row] = rq
+    scales[pg, row] = rs
 
 
 class FeedForwardNetwork(nn.Module):
@@ -270,6 +306,10 @@ class Transformer(nn.Module):
                 if n.startswith("decoder_")]
 
     def _logits(self, h):
+        if "embedding_q" in self._parameters:
+            # int8 lm head (quantize_for_serving): the float embedding
+            # keeps doing the lookups
+            return int8_linear(h, self.embedding_q, self.lm_scale)
         return torch.matmul(h, self.embedding.to(h.dtype).t())
 
     def _as_ids(self, ids) -> torch.Tensor:
@@ -293,14 +333,25 @@ class Transformer(nn.Module):
                          dtype: torch.dtype = torch.float32) -> Cache:
         """Zeroed per-layer KV page pools ``{layer: (K, V)}`` with K/V of
         shape ``(num_pages, num_heads, page_size, head_dim)`` on the
-        model's device (float dtypes only in this slice)."""
-        if not dtype.is_floating_point:
-            raise NotImplementedError(
-                f"cache dtype {dtype}: int8 KV comes with a later slice")
+        model's device. ``dtype=torch.int8`` stores the pages int8 with
+        per-token fp32 scale pools of shape ``(num_pages, page_size)``
+        beside them: ``{layer: (K, V, K_scale, V_scale)}``."""
         head_dim = self.hidden_size // self.num_heads
         shape = (num_pages, self.num_heads, page_size, head_dim)
-        return {name: (torch.zeros(shape, dtype=dtype, device=self.device),
-                       torch.zeros(shape, dtype=dtype, device=self.device))
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        if dtype == torch.int8:
+            sshape = (num_pages, page_size)
+            return {name: (zeros(shape, dtype), zeros(shape, dtype),
+                           zeros(sshape, torch.float32),
+                           zeros(sshape, torch.float32))
+                    for name, _ in self._decoders()}
+        if not dtype.is_floating_point:
+            raise ValueError(f"cache dtype {dtype}: the KV pools are float "
+                             f"or int8")
+        return {name: (zeros(shape, dtype), zeros(shape, dtype))
                 for name, _ in self._decoders()}
 
     def prefill_paged(self, cache: Cache, pages_row, tokens, start: int,
@@ -322,11 +373,10 @@ class Transformer(nn.Module):
             0, max_len - 1)
         x = self.embed_drop(x + pe[at][None])
         for name, layer in self._decoders():
-            pk, pv = cache[name]
             x, cache[name] = layer(
                 x, cache_index=int(start), write_len=int(length),
-                paged={"k": pk, "v": pv, "map": pages_row,
-                       "trash": int(trash)})
+                paged=_paged_inputs(cache[name], map=pages_row,
+                                    trash=int(trash)))
         if not need_logits:
             return cache
         h = self.final_norm(x[:, int(length) - 1:int(length)])
@@ -348,10 +398,18 @@ class Transformer(nn.Module):
         x = self.embedding[tokens][:, None, :] * (self.hidden_size ** 0.5)
         x = x + self._positions(max_len, x.dtype)[positions.long()][:, None, :]
         for name, layer in self._decoders():
-            pk, pv = cache[name]
             x, cache[name] = layer(
                 x, cache_index=positions,
-                paged={"k": pk, "v": pv, "map": page_map,
-                       "use_kernel": use_kernel})
+                paged=_paged_inputs(cache[name], map=page_map,
+                                    use_kernel=use_kernel))
         x = self.final_norm(x)
         return self._logits(x)[:, 0, :], cache
+
+
+def _paged_inputs(entry, **extra) -> dict:
+    """One layer's cache entry, (K, V) or (K, V, K_scale, V_scale), as the
+    ``paged`` dict that ``Attention.forward`` reads."""
+    paged = {"k": entry[0], "v": entry[1], **extra}
+    if len(entry) == 4:
+        paged["k_scale"], paged["v_scale"] = entry[2], entry[3]
+    return paged

@@ -4,7 +4,8 @@
 Where the JAX package picks its Pallas kernels by platform, the port
 picks by the tensors' device: CUDA tensors go through the hand-written
 kernels (B2 :func:`~bigdl_tpu_torch.ops.flash_attention.flash_attention`,
-B3 :func:`~bigdl_tpu_torch.ops.flash_attention.paged_flash_attention`),
+B3 and B3-int8
+:func:`~bigdl_tpu_torch.ops.flash_attention.paged_flash_attention`),
 CPU tensors through their plain versions. ``use_flash=False`` /
 ``use_kernel=False`` stay the explicit way to ask for the plain version
 on any device.
@@ -36,17 +37,23 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_map: torch.Tensor,
                     positions: torch.Tensor, *,
                     sm_scale: Optional[float] = None,
-                    use_kernel: Optional[bool] = None) -> torch.Tensor:
+                    use_kernel: Optional[bool] = None,
+                    k_scales: Optional[torch.Tensor] = None,
+                    v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode-step attention over a paged KV cache. ``q`` (S, H, D);
     pools (num_pages, H, page_size, D); ``page_map`` (S, ppn) int32;
     ``positions`` (S,) int32 — key col j valid iff j <= positions[s].
-    ``use_kernel=None``/``True``: kernel B3 for CUDA tensors, its plain
-    version for CPU tensors; ``False``: the plain version everywhere."""
+    Int8 pools pass their per-token fp32 scale pools
+    (``k_scales``/``v_scales``, (num_pages, page_size)); both paths
+    dequantize on gather. ``use_kernel=None``/``True``: kernel B3 (B3-int8
+    for int8 pools) for CUDA tensors, its plain version for CPU tensors;
+    ``False``: the plain version everywhere."""
     if use_kernel is False:
         return _fa.paged_attention_reference(q, k_pages, v_pages, page_map,
-                                             positions, sm_scale)
+                                             positions, sm_scale, k_scales,
+                                             v_scales)
     return _fa.paged_flash_attention(q, k_pages, v_pages, page_map,
-                                     positions, sm_scale)
+                                     positions, sm_scale, k_scales, v_scales)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -35,7 +35,7 @@ SIGNATURES = {
                         [_P, _P, _P, _P, _L, _L, _L, _L, _P,
                          _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]),
     "paged_attention": ("bigdl_paged_attention",
-                        [_P, _P, _P, _P, _P, _P,
+                        [_P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _F, _I, _I, _P]),
     "residual_add": ("bigdl_residual_add", [_P, _P, _P, _L, _I, _I, _P]),
 }

@@ -1,5 +1,5 @@
-"""Attention kernels B2 (flash forward) and B3 (paged decode), with their
-plain PyTorch versions.
+"""Attention kernels B2 (flash forward) and B3 / B3-int8 (paged decode over
+float / int8 pools), with their plain PyTorch versions.
 
 Counterpart of ``bigdl_tpu/ops/flash_attention.py``. Each kernel is CUDA
 C++ written for Hopper (``bigdl_tpu_torch/csrc/*.cu``, built and loaded by
@@ -9,7 +9,8 @@ device of the tensors it is given: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel (or raises — there is no fall back), any
 other device raises. Each wrapper counts its kernel launches in
 ``<wrapper>.launches``, a plain integer incremented where the kernel is
-launched and nowhere else.
+launched and nowhere else; ``paged_flash_attention.launches`` counts B3
+(float pools) and ``paged_flash_attention.int8_launches`` B3-int8.
 
 Shapes follow (batch, heads, seq, head_dim), as in the JAX package.
 """
@@ -23,7 +24,7 @@ import torch
 from bigdl_tpu_torch.ops import cuda_lib
 
 _NEG_INF = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 3}
 # (q dtype, K/V dtype) pairs the kernels take: one dtype, or bf16 K/V
 # under fp32 activations (the engine with a bf16 KV cache)
 _DTYPE_PAIRS = {(torch.float32, torch.float32),
@@ -62,14 +63,32 @@ def gather_kv_lanes(pages: torch.Tensor, page_map: torch.Tensor) -> torch.Tensor
     return lanes.reshape(page_map.shape[:-1] + (h, -1, d))
 
 
+def gather_scale_lanes(scales: torch.Tensor,
+                       page_map: torch.Tensor) -> torch.Tensor:
+    """(num_pages, page_size) per-token scale pool + (..., ppn) page map ->
+    logical scale lanes (..., ppn * page_size), row-aligned with
+    :func:`gather_kv_lanes`. Exact data movement."""
+    lanes = scales[page_map.long()]                # (..., ppn, ps)
+    return lanes.reshape(page_map.shape[:-1] + (-1,))
+
+
 def paged_attention_reference(q, k_pages, v_pages, page_map, positions,
-                              sm_scale: Optional[float] = None) -> torch.Tensor:
-    """The plain version of B3 (``paged_attention_reference`` in the JAX
-    package): gather each slot's logical lanes through its page map, mask
-    cols > positions[s] with a -1e9 bias, attend. q (S,H,D) -> (S,H,D)."""
+                              sm_scale: Optional[float] = None,
+                              k_scales=None, v_scales=None) -> torch.Tensor:
+    """The plain version of B3 and B3-int8 (``paged_attention_reference``
+    in the JAX package): gather each slot's logical lanes through its page
+    map, mask cols > positions[s] with a -1e9 bias, attend. q (S,H,D) ->
+    (S,H,D). Int8 pools pass their (num_pages, page_size) fp32 scale
+    pools: the lanes are dequantized after the gather, and the output is
+    fp32."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     lk = gather_kv_lanes(k_pages, page_map)        # (S, H, L, D)
     lv = gather_kv_lanes(v_pages, page_map)
+    if k_scales is not None:
+        from bigdl_tpu_torch.nn.int8 import dequantize_lanes
+
+        lk = dequantize_lanes(lk, gather_scale_lanes(k_scales, page_map))
+        lv = dequantize_lanes(lv, gather_scale_lanes(v_scales, page_map))
     cols = torch.arange(lk.shape[2], device=q.device)
     validity = torch.where(cols[None, :] <= positions.long()[:, None],
                            0.0, -1e9)[:, None, None, :]       # (S,1,1,L)
@@ -193,8 +212,33 @@ flash_attention.launches = 0
 # ------------------------------------------------------------- B3 ----
 
 
-def _launch_paged(q, k_pages, v_pages, page_map, positions,
-                  scale: float) -> torch.Tensor:
+def _check_scales(k_pages, k_scales, v_scales):
+    """Int8 pools need both (num_pages, page_size) fp32 scale pools; float
+    pools take none. Returns the scale pools' data pointers (or Nones)."""
+    int8_kv = k_pages.dtype == torch.int8
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    if int8_kv != (k_scales is not None):
+        raise ValueError("int8 pools need k_scales/v_scales, float pools "
+                         f"take none (pools {k_pages.dtype}, scales "
+                         f"{'given' if k_scales is not None else 'missing'})")
+    if not int8_kv:
+        return None, None
+    want = (k_pages.shape[0], k_pages.shape[2])
+    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be (num_pages, page_size) = "
+                             f"{want}, got {tuple(t.shape)}")
+        if t.device != k_pages.device:
+            raise ValueError(f"{name} must be on the pools' device")
+    _check_contiguous(k_scales=k_scales, v_scales=v_scales)
+    return k_scales.data_ptr(), v_scales.data_ptr()
+
+
+def _launch_paged(q, k_pages, v_pages, page_map, positions, scale: float,
+                  k_scales=None, v_scales=None) -> torch.Tensor:
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError(f"q must be (S, H, D) and pools (P, H, page_size, "
                          f"D); got {tuple(q.shape)}, {tuple(k_pages.shape)}")
@@ -210,7 +254,14 @@ def _launch_paged(q, k_pages, v_pages, page_map, positions,
     if v_pages.dtype != k_pages.dtype:
         raise TypeError(f"pool dtypes differ: {k_pages.dtype} vs "
                         f"{v_pages.dtype}")
-    codes = _dtype_codes(q, k_pages, "paged attention")
+    if k_pages.dtype == torch.int8:
+        if q.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"paged attention over int8 pools takes a "
+                            f"float32 or bfloat16 q, got {q.dtype}")
+        codes = _DTYPE_CODES[q.dtype], _DTYPE_CODES[torch.int8]
+    else:
+        codes = _dtype_codes(q, k_pages, "paged attention")
+    scale_ptrs = _check_scales(k_pages, k_scales, v_scales)
     _check_contiguous(q=q, k_pages=k_pages, v_pages=v_pages,
                       page_map=page_map, positions=positions)
     if page_map.dim() != 2 or page_map.shape[0] != n_slots:
@@ -225,32 +276,47 @@ def _launch_paged(q, k_pages, v_pages, page_map, positions,
     if len({t.device for t in (q, k_pages, v_pages, page_map,
                                positions)}) != 1:
         raise ValueError("paged attention inputs must be on one device")
-    out = torch.empty_like(q)
+    # B3-int8 outputs fp32 whatever q's dtype (the TPU kernel's out spec)
+    out = torch.empty_like(q, dtype=torch.float32
+                           if k_pages.dtype == torch.int8 else q.dtype)
     with torch.cuda.device(q.device):
         err = cuda_lib.entry("paged_attention")(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_map.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            *scale_ptrs, page_map.data_ptr(), positions.data_ptr(),
+            out.data_ptr(),
             n_slots, heads, page_size, page_map.shape[1], d, float(scale),
             *codes, torch.cuda.current_stream().cuda_stream)
-        paged_flash_attention.launches += 1
+        if k_pages.dtype == torch.int8:
+            paged_flash_attention.int8_launches += 1
+        else:
+            paged_flash_attention.launches += 1
     cuda_lib.check(err, "paged_attention")
     return out
 
 
 def paged_flash_attention(q, k_pages, v_pages, page_map, positions,
-                          sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Paged decode attention (kernel B3), float pools. q (S,H,D); pools
-    (num_pages,H,page_size,D); ``page_map`` (S,ppn) int32 with ids in
-    [0, num_pages); ``positions`` (S,) int32 — key col j of slot s is
-    visible iff j <= positions[s]. CPU tensors take
+                          sm_scale: Optional[float] = None,
+                          k_scales=None, v_scales=None) -> torch.Tensor:
+    """Paged decode attention: kernel B3 over float pools, B3-int8 over
+    int8 pools. q (S,H,D); pools (num_pages,H,page_size,D); ``page_map``
+    (S,ppn) int32 with ids in [0, num_pages); ``positions`` (S,) int32 —
+    key col j of slot s is visible iff j <= positions[s]. Int8 pools pass
+    their per-token fp32 scale pools ``k_scales``/``v_scales``
+    (num_pages, page_size). CPU tensors take
     :func:`paged_attention_reference`; CUDA tensors launch the kernel
-    (float32 or bfloat16 pools, q float32 or the pools' dtype; output in
-    q's dtype)."""
+    (float32 or bfloat16 pools under q float32 or the pools' dtype,
+    output in q's dtype; int8 pools under q float32 or bfloat16, output
+    float32)."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-    if _device_kind(q, k_pages, v_pages, page_map, positions) == "cpu":
+    kind = _device_kind(q, k_pages, v_pages, page_map, positions, k_scales,
+                        v_scales)
+    if kind == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, page_map,
-                                         positions, scale)
-    return _launch_paged(q, k_pages, v_pages, page_map, positions, scale)
+                                         positions, scale, k_scales,
+                                         v_scales)
+    return _launch_paged(q, k_pages, v_pages, page_map, positions, scale,
+                         k_scales, v_scales)
 
 
 paged_flash_attention.launches = 0
+paged_flash_attention.int8_launches = 0

@@ -26,6 +26,14 @@ Invariants kept from the JAX engine:
 kernels. Greedy output is schedule-invariant, so the engine's streams
 equal static_generate's token for token.
 
+The int8 serving tier: ``quantize="int8"`` serves a
+``quantize_for_serving`` copy of the model (every GEMM and the lm head as
+an ``s8 x s8 -> s32`` product), quantized once at construction;
+``cache_dtype=torch.int8`` stores the KV pages int8 with per-token fp32
+scale pools, and the decode step's attention runs kernel B3-int8. The
+metrics report ``quantized_gemms``, ``kv_cache_dtype`` and
+``kv_bytes_in_use`` (scale pools included).
+
 This slice decodes greedily; sampling, speculative decoding, prefix
 caching, KV tiers, disaggregation, grammar masks, async scheduling,
 tensor parallelism, faults and tracing come with later slices.
@@ -45,6 +53,10 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.device import DeviceLike, resolve_device
+from bigdl_tpu_torch.nn.quantized import (
+    count_quantized_gemms,
+    quantize_for_serving,
+)
 from bigdl_tpu_torch.ops.sampling import check_greedy, greedy_tokens
 from bigdl_tpu_torch.serving.batcher import bucket_sizes_for
 from bigdl_tpu_torch.serving.errors import (
@@ -53,7 +65,11 @@ from bigdl_tpu_torch.serving.errors import (
     StreamCancelled,
 )
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
-from bigdl_tpu_torch.serving.paging import PagePool, pages_per_lane
+from bigdl_tpu_torch.serving.paging import (
+    PagePool,
+    page_bytes,
+    pages_per_lane,
+)
 
 log = logging.getLogger("bigdl_tpu_torch.serving")
 
@@ -69,6 +85,26 @@ def _model_device(model, device: DeviceLike) -> torch.device:
                          f"runs on {dev}: build the model with "
                          f"device={str(dev)!r} or move it with .to()")
     return have
+
+
+def _serving_model(model, quantize: Optional[str], kernels):
+    """The model the kernels run: ``model`` itself, or for
+    ``quantize="int8"`` its ``quantize_for_serving`` copy."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8', "
+                         f"got {quantize!r}")
+    if quantize is None:
+        return model
+    if kernels is not None:
+        raise ValueError(
+            "quantize='int8' builds its kernels over the quantized copy of "
+            "the model; pass kernels=None, or pass kernels built over "
+            "nn.quantized.quantize_for_serving(model) with quantize=None")
+    return quantize_for_serving(model)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 class PagedDecodeKernels:
@@ -310,6 +346,9 @@ class GenerationEngine:
     :class:`GenerationStream`. ``warmup()`` runs every kernel shape once
     (and, on a card, builds the CUDA kernels) before traffic. ``device``
     defaults to ``"cuda"`` and must be where the model's parameters are.
+    ``quantize="int8"`` serves an int8 copy of ``model`` (the caller's
+    model is untouched); ``cache_dtype=torch.int8`` keeps int8 KV pages
+    with per-token fp32 scales.
     """
 
     def __init__(self, model, *, device: DeviceLike = None,
@@ -320,12 +359,14 @@ class GenerationEngine:
                  cache_dtype: torch.dtype = torch.float32,
                  kernels: Optional[PagedDecodeKernels] = None,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 quantize: Optional[str] = None):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if max_len < 2:
             raise ValueError("max_len must be >= 2 (prompt + 1 token)")
         self.device = _model_device(model, device)
+        model = _serving_model(model, quantize, kernels)
         self.model = model
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
@@ -348,8 +389,16 @@ class GenerationEngine:
         self.num_pages = int(num_pages or self.max_slots * ppn)
         self._pool = PagePool(self.num_pages, self.page_size, self.max_len)
         self.kernels = kernels or PagedDecodeKernels(model)
+        self.metrics.set_quantized_gemms(
+            count_quantized_gemms(self.kernels.model))
         self._cache = model.init_paged_cache(self.num_pages + 1,
                                              self.page_size, cache_dtype)
+        # what one reserved page costs across all layers, scale pools
+        # included: the kv_bytes_in_use gauge
+        self.cache_dtype_name = _dtype_name(cache_dtype)
+        self._kv_page_bytes = model.num_hidden_layers * page_bytes(
+            self.page_size, model.num_heads,
+            model.hidden_size // model.num_heads, cache_dtype)
         # the decode step's page map; rows change on admission/retirement
         self._page_map = np.full((self.max_slots, ppn), self._pool.trash,
                                  np.int32)
@@ -598,6 +647,8 @@ class GenerationEngine:
 
     def _report_pages(self) -> None:
         self.metrics.set_pages(self._pool.in_use, self._pool.num_pages)
+        self.metrics.set_kv_cache(self._pool.in_use * self._kv_page_bytes,
+                                  self.cache_dtype_name)
 
     # -------------------------------------------------------- lifecycle ----
 
@@ -666,13 +717,17 @@ def static_generate(model, requests, *, max_slots: int, max_len: int,
                     kernels: Optional[PagedDecodeKernels] = None,
                     prompt_buckets: Optional[Sequence[int]] = None,
                     page_size: int = 16, num_pages: Optional[int] = None,
-                    prefill_chunk: Optional[int] = None):
+                    prefill_chunk: Optional[int] = None,
+                    quantize: Optional[str] = None):
     """Run-to-completion static batching over the same paged kernels the
     engine uses: admit ``max_slots`` requests, decode until every one of
     them finishes, only then admit the next group. ``requests`` is a
     sequence of ``(prompt, max_new_tokens)``; returns ``(token lists,
-    decode steps executed)``."""
+    decode steps executed)``. ``quantize`` and ``cache_dtype`` are the
+    engine's knobs (the transform is deterministic, so an int8 engine and
+    an int8 static run emit the same tokens)."""
     _model_device(model, device)
+    model = _serving_model(model, quantize, kernels)
     kernels = kernels or PagedDecodeKernels(model)
     requests = [([int(t) for t in p], int(m)) for p, m in requests]
     return _static_generate_paged(

@@ -1,8 +1,9 @@
 """Serving metrics for the generation engine (a subset of
 ``bigdl_tpu/serving/metrics.py``): request outcomes, prefills and prompt
 chunks, decode steps, tokens out, time to first token (p50/p95/p99 over a
-bounded reservoir), page occupancy. Lock-protected; the snapshot keys
-keep the JAX package's names.
+bounded reservoir), page occupancy, and the quantized-serving gauges (KV
+bytes in use, KV cache dtype, int8 GEMMs). Lock-protected; the snapshot
+keys keep the JAX package's names.
 """
 
 from __future__ import annotations
@@ -67,6 +68,9 @@ class ServingMetrics:
         self.pages_in_use = 0
         self.pages_total = 0
         self.pages_peak = 0
+        self.kv_bytes_in_use = 0     # reserved KV bytes, scale pools incl.
+        self.kv_cache_dtype = ""     # "" until a paged engine reports one
+        self.quantized_gemms = 0     # int8 GEMMs in the serving model
         self._ttft = _Reservoir(reservoir_size)      # submit -> 1st token
 
     def record_served(self) -> None:
@@ -105,6 +109,18 @@ class ServingMetrics:
             self.pages_total = total
             self.pages_peak = max(self.pages_peak, in_use)
 
+    def set_kv_cache(self, bytes_in_use: int, dtype: str) -> None:
+        """KV byte-occupancy gauge: bytes the reserved pages cost in the
+        cache's own dtype, scale pools included."""
+        with self._lock:
+            self.kv_bytes_in_use = int(bytes_in_use)
+            self.kv_cache_dtype = str(dtype)
+
+    def set_quantized_gemms(self, n: int) -> None:
+        """How many GEMMs of the serving model run int8 (0 = float)."""
+        with self._lock:
+            self.quantized_gemms = int(n)
+
     def snapshot(self) -> dict:
         with self._lock:
             ttft = self._ttft.percentiles(self.LATENCY_QS)
@@ -122,4 +138,7 @@ class ServingMetrics:
                 "pages_in_use": self.pages_in_use,
                 "pages_total": self.pages_total,
                 "pages_peak": self.pages_peak,
+                "kv_bytes_in_use": self.kv_bytes_in_use,
+                "kv_cache_dtype": self.kv_cache_dtype,
+                "quantized_gemms": self.quantized_gemms,
             }

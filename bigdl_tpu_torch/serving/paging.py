@@ -30,9 +30,15 @@ import torch
 
 def page_bytes(page_size: int, num_heads: int, head_dim: int,
                cache_dtype: torch.dtype = torch.float32) -> int:
-    """Bytes ONE physical KV page costs per layer (its K and V pages)."""
-    itemsize = torch.empty((), dtype=cache_dtype).element_size()
-    return 2 * page_size * num_heads * head_dim * itemsize
+    """Bytes ONE physical KV page costs per layer: its K and V pages plus,
+    for int8, the per-token fp32 scale-pool rows beside them
+    (``Transformer.init_paged_cache``)."""
+    if cache_dtype == torch.int8:
+        per_row = num_heads * head_dim + 4           # int8 row + f32 scale
+    else:
+        itemsize = torch.empty((), dtype=cache_dtype).element_size()
+        per_row = num_heads * head_dim * itemsize
+    return 2 * page_size * per_row                   # K and V
 
 
 def pages_per_lane(max_len: int, page_size: int) -> int:

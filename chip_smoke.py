@@ -23,7 +23,13 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              at the serving shapes (8 slots x 8 heads, fragmented page map,
              positions 0/15/16/255/...), same three dtype pairs; error and
              times.
-5. engine  — the port's ``GenerationEngine`` serving a ``Transformer`` at
+5. B3-int8 — the paged decode kernel over int8 pools with per-token fp32
+             scale pools against its plain version at the same shapes, q
+             fp32 and bf16; error and times; then the int8 GEMM on the card
+             (``torch._int_mm``, token rows padded) bitwise against the
+             CPU's integer product at the serving GEMM shapes, and the
+             quantizers and ``int8_linear`` bitwise card against CPU.
+6. engine  — the port's ``GenerationEngine`` serving a ``Transformer`` at
              the width of the JAX package's on-chip serving bench (vocab
              8192, hidden 512, 8 heads, filter 2048, 4 layers; max_len
              256, prompts <= 16, page 16, 8 slots, fp32), weights from a
@@ -36,13 +42,25 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              torch.profiler window over 20 eager decode steps: device time
              and kernels per step, the card's busy share of a step, and the
              kernels that take most of it.
-6. B1      — the residual-add kernel against its plain version at the
+7. engine-int8 — the same 32 requests through the int8 serving tier
+             (``quantize="int8"``, ``cache_dtype=torch.int8``): B2 on every
+             prompt call and B3-int8 on every decode step of every layer,
+             engine == ``static_generate``, card vs CPU int8 logits held
+             under a limit tied to this run's own noise reading, and three
+             faults planted on the int8 path read above it; the same
+             numbers beside the float engine's (with each run's time split
+             into prompt calls, decode steps and the rest, and each
+             engine's own peak memory), the mean token agreement with it
+             (printed, not checked: random weights have no stated
+             contract), and ``[trace]`` windows over 8 prompt calls and 20
+             decode steps of each engine.
+8. B1      — the residual-add kernel against its plain version at the
              four residual-add shapes of ResNet-50 at batch 128, bf16 and
              fp32: bitwise equal; the dispatch cases that take the plain
              add (small, mixed dtype, broadcast, CPU tensors); kernel time
              at the layer1 bf16 shape, plain time, ``torch.add`` time and
              the bound.
-7. train   — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
+9. train   — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
              NCHW) at batch 128 under the bf16 mixed policy, SGD lr 0.1 /
              momentum 0.9, through ``optimizer(...).optimize()`` on 4 x 128
              samples from numpy seed 0; two legs from the same seeded
@@ -53,14 +71,16 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              memory; then one fp32 step of ``build_cifar(8)`` at batch 8 on
              the card against the CPU, and (``[trace]``) a torch.profiler
              window over 3 training steps of the second leg.
-8. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
-   last line ``{"ok": true, "device": {...}}``.
+10. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
+    last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time per launch: the launches are captured
 back-to-back in one CUDA graph and the graph is replayed between CUDA
 events, so host-side launch cost is excluded (``eager_ms`` adds it back).
 """
 
+import copy
+import gc
 import json
 import logging
 import math
@@ -77,7 +97,9 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.core import DtypePolicy, EngineConfig, RandomGenerator
 from bigdl_tpu_torch.dataset import DataSet
 from bigdl_tpu_torch.models.resnet import build_cifar, build_imagenet
-from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
+from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer, int8
+from bigdl_tpu_torch.nn.layers import attention as attention_layers
+from bigdl_tpu_torch.nn.quantized import quantize_for_serving
 from bigdl_tpu_torch.ops import cuda_lib
 from bigdl_tpu_torch.ops import flash_attention as fa
 from bigdl_tpu_torch.ops import residual_add as ra
@@ -91,6 +113,7 @@ from bigdl_tpu_torch.serving import (
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12      # CUDA-core fp32; both kernels use FMA units
+INT8_OPS_PER_S = 1979e12      # int8 tensor cores, dense (the int8 GEMM)
 
 # the JAX package's on-chip serving configuration (bench.py --mode serving
 # --generate on TPU)
@@ -112,6 +135,30 @@ DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
 # kernels sum in another order than the CPU through 4 layers of width 512
 # and an 8192-wide head, logits of magnitude ~1-5
 LOGITS_TOL = 1e-3
+# card vs CPU logits at int8, held to this run's own readings. The integer
+# GEMMs are exact on both sides, but LayerNorm, attention and the rescales
+# sum in another order, and a one-ulp difference on a .5 rounding boundary
+# moves one int8 activation or K/V entry by a whole step (1/127 of its
+# row's largest entry), which the later layers and that slot's later steps
+# carry on. Such flips are sparse: most rows stay fp32-close and a few
+# move by up to ~0.1, as much as a real fault moves them, so the largest
+# difference cannot tell the two apart. The statistic is the mean
+# absolute difference over all logits, which a fault raises on every row.
+# Its noise reading is the card against itself with every LayerNorm gain
+# moved by one ulp (a change of the size another summation order makes),
+# the largest over INT8_NUDGE_SEEDS; the card vs CPU reading must stay
+# under INT8_NOISE_FACTOR times it, and each fault of int8_faults(),
+# planted on the card's int8 path, must read above that limit
+INT8_NUDGE_SEEDS = (7, 8, 9)
+INT8_NOISE_FACTOR = 2.0
+# B3-int8 against its plain version, q fp32 or bf16: both dequantize the
+# same int8 rows with the same fp32 scales and accumulate in fp32; only
+# the summation order differs, as for fp32 pools
+INT8_TOL = 1e-4
+# the GEMM shapes of the serving model, (K, N): q/k/v/out, FFN up, FFN
+# down, lm head; M is the decode step's 8 rows or a 16-row prompt chunk
+INT8_GEMMS = ((HIDDEN, HIDDEN), (HIDDEN, FILTER), (FILTER, HIDDEN),
+              (HIDDEN, VOCAB))
 
 # the training run: ResNet-50 as the JAX package's bench trains it
 # (bench.py run_bench: batch 128, SGD lr 0.1 / momentum 0.9)
@@ -147,10 +194,18 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+_CAPTURE_STREAM = []
+
+
 def device_ms(fn, reps=40, replays=10) -> float:
     """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
-    graph, replayed ``replays`` times between CUDA events."""
-    side = torch.cuda.Stream()
+    graph, replayed ``replays`` times between CUDA events. Every capture
+    runs on one side stream: cuBLAS keeps a workspace for each stream it
+    has run on, so a fresh stream per call would leave one more allocated
+    each time and inflate every later peak-memory reading."""
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    side = _CAPTURE_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -188,9 +243,9 @@ def eager_ms(fn, iters=200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: int, flops: int):
+def bound(n_bytes: int, flops: int, ops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -220,11 +275,13 @@ def phase_build():
     results = cuda_lib.build()
     print(f"[build] {len(results)} libraries in "
           f"{time.monotonic() - t0:.1f} s (parallel nvcc, sm_90a)")
-    # ptxas -v: one block per template instantiation (q/KV dtypes x D/32
+    # ptxas -v: one block per template instantiation (element types x D/32
     # chunks); print the D=64 ones the serving path runs, and the worst of
-    # them all
+    # them all. In the mangled names f is float, a is int8_t, and
+    # 13__nv_bfloat16 or a substitution (S_, S0_, ...) is the bf16 type
     usage = re.compile(r"Function properties for (\S+)\n\s*(.*?)\n"
                        r"ptxas info\s*: (Used [^\n]*)")
+    names = {"f": "fp32", "a": "int8"}
     for res in results.values():
         regs, spills = [], 0
         for fn, stack, used in usage.findall(res.ptxas):
@@ -233,10 +290,9 @@ def phase_build():
                                                      stack))
             tag = re.search(r"kernelI(.*?)Li(\d)E", fn)
             if tag and tag[2] == "2":
-                types = {"ff": "fp32/fp32", "f13__nv_bfloat16": "fp32/bf16"}
-                dtype = types.get(tag[1], "bf16/bf16")
-                print(f"[build] {res.name} q/kv {dtype} D=64: {used}; "
-                      f"{stack}")
+                types = re.findall(r"13__nv_bfloat16|S\d*_|[fa]", tag[1])
+                dtype = "/".join(names.get(t, "bf16") for t in types)
+                print(f"[build] {res.name} {dtype} D=64: {used}; {stack}")
         print(f"[build] {res.name}: {len(regs)} instantiations, max "
               f"{max(regs, default=0)} registers, {spills} spill bytes")
 
@@ -348,6 +404,127 @@ def phase_b3(card):
                 eager_ms=eager)
 
 
+def int8_pools(g, n_pages):
+    """Int8 K/V pools and their per-token fp32 scale pools, quantized from
+    random rows as the engine's scatter writes them."""
+    pools = []
+    for _ in range(2):
+        rows = torch.randn(n_pages * PAGE, HEADS, HEAD_DIM, generator=g,
+                           device="cuda")
+        q, scale = int8.quantize_kv_rows(rows)
+        pools.append(q.reshape(n_pages, PAGE, HEADS, HEAD_DIM).transpose(1, 2)
+                     .contiguous())
+        pools.append(scale.reshape(n_pages, PAGE))
+    kp, ks, vp, vs = pools
+    return kp, vp, ks, vs
+
+
+def phase_b3_int8(card):
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n_pages = SLOTS * (MAX_LEN // PAGE)
+    page_map = torch.randperm(n_pages, generator=g, device="cuda").reshape(
+        SLOTS, MAX_LEN // PAGE).to(torch.int32)
+    positions = torch.tensor([0, 15, 16, 255, 37, 100, 128, 200],
+                             dtype=torch.int32, device="cuda")
+    kp, vp, ks, vs = int8_pools(g, n_pages + 1)
+    worst, timed = 0.0, None
+    for qdt in (torch.float32, torch.bfloat16):
+        q = torch.randn(SLOTS, HEADS, HEAD_DIM, generator=g,
+                        device="cuda").to(qdt)
+        out = fa.paged_flash_attention(q, kp, vp, page_map, positions,
+                                       k_scales=ks, v_scales=vs)
+        ref = fa.paged_attention_reference(q, kp, vp, page_map, positions,
+                                           k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        worst = max(worst, err)
+        print(f"[B3-int8] q {str(qdt)[6:]:8s} int8 pools + fp32 scales, 8 "
+              f"slots x 8 heads, fragmented map, positions "
+              f"{positions.tolist()}: max_abs_err={err:.3e} (tol "
+              f"{INT8_TOL:g}) out {str(out.dtype)[6:]}")
+        if err > INT8_TOL or out.dtype != torch.float32:
+            raise AssertionError(f"B3-int8 q {qdt}: error {err} > "
+                                 f"{INT8_TOL} or output {out.dtype}")
+        if qdt == torch.float32:
+            timed = q
+
+    def kernel():
+        return fa.paged_flash_attention(timed, kp, vp, page_map, positions,
+                                        k_scales=ks, v_scales=vs)
+
+    ms = device_ms(kernel)
+    plain = device_ms(lambda: fa.paged_attention_reference(
+        timed, kp, vp, page_map, positions, k_scales=ks, v_scales=vs))
+    eager = eager_ms(kernel)
+    rows = int((positions.long() + 1).sum().item())   # visible K/V rows
+    # each visible row: its K and V int8 rows and their two fp32 scales
+    row_bytes = 2 * (HEADS * HEAD_DIM + 4)
+    bound_ms, bound_by = bound(
+        nbytes(timed, timed, page_map, positions) + rows * row_bytes,
+        6 * rows * HEADS * HEAD_DIM)
+    print(f"[B3-int8] fp32 q, int8 pools: kernel_ms={ms:.5f} "
+          f"eager_ms={eager:.5f} plain_ms={plain:.5f} library_ms=none "
+          f"bound_ms={bound_ms:.6f} ({bound_by}, {rows} visible rows, "
+          f"{nbytes(timed, timed, page_map, positions) + rows * row_bytes} "
+          f"bytes) on {card}")
+    check_int8_gemms(card)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, eager_ms=eager)
+
+
+def check_int8_gemms(card):
+    """The int8 GEMM (``torch._int_mm``, token rows padded) on the card
+    bitwise against the CPU's integer product, and the quantizers and
+    ``int8_linear`` bitwise card against CPU, at the serving GEMM shapes;
+    the int8 GEMM's time beside the fp32 ``torch.matmul`` it replaces."""
+    g = torch.Generator().manual_seed(6)
+    for m in (SLOTS, MAX_PROMPT):
+        for k, n in INT8_GEMMS:
+            x = torch.randn(m, k, generator=g) * 2
+            w = torch.randn(n, k, generator=g) * k ** -0.5
+            xq, xs = int8.quantize_rows(x)
+            wq, ws = int8.quantize_weight(w)
+            acc = int8.int8_accum(xq.cuda(), wq.cuda())
+            dev = [t.cuda() for t in (x, w)]
+            same = {
+                "int_mm": torch.equal(acc.cpu(),
+                                      (xq.long() @ wq.long().t()).int()),
+                "quantize_rows": all(torch.equal(a.cpu(), b) for a, b in zip(
+                    int8.quantize_rows(dev[0]), (xq, xs))),
+                "quantize_weight": all(torch.equal(a.cpu(), b) for a, b in
+                                       zip(int8.quantize_weight(dev[1]),
+                                           (wq, ws))),
+                "int8_linear": torch.equal(
+                    int8.int8_linear(dev[0], wq.cuda(), ws.cuda()).cpu(),
+                    int8.int8_linear(x, wq, ws)),
+            }
+            if not all(same.values()):
+                raise AssertionError(f"int8 GEMM ({m}x{k})x({k}x{n}): card "
+                                     f"vs CPU {same}")
+    rows = torch.randn(MAX_PROMPT, HEADS, HEAD_DIM, generator=g)
+    kv_same = all(torch.equal(a.cpu(), b) for a, b in zip(
+        int8.quantize_kv_rows(rows.cuda()), int8.quantize_kv_rows(rows)))
+    if not kv_same:
+        raise AssertionError("quantize_kv_rows: card differs from CPU")
+    print(f"[B3-int8] int8 GEMM (torch._int_mm, rows padded to 24) bitwise "
+          f"equal to the CPU integer product, quantize_rows / "
+          f"quantize_weight / int8_linear / quantize_kv_rows bitwise equal "
+          f"card vs CPU, at M in (8, 16) x (K, N) in {list(INT8_GEMMS)}")
+    for k, n in INT8_GEMMS:
+        x = torch.randn(SLOTS, k, device="cuda")
+        w = torch.randn(n, k, device="cuda") * k ** -0.5
+        wq, ws = int8.quantize_weight(w)
+        xq, _ = int8.quantize_rows(x)
+        t_mm = device_ms(lambda: int8.int8_accum(xq, wq))
+        t_lin = device_ms(lambda: int8.int8_linear(x, wq, ws))
+        t_f32 = device_ms(lambda: torch.matmul(x, w.t()))
+        b_ms, b_by = bound(nbytes(xq, wq) + SLOTS * n * 4,
+                           2 * SLOTS * k * n, INT8_OPS_PER_S)
+        print(f"[B3-int8] decode GEMM 8x{k} @ {k}x{n}: int_mm_ms={t_mm:.5f} "
+              f"int8_linear_ms={t_lin:.5f} fp32_matmul_ms={t_f32:.5f} "
+              f"int_mm_bound_ms={b_ms:.6f} ({b_by}) on {card}")
+
+
 def bench_requests():
     """The JAX serving bench's mix (bench.py, --mode serving --generate):
     prompts of 3-16 tokens, 3:1 short:long generations."""
@@ -360,18 +537,49 @@ def bench_requests():
     return reqs
 
 
-def phase_engine(card):
-    model = Transformer(VOCAB, HIDDEN, HEADS, FILTER, LAYERS, device="cuda",
-                        generator=torch.Generator().manual_seed(0))
-    requests = bench_requests()
+def time_calls(kernels):
+    """Wrap an engine's ``prefill``, ``chunk`` and ``decode`` calls to add
+    up their host time, each ending in a device sync (the engine syncs
+    right after each of them anyway, reading its tokens back):
+    ``{call: [ms, calls]}``."""
+    spent = {}
+    for name in ("prefill", "chunk", "decode"):
+        acc = spent[name] = [0.0, 0]
+
+        def timed(*args, _fn=getattr(kernels, name), _acc=acc):
+            t0 = time.monotonic()
+            out = _fn(*args)
+            torch.cuda.synchronize()
+            _acc[0] += (time.monotonic() - t0) * 1e3
+            _acc[1] += 1
+            return out
+
+        setattr(kernels, name, timed)
+    return spent
+
+
+def serve(model, requests, **knobs):
+    """The 32 requests through a ``GenerationEngine`` over ``model`` with
+    the engine ``knobs``, the launch counts zeroed just before the traffic
+    and read just after it. Checks that every stream finished and that B2
+    ran on every layer of every prompt call and the paged kernel of the
+    cache's dtype (B3 or B3-int8) on every layer of every decode step,
+    the other never. ``own_peak`` is the engine's own peak memory: the
+    peak over what was allocated before the engine was built, plus the
+    caller's weights when the engine serves them."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     engine = GenerationEngine(model, device="cuda", max_slots=SLOTS,
                               max_len=MAX_LEN, max_prompt_len=MAX_PROMPT,
-                              page_size=PAGE)
+                              page_size=PAGE, **knobs)
     engine.warmup()
+    spent = time_calls(engine.kernels)
     torch.cuda.reset_peak_memory_stats()
-    # the main path, with both launch counts zeroed just before it
+    # the main path, with every launch count zeroed just before it
     fa.flash_attention.launches = 0
     fa.paged_flash_attention.launches = 0
+    fa.paged_flash_attention.int8_launches = 0
     t0 = time.monotonic()
     streams = [engine.submit(p, max_new_tokens=m) for p, m in requests]
     outs = [s.result(600) for s in streams]
@@ -379,8 +587,12 @@ def phase_engine(card):
     wall = time.monotonic() - t0
     engine.close()
     launches = {"flash_attention": fa.flash_attention.launches,
-                "paged_attention": fa.paged_flash_attention.launches}
+                "paged_attention": fa.paged_flash_attention.launches,
+                "paged_attention_int8": fa.paged_flash_attention.int8_launches}
     peak = torch.cuda.max_memory_allocated()
+    caller = {p.data_ptr() for p in model.parameters()}
+    own_peak = peak - base + nbytes(*(p for p in engine.model.parameters()
+                                      if p.data_ptr() in caller))
     snap = engine.metrics.snapshot()
 
     assert all(s.done and s.error is None for s in streams)
@@ -389,85 +601,272 @@ def phase_engine(card):
     prompt_calls = snap["prefills"] + snap["prefill_chunks"]
     assert launches["flash_attention"] == prompt_calls * LAYERS > 0, \
         (launches, snap)
-    assert launches["paged_attention"] == snap["decode_steps"] * LAYERS > 0, \
+    paged, other = (("paged_attention_int8", "paged_attention")
+                    if knobs.get("cache_dtype") == torch.int8
+                    else ("paged_attention", "paged_attention_int8"))
+    assert launches[paged] == snap["decode_steps"] * LAYERS > 0, \
         (launches, snap)
-    print(f"[engine] {N_REQUESTS} streams done: {prompt_calls} prompt calls "
-          f"x {LAYERS} layers = {launches['flash_attention']} B2 launches; "
-          f"{snap['decode_steps']} decode steps x {LAYERS} layers = "
-          f"{launches['paged_attention']} B3 launches")
+    assert launches[other] == 0, (launches, snap)
+    return dict(engine=engine, outs=outs, wall=wall, peak=peak, base=base,
+                own_peak=own_peak, spent=spent, snap=snap, launches=launches,
+                prompt_calls=prompt_calls, tokens=sum(len(o) for o in outs))
 
+
+def run_line(r) -> str:
+    """A serving run's end-to-end numbers and where its wall time went."""
+    sp = r["spent"]
+    prompt_ms = sp["prefill"][0] + sp["chunk"][0]
+    decode_ms, steps = sp["decode"]
+    wall_ms = r["wall"] * 1e3
+    return (f"tokens/s={r['tokens'] / r['wall']:.1f} ({r['tokens']} tokens "
+            f"in {r['wall']:.3f} s: prompt calls {prompt_ms:.1f} ms = "
+            f"{r['prompt_calls']} x {prompt_ms / r['prompt_calls']:.3f}, "
+            f"decode steps {decode_ms:.1f} ms = {steps} x "
+            f"{decode_ms / steps:.3f}, rest {wall_ms - prompt_ms - decode_ms:.1f}"
+            f" ms) ttft_p50_ms={r['snap']['ttft_ms']['p50']} "
+            f"decode_step_ms={r['step_ms']:.3f} "
+            f"peak_mem_MiB={r['peak'] / 2**20:.1f} (allocated before the "
+            f"engine {r['base'] / 2**20:.1f}; the engine's own "
+            f"{r['own_peak'] / 2**20:.1f})")
+
+
+def check_static(model, requests, run, tag, **knobs):
+    engine = run["engine"]
     static, steps = static_generate(
         model, requests, max_slots=SLOTS, max_len=MAX_LEN, device="cuda",
         page_size=PAGE, prefill_chunk=engine.prefill_chunk,
-        prompt_buckets=engine.prompt_buckets)
-    mismatches = sum(a != b for a, b in zip(static, outs))
+        prompt_buckets=engine.prompt_buckets, **knobs)
+    mismatches = sum(a != b for a, b in zip(static, run["outs"]))
     assert mismatches == 0, f"{mismatches} streams differ from static_generate"
-    print(f"[engine] engine streams == static_generate streams "
+    print(f"[{tag}] engine streams == static_generate streams "
           f"({N_REQUESTS}/{N_REQUESTS}; static ran {steps} decode steps)")
 
-    err = cpu_reference_error(model, requests)
+
+def phase_engine(card):
+    model = Transformer(VOCAB, HIDDEN, HEADS, FILTER, LAYERS, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    requests = bench_requests()
+    run = serve(model, requests)
+    launches, snap = run["launches"], run["snap"]
+    print(f"[engine] {N_REQUESTS} streams done: {run['prompt_calls']} prompt "
+          f"calls x {LAYERS} layers = {launches['flash_attention']} B2 "
+          f"launches; {snap['decode_steps']} decode steps x {LAYERS} layers = "
+          f"{launches['paged_attention']} B3 launches")
+    check_static(model, requests, run, "engine")
+
+    err = max_err(*teacher_forced_logits(reference_models(model), requests))
     print(f"[engine] card vs CPU plain path, prefill + 8 teacher-forced "
           f"decode steps: max_abs_err={err:.3e} (tol {LOGITS_TOL:g})")
     assert err < LOGITS_TOL, err
 
-    tokens = sum(len(o) for o in outs)
-    step_ms = decode_step_ms(model)
-    print(f"[engine] tokens/s={tokens / wall:.1f} ({tokens} tokens in "
-          f"{wall:.3f} s) ttft_p50_ms={snap['ttft_ms']['p50']} "
-          f"decode_step_ms={step_ms:.3f} peak_mem_MiB={peak / 2**20:.1f} "
-          f"on {card}")
+    run["step_ms"] = step_ms = decode_step_ms(model)
+    print(f"[engine] {run_line(run)} on {card}")
+    trace_prompt_calls(model, card, run)
     trace_decode_steps(model, card, step_ms)
+    return model, requests, run
+
+
+def phase_engine_int8(card, model, requests, float_run):
+    """The int8 serving tier over the same seeded weights and requests as
+    ``[engine]``."""
+    knobs = dict(quantize="int8", cache_dtype=torch.int8)
+    run = serve(model, requests, **knobs)
+    launches, snap = run["launches"], run["snap"]
+    assert snap["quantized_gemms"] == 6 * LAYERS + 1, snap
+    assert snap["kv_cache_dtype"] == "int8" and snap["kv_bytes_in_use"] == 0
+    print(f"[engine-int8] {N_REQUESTS} streams done: {run['prompt_calls']} "
+          f"prompt calls x {LAYERS} layers = {launches['flash_attention']} B2 "
+          f"launches; {snap['decode_steps']} decode steps x {LAYERS} layers "
+          f"= {launches['paged_attention_int8']} B3-int8 launches; "
+          f"quantized_gemms={snap['quantized_gemms']}")
+    check_static(model, requests, run, "engine-int8", **knobs)
+    check_int8_logits(model, requests)
+
+    qmodel = run["engine"].model
+    run["step_ms"] = step_ms = decode_step_ms(qmodel, torch.int8)
+    for label, r in (("int8", run), ("float", float_run)):
+        kv_peak = r["snap"]["pages_peak"] * r["engine"]._kv_page_bytes
+        print(f"[engine-int8] {label:5s}: {run_line(r)} "
+              f"kv_bytes_peak={kv_peak} ({r['snap']['pages_peak']} pages x "
+              f"{r['engine']._kv_page_bytes} B) on {card}")
+    agree = [sum(a == b for a, b in zip(x, y)) / len(x)
+             for x, y in zip(float_run["outs"], run["outs"])]
+    first = sum(x[0] == y[0] for x, y in zip(float_run["outs"], run["outs"]))
+    print(f"[engine-int8] token agreement with the float engine (random "
+          f"weights, not checked): mean {sum(agree) / len(agree):.3f}, first "
+          f"token {first}/{N_REQUESTS}")
+    trace_prompt_calls(qmodel, card, run, torch.int8)
+    trace_decode_steps(qmodel, card, step_ms, torch.int8)
     return launches
 
 
-def cpu_reference_error(model, requests) -> float:
-    """Prefill 8 prompts and run 8 teacher-forced decode steps on the card
-    and with the plain path on the CPU (same seeded weights); max abs
-    logits difference."""
+def check_int8_logits(model, requests):
+    """Card vs CPU teacher-forced logits of the int8 path, held under
+    ``INT8_NOISE_FACTOR`` times the card's own noise reading (mean
+    absolute difference); every planted fault must read above that
+    limit, and the argmax must agree wherever the top-2 gap is wider than
+    the largest single difference noise made."""
+    qcard, qcpu = reference_models(model, quantize=True)
+    on_card, on_cpu = teacher_forced_logits([qcard, qcpu], requests,
+                                            torch.int8)
+
+    def diff(a):
+        d = (a - on_card).abs()
+        return d.mean().item(), d.max().item()
+
+    err = (on_card - on_cpu).abs()
+    err = err.mean().item(), err.max().item()
+    noise = [diff(teacher_forced_logits([nudged_copy(qcard, seed)],
+                                        requests, torch.int8)[0])
+             for seed in INT8_NUDGE_SEEDS]
+    limit = INT8_NOISE_FACTOR * max(n[0] for n in noise)
+    print(f"[engine-int8] card vs CPU int8 path, prefill + 8 teacher-forced "
+          f"decode steps: mean_abs_err={err[0]:.3e} (max {err[1]:.3e}; "
+          f"|logits| <= {on_cpu.abs().max().item():.2f}); noise, the card "
+          f"against itself with its LayerNorm gains moved one ulp (seeds "
+          f"{list(INT8_NUDGE_SEEDS)}): mean "
+          + " ".join(f"{m:.3e}" for m, _ in noise) + " (max "
+          + " ".join(f"{x:.3e}" for _, x in noise)
+          + f"); limit {INT8_NOISE_FACTOR:g} x {max(n[0] for n in noise):.3e}"
+          f" = {limit:.3e}")
+    faults = {}
+    for label, (owner, name, fn) in int8_faults().items():
+        real = getattr(owner, name)
+        setattr(owner, name, fn)
+        try:
+            faults[label] = diff(teacher_forced_logits(
+                [qcard], requests, torch.int8)[0])
+        finally:
+            setattr(owner, name, real)
+        print(f"[engine-int8] planted fault, {label}: mean_abs_err="
+              f"{faults[label][0]:.3e} (max {faults[label][1]:.3e}), above "
+              f"the limit: {faults[label][0] > limit}")
+    gap = 2 * max(x for _, x in noise)
+    top2 = on_cpu.topk(2, dim=-1).values
+    clear = top2[:, 0] - top2[:, 1] > gap
+    same = on_card.argmax(-1)[clear].equal(on_cpu.argmax(-1)[clear])
+    print(f"[engine-int8] argmax equal card vs CPU on the {int(clear.sum())} "
+          f"of {len(clear)} rows whose top-2 gap exceeds {gap:.3f}: {same}")
+    assert err[0] < limit and same, (err, limit, same)
+    assert all(m > limit for m, _ in faults.values()), \
+        f"the int8 logits check cannot see a planted fault: {faults}"
+
+
+def int8_faults():
+    """Faults planted on the card's int8 path, one at a time, as
+    ``{label: (module, attribute, stand-in)}``: each a wrong but plausible
+    version of one step that the int8 logits check must read above its
+    limit."""
+    real_paged = attention_layers.paged_attention
+    calls = [0]
+
+    def v_with_k_scales(*args, **kw):
+        calls[0] += 1
+        if calls[0] % LAYERS == 1:     # layer 0 of each decode step
+            kw["v_scales"] = kw["k_scales"]
+        return real_paged(*args, **kw)
+
+    def bf16_lanes(lanes, scales):
+        return int8.dequantize_lanes(lanes, scales).bfloat16().float()
+
+    def one_scale_per_call(x):
+        x = x.float()
+        scale = (torch.clamp(x.abs().amax(), min=int8.EPS)
+                 / torch.tensor(127.0, device=x.device)).expand(x.shape[0])
+        q = torch.clamp(torch.round(x / scale[:, None]), -127, 127)
+        return q.to(torch.int8), scale
+
+    return {
+        "prompt-call K/V lanes dequantized in bf16":
+            (attention_layers, "dequantize_lanes", bf16_lanes),
+        "B3-int8 reads layer 0's V rows with the K scales":
+            (attention_layers, "paged_attention", v_with_k_scales),
+        "one activation scale per GEMM call, not per token":
+            (int8, "quantize_rows", one_scale_per_call),
+    }
+
+
+def reference_models(model, quantize=False):
+    """The card's model and the same seeded model on the CPU, or with
+    ``quantize`` their ``quantize_for_serving`` copies; the parameters of
+    the two must be bitwise equal (for int8, the quantized weights
+    quantized on either device)."""
     cpu = Transformer(VOCAB, HIDDEN, HEADS, FILTER, LAYERS, device="cpu",
                       generator=torch.Generator().manual_seed(0))
-    for name, p in cpu.named_parameters():
-        assert torch.equal(p, dict(model.named_parameters())[name].cpu())
+    models = [model, cpu]
+    if quantize:
+        models = [quantize_for_serving(m) for m in models]
+    card_params = dict(models[0].named_parameters())
+    for name, p in models[1].named_parameters():
+        assert torch.equal(p, card_params[name].cpu()), name
+    return models
+
+
+def teacher_forced_logits(models, requests, cache_dtype=torch.float32):
+    """Prefill 8 prompts and run 8 teacher-forced decode steps through each
+    of ``models`` on the same inputs; per model, the logits of every call
+    as one (8 + 8 x 8, vocab) CPU tensor."""
     rs = np.random.RandomState(1)
     ppn = MAX_LEN // PAGE
     page_map = rs.permutation(SLOTS * ppn).reshape(SLOTS, ppn).astype(np.int32)
     trash = SLOTS * ppn
-    caches = [m.init_paged_cache(trash + 1, PAGE) for m in (model, cpu)]
+    caches = [m.init_paged_cache(trash + 1, PAGE, cache_dtype) for m in models]
     positions = np.zeros((SLOTS,), np.int32)
-    worst = 0.0
+    logits = [[] for _ in models]
     with torch.inference_mode():
         for slot in range(SLOTS):
             prompt = requests[slot][0]
             padded = np.zeros((MAX_PROMPT,), np.int32)
             padded[:len(prompt)] = prompt
-            got = [m.prefill_paged(c, page_map[slot], padded, 0, len(prompt),
-                                   trash)[0].cpu()
-                   for m, c in zip((model, cpu), caches)]
-            worst = max(worst, max_err(got[0], got[1]))
+            for out, m, c in zip(logits, models, caches):
+                out.append(m.prefill_paged(c, page_map[slot], padded, 0,
+                                           len(prompt), trash)[0][None].cpu())
             positions[slot] = len(prompt)
         for _ in range(8):
             tokens = rs.randint(1, VOCAB, (SLOTS,)).astype(np.int32)
-            got = [m.decode_step_paged(c, tokens, positions, page_map)[0].cpu()
-                   for m, c in zip((model, cpu), caches)]
-            worst = max(worst, max_err(got[0], got[1]))
+            for out, m, c in zip(logits, models, caches):
+                out.append(m.decode_step_paged(c, tokens, positions,
+                                               page_map)[0].cpu())
             positions += 1
-    return worst
+    return [torch.cat(out) for out in logits]
 
 
-def decode_step_ms(model, steps=50) -> float:
-    """Host-clock time of one eager decode step over all 8 slots (position
-    ~100, fragmented pages), each step ending in the token copy to the
-    host that the engine does."""
+def nudged_copy(model, seed):
+    """A copy of ``model`` whose LayerNorm gains are moved by one ulp (x (1
+    +- 2**-23), random signs from ``seed``): a change of the size that
+    another summation order makes."""
+    model = copy.deepcopy(model)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("norm.weight"):
+                sign = torch.randint(0, 2, p.shape, generator=g) * 2 - 1
+                p.mul_(1 + sign.to(p.device) * 2.0 ** -23)
+    return model
+
+
+def _decode_inputs(model, cache_dtype):
+    """Kernels, a fresh cache, tokens and a fragmented page map for the
+    timed decode steps (8 slots, position ~100)."""
     kernels = PagedDecodeKernels(model)
     ppn = MAX_LEN // PAGE
     rs = np.random.RandomState(2)
     page_map = rs.permutation(SLOTS * ppn).reshape(SLOTS, ppn).astype(np.int32)
-    cache = model.init_paged_cache(SLOTS * ppn + 1, PAGE)
+    cache = model.init_paged_cache(SLOTS * ppn + 1, PAGE, cache_dtype)
     tokens = rs.randint(1, VOCAB, (SLOTS,)).astype(np.int32)
     positions = np.full((SLOTS,), 100, np.int32)
     for _ in range(5):
         toks, cache = kernels.decode(cache, tokens, positions, page_map)
         toks.cpu()
+    return kernels, cache, tokens, positions, page_map
+
+
+def decode_step_ms(model, cache_dtype=torch.float32, steps=50) -> float:
+    """Host-clock time of one eager decode step over all 8 slots (position
+    ~100, fragmented pages), each step ending in the token copy to the
+    host that the engine does."""
+    kernels, cache, tokens, positions, page_map = _decode_inputs(
+        model, cache_dtype)
     t0 = time.monotonic()
     for i in range(steps):
         toks, cache = kernels.decode(cache, tokens, positions + i, page_map)
@@ -475,30 +874,59 @@ def decode_step_ms(model, steps=50) -> float:
     return (time.monotonic() - t0) / steps * 1e3
 
 
-def trace_decode_steps(model, card, step_ms: float, steps=20):
+def trace_prompt_calls(model, card, run, cache_dtype=torch.float32,
+                       calls=8):
+    """torch.profiler over ``calls`` prompt calls of 16 tokens (the largest
+    bucket), each ending in the first-token read the engine does: device
+    time and kernels per call, and the busy share of the serving run's
+    mean prompt call (``run["spent"]``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels = PagedDecodeKernels(model)
+    ppn = MAX_LEN // PAGE
+    rs = np.random.RandomState(3)
+    pages = rs.permutation(SLOTS * ppn)[:ppn].astype(np.int32)
+    cache = model.init_paged_cache(SLOTS * ppn + 1, PAGE, cache_dtype)
+    prompt = rs.randint(1, VOCAB, (MAX_PROMPT,)).astype(np.int32)
+
+    def call():
+        tok, new_cache = kernels.prefill(cache, pages, prompt, 0, MAX_PROMPT,
+                                         SLOTS * ppn)
+        tok.item()
+        return new_cache
+
+    for _ in range(3):
+        cache = call()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            cache = call()
+    ms, n = run["spent"]["prefill"]
+    label = "prompt call, 16 tokens" + (" (int8)" if cache_dtype == torch.int8
+                                        else "")
+    report_trace(prof, calls, ms / n, card, label, watch="flash_fwd_kernel")
+
+
+def trace_decode_steps(model, card, step_ms: float,
+                       cache_dtype=torch.float32, steps=20):
     """torch.profiler over ``steps`` eager decode steps (8 slots, position
     ~100): device time per step, kernels per step, the device's busy share
     of an unprofiled step (``step_ms``), and the kernels that take most of
     the device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    kernels = PagedDecodeKernels(model)
-    ppn = MAX_LEN // PAGE
-    rs = np.random.RandomState(2)
-    page_map = rs.permutation(SLOTS * ppn).reshape(SLOTS, ppn).astype(np.int32)
-    cache = model.init_paged_cache(SLOTS * ppn + 1, PAGE)
-    tokens = rs.randint(1, VOCAB, (SLOTS,)).astype(np.int32)
-    positions = np.full((SLOTS,), 100, np.int32)
-    for _ in range(5):
-        toks, cache = kernels.decode(cache, tokens, positions, page_map)
-        toks.cpu()
+    kernels, cache, tokens, positions, page_map = _decode_inputs(
+        model, cache_dtype)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(steps):
             toks, cache = kernels.decode(cache, tokens, positions + i,
                                          page_map)
             toks.cpu()
-    report_trace(prof, steps, step_ms, card, "eager decode step")
+    label = "eager decode step" + (" (int8)" if cache_dtype == torch.int8
+                                   else "")
+    report_trace(prof, steps, step_ms, card, label,
+                 watch="paged_attention_kernel")
 
 
 def report_trace(prof, steps, step_ms, card, label, top_n=5, watch=None):
@@ -762,7 +1190,12 @@ def main() -> int:
     phase_build()
     b2 = phase_b2(card)
     b3 = phase_b3(card)
-    launches = phase_engine(card)
+    b3_int8 = phase_b3_int8(card)
+    model, requests, float_run = phase_engine(card)
+    launches = dict(float_run["launches"])
+    launches["paged_attention_int8"] = phase_engine_int8(
+        card, model, requests, float_run)["paged_attention_int8"]
+    del model, float_run
     b1 = phase_b1(card)
     launches["residual_add"] = phase_train(card)
     rows = []
@@ -772,7 +1205,10 @@ def main() -> int:
             ("flash_attention", "bigdl_tpu_torch/csrc/flash_attention.cu",
              "bigdl_tpu/ops/flash_attention.py:107", b2),
             ("paged_attention", "bigdl_tpu_torch/csrc/paged_attention.cu",
-             "bigdl_tpu/ops/flash_attention.py:290", b3)):
+             "bigdl_tpu/ops/flash_attention.py:290", b3),
+            ("paged_attention_int8",
+             "bigdl_tpu_torch/csrc/paged_attention.cu",
+             "bigdl_tpu/ops/flash_attention.py:290", b3_int8)):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],

@@ -5,6 +5,21 @@ import gc
 import pytest
 
 
+@pytest.fixture(scope="session")
+def jax_lm():
+    """The small language model the serving parity tests share: the JAX
+    package's ``Transformer(64, 32, 4, 64, 2)`` and its params from
+    ``init(key(2))``. Built once: its eager init is seconds of JAX
+    compiles, and each module's executables are dropped after it."""
+    import jax
+
+    from bigdl_tpu.nn.layers.attention import Transformer
+
+    model = Transformer(64, 32, 4, 64, 2)
+    params, _ = model.init(jax.random.key(2))
+    return model, params
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _drop_jax_executables():
     """The parity tests compile many small JAX executables (the Pallas

@@ -20,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from bigdl_tpu.nn.layers.attention import Transformer as JaxTransformer
 from bigdl_tpu.serving import GenerationEngine as JaxEngine
 from bigdl_tpu_torch.interop import load_jax_params
 from bigdl_tpu_torch.nn import Transformer
@@ -41,9 +40,8 @@ RESULT_TIMEOUT = 60
 
 
 @pytest.fixture(scope="module")
-def lm():
-    jm = JaxTransformer(64, 32, 4, 64, 2)
-    params, _ = jm.init(jax.random.key(SEED))
+def lm(jax_lm):
+    jm, params = jax_lm       # JaxTransformer(64, 32, 4, 64, 2), key(SEED)
     tm = Transformer(64, 32, 4, 64, 2, device="cpu")
     load_jax_params(tm, jax.device_get(params))
     rs = np.random.RandomState(SEED)

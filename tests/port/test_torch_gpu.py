@@ -12,7 +12,11 @@ Tolerances against the plain PyTorch versions on the same inputs: fp32
 1e-4 (both accumulate in fp32 over <= 300 keys of O(1) values; only the
 summation order differs); bf16 K/V, under bf16 or fp32 q, 3e-2 (the plain
 version rounds the probabilities to bf16 before P.V and its output to
-bf16). The residual-add kernel (B1) is exact: bitwise equal to
+bf16). The int8 paged kernel (B3-int8), under fp32 or bf16 q: 1e-4, as
+fp32 (kernel and plain version dequantize the same int8 rows with the
+same fp32 scales and differ only in summation order). The int8 GEMM and
+the quantizers are exact: bitwise equal to the integer product and to
+the CPU. The residual-add kernel (B1) is exact: bitwise equal to
 ``torch.add``. A ResNet training step on the card against the CPU, fp32
 with TF32 off: 1e-4 relative to each tensor's largest entry (cuDNN and
 the CPU sum the convolutions in other orders). The same step under the
@@ -34,6 +38,7 @@ from bigdl_tpu_torch.dataset import MiniBatch
 from bigdl_tpu_torch.dataset.prefetch import device_prefetch
 from bigdl_tpu_torch.models.resnet import build_cifar
 from bigdl_tpu_torch.nn import CAddTable, CrossEntropyCriterion, Transformer
+from bigdl_tpu_torch.nn import int8
 from bigdl_tpu_torch.ops import flash_attention as tfa
 from bigdl_tpu_torch.ops import residual_add as ra
 from bigdl_tpu_torch.optim import SGD
@@ -155,6 +160,7 @@ def test_engine_on_card_uses_both_kernels_and_equals_static(cuda,
     engine.warmup()
     tfa.flash_attention.launches = 0
     tfa.paged_flash_attention.launches = 0
+    tfa.paged_flash_attention.int8_launches = 0
     streams = [engine.submit(p, max_new_tokens=m) for p, m in requests]
     outs = [s.result(120) for s in streams]
     engine.close()
@@ -162,10 +168,192 @@ def test_engine_on_card_uses_both_kernels_and_equals_static(cuda,
     assert tfa.flash_attention.launches == 2 * (
         snap["prefills"] + snap["prefill_chunks"]) > 0
     assert tfa.paged_flash_attention.launches == 2 * snap["decode_steps"] > 0
+    assert tfa.paged_flash_attention.int8_launches == 0
     static, _ = static_generate(model, requests, max_slots=4, max_len=48,
                                 page_size=8, prefill_chunk=8,
                                 prompt_buckets=engine.prompt_buckets,
                                 cache_dtype=cache_dtype)
+    assert static == outs
+
+
+def _int8_pools(device, d, n_pages=129, heads=8, ps=16, seed=7):
+    """Int8 K/V pools and their per-token scale pools, quantized from
+    random rows as the engine writes them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    pools = []
+    for _ in range(2):
+        rows = torch.randn(n_pages * ps, heads, d, generator=g,
+                           device=device)
+        q, scale = int8.quantize_kv_rows(rows)
+        pools.append(q.reshape(n_pages, ps, heads, d).transpose(1, 2)
+                     .contiguous())
+        pools.append(scale.reshape(n_pages, ps))
+    kp, ks, vp, vs = pools
+    return kp, vp, ks, vs
+
+
+PAGE_EDGES = [0, 15, 16, 255, 37, 100, 128, 200]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_int8_paged_kernel_matches_plain(cuda, qdt, d):
+    kp, vp, ks, vs = _int8_pools(cuda, d)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    pm = torch.randperm(128, device=cuda, generator=g).reshape(8, 16)
+    pm = pm.to(torch.int32)
+    pos = torch.tensor(PAGE_EDGES, dtype=torch.int32, device=cuda)
+    q = torch.randn(8, 8, d, generator=g, device=cuda).to(qdt)
+    before = (tfa.paged_flash_attention.launches,
+              tfa.paged_flash_attention.int8_launches)
+    out = tfa.paged_flash_attention(q, kp, vp, pm, pos, k_scales=ks,
+                                    v_scales=vs)
+    assert (tfa.paged_flash_attention.launches,
+            tfa.paged_flash_attention.int8_launches) == (before[0],
+                                                         before[1] + 1)
+    ref = tfa.paged_attention_reference(q, kp, vp, pm, pos, k_scales=ks,
+                                        v_scales=vs)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype == torch.float32
+    assert (out - ref).abs().max().item() < TOL[torch.float32]
+
+
+@pytest.mark.gpu
+def test_int8_paged_kernel_never_reads_past_pos(cuda):
+    """A recycled page: rows and scales past each slot's position hold
+    another sequence's data (here NaN scales). The kernel's output is the
+    clean pool's, bitwise, and the plain version's on the clean pool."""
+    kp, vp, ks, vs = _int8_pools(cuda, 64)
+    pm = torch.arange(128, device=cuda, dtype=torch.int32).reshape(8, 16)
+    pos = torch.tensor(PAGE_EDGES, dtype=torch.int32, device=cuda)
+    q = torch.randn(8, 8, 64, device=cuda)
+    clean = [t.clone() for t in (kp, vp, ks, vs)]
+    cols = torch.arange(256, device=cuda)
+    for slot, p in enumerate(PAGE_EDGES):
+        stale = cols > p
+        pages, rows = pm[slot].long()[cols[stale] // 16], cols[stale] % 16
+        for t in clean[:2]:
+            t[pages, :, rows] = 0
+        for t in clean[2:]:
+            t[pages, rows] = 0.0
+        for t in (ks, vs):
+            t[pages, rows] = float("nan")
+        kp[pages, :, rows] = 127
+    out = tfa.paged_flash_attention(q, kp, vp, pm, pos, k_scales=ks,
+                                    v_scales=vs)
+    want = tfa.paged_flash_attention(q, *clean[:2], pm, pos,
+                                     k_scales=clean[2], v_scales=clean[3])
+    ref = tfa.paged_attention_reference(q, *clean[:2], pm, pos,
+                                        k_scales=clean[2], v_scales=clean[3])
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert (out - ref).abs().max().item() < TOL[torch.float32]
+
+
+@pytest.mark.gpu
+def test_int8_paged_wrapper_raises_on_bad_scales(cuda):
+    kp, vp, ks, vs = _int8_pools(cuda, 64, n_pages=5)
+    q = torch.randn(2, 8, 64, device=cuda)
+    pm = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = (tfa.paged_flash_attention.launches,
+              tfa.paged_flash_attention.int8_launches)
+    with pytest.raises(ValueError, match="need k_scales"):
+        tfa.paged_flash_attention(q, kp, vp, pm, pos)
+    with pytest.raises(ValueError, match="both"):
+        tfa.paged_flash_attention(q, kp, vp, pm, pos, k_scales=ks)
+    with pytest.raises(TypeError, match="float32"):
+        tfa.paged_flash_attention(q, kp, vp, pm, pos, k_scales=ks.double(),
+                                  v_scales=vs)
+    with pytest.raises(ValueError, match="num_pages, page_size"):
+        tfa.paged_flash_attention(q, kp, vp, pm, pos, k_scales=ks[:4],
+                                  v_scales=vs)
+    with pytest.raises(ValueError, match="float pools take none"):
+        tfa.paged_flash_attention(q, kp.float(), vp.float(), pm, pos,
+                                  k_scales=ks, v_scales=vs)
+    with pytest.raises(TypeError, match="float32 or bfloat16 q"):
+        tfa.paged_flash_attention(q.half(), kp, vp, pm, pos, k_scales=ks,
+                                  v_scales=vs)
+    assert (tfa.paged_flash_attention.launches,
+            tfa.paged_flash_attention.int8_launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 24, 100])
+def test_int8_gemm_on_the_card_is_the_integer_product(cuda, m):
+    """torch._int_mm with the token rows padded to a multiple of 8 above
+    16, at the serving GEMM shapes (K 512 / 2048, N 512 / 2048 / 8192):
+    bitwise equal to the CPU's integer product."""
+    g = torch.Generator().manual_seed(m)
+    for k, n in ((512, 512), (512, 2048), (2048, 512), (512, 8192)):
+        xq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        acc = int8.int8_accum(xq.to(cuda), wq.to(cuda))
+        torch.cuda.synchronize()
+        assert acc.dtype == torch.int32 and acc.shape == (m, n)
+        assert torch.equal(acc.cpu(), (xq.long() @ wq.long().t()).int())
+
+
+@pytest.mark.gpu
+def test_int8_gemm_on_the_card_raises_where_int_mm_refuses(cuda):
+    """No fall back: a shape the card's int8 GEMM refuses raises."""
+    xq = torch.ones(4, 30, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8.int8_accum(xq, torch.ones(16, 30, dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8.int8_linear(torch.randn(4, 32, device=cuda),
+                         torch.ones(12, 32, dtype=torch.int8, device=cuda),
+                         torch.ones(12, device=cuda))
+
+
+@pytest.mark.gpu
+def test_int8_quantizers_on_the_card_equal_the_cpu(cuda):
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(40, 512, generator=g) * 3
+    x[0] = 0.0
+    x[1, :4] = torch.tensor([127.0, 0.5, 1.5, 2.5])
+    x[1, 4:] = 0.0
+    for fn, arg in ((int8.quantize_rows, x), (int8.quantize_weight, x),
+                    (int8.quantize_kv_rows, x.reshape(40, 8, 64))):
+        for got, want in zip(fn(arg.to(cuda)), fn(arg)):
+            assert torch.equal(got.cpu(), want), fn.__name__
+    wq, ws = int8.quantize_weight(torch.randn(64, 512, generator=g))
+    b = torch.randn(64, generator=g)
+    want = int8.int8_linear(x, wq, ws, b)
+    got = int8.int8_linear(x.to(cuda), wq.to(cuda), ws.to(cuda), b.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_int8_engine_on_card_launches_b3_int8_and_equals_static(cuda):
+    model = Transformer(128, 64, 4, 128, 2, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(0)
+    requests = [(rs.randint(1, 128, (rs.randint(2, 13),)).tolist(),
+                 int(rs.choice([4, 20]))) for _ in range(12)]
+    knobs = dict(quantize="int8", cache_dtype=torch.int8)
+    engine = GenerationEngine(model, max_slots=4, max_len=48,
+                              max_prompt_len=12, page_size=8,
+                              prefill_chunk=8, **knobs)
+    engine.warmup()
+    tfa.flash_attention.launches = 0
+    tfa.paged_flash_attention.launches = 0
+    tfa.paged_flash_attention.int8_launches = 0
+    streams = [engine.submit(p, max_new_tokens=m) for p, m in requests]
+    outs = [s.result(120) for s in streams]
+    engine.close()
+    snap = engine.metrics.snapshot()
+    assert tfa.flash_attention.launches == 2 * (
+        snap["prefills"] + snap["prefill_chunks"]) > 0
+    assert tfa.paged_flash_attention.int8_launches == \
+        2 * snap["decode_steps"] > 0
+    assert tfa.paged_flash_attention.launches == 0
+    assert snap["quantized_gemms"] == 13 and snap["kv_bytes_in_use"] == 0
+    static, _ = static_generate(model, requests, max_slots=4, max_len=48,
+                                page_size=8, prefill_chunk=8,
+                                prompt_buckets=engine.prompt_buckets, **knobs)
     assert static == outs
 
 

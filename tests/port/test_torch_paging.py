@@ -82,8 +82,10 @@ def test_pages_per_lane_matches_jax(max_len, page_size):
 
 
 @pytest.mark.parametrize("dtype, jdtype", [(torch.float32, jnp.float32),
-                                           (torch.bfloat16, jnp.bfloat16)])
+                                           (torch.bfloat16, jnp.bfloat16),
+                                           (torch.int8, jnp.int8)])
 def test_page_bytes_matches_jax(dtype, jdtype):
+    """int8 pages carry one fp32 scale per K and per V row."""
     assert page_bytes(16, 8, 64, dtype) == jax_paging.page_bytes(
         16, 8, 64, jdtype)
 
@@ -121,6 +123,20 @@ def test_metrics_snapshot_counts():
     assert snap["ttft_ms"]["p50"] == pytest.approx(20.0)
     assert snap["ttft_ms"]["p99"] == pytest.approx(29.8)
     assert snap["served"] == 1
+
+
+def test_metrics_quantized_serving_gauges():
+    m = ServingMetrics()
+    snap = m.snapshot()
+    assert (snap["kv_bytes_in_use"], snap["kv_cache_dtype"],
+            snap["quantized_gemms"]) == (0, "", 0)
+    m.set_kv_cache(4096, "int8")
+    m.set_quantized_gemms(25)
+    snap = m.snapshot()
+    assert (snap["kv_bytes_in_use"], snap["kv_cache_dtype"],
+            snap["quantized_gemms"]) == (4096, "int8", 25)
+    assert list(snap)[-3:] == ["kv_bytes_in_use", "kv_cache_dtype",
+                               "quantized_gemms"]
 
 
 def test_metrics_reservoir_is_bounded_and_replays():

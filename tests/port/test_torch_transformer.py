@@ -96,6 +96,9 @@ def test_chunked_prefill_equals_whole_prefill(models):
 
 def test_paged_prefill_and_decode_match_jax(models):
     jm, params, tm = models
+    # the JAX steps run jitted, as the JAX engine runs them
+    prefill = jax.jit(jm.prefill_paged, static_argnames="need_logits")
+    decode = jax.jit(jm.decode_step_paged)
     rs = np.random.RandomState(2)
     jc = jm.init_paged_cache(NPAGES + 1, PAGE)
     tc = tm.init_paged_cache(NPAGES + 1, PAGE)
@@ -106,17 +109,16 @@ def test_paged_prefill_and_decode_match_jax(models):
     for slot, n in ((0, 6), (2, 9)):
         toks = np.zeros((16,), np.int32)
         toks[:n] = rs.randint(1, VOCAB, (n,))
-        jl, jc = jm.prefill_paged(params, jc, jnp.asarray(page_map[slot]),
-                                  jnp.asarray(toks), 0, n, NPAGES)
+        jl, jc = prefill(params, jc, jnp.asarray(page_map[slot]),
+                         jnp.asarray(toks), 0, n, NPAGES)
         with torch.no_grad():
             tl, tc = tm.prefill_paged(tc, page_map[slot], toks, 0, n, NPAGES)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL)
         positions[slot] = n
     for _ in range(4):   # slot 1 idle: its row writes to the trash page
         tokens = rs.randint(1, VOCAB, (3,)).astype(np.int32)
-        jl, jc = jm.decode_step_paged(params, jc, jnp.asarray(tokens),
-                                      jnp.asarray(positions),
-                                      jnp.asarray(page_map))
+        jl, jc = decode(params, jc, jnp.asarray(tokens),
+                        jnp.asarray(positions), jnp.asarray(page_map))
         with torch.no_grad():
             tl, tc = tm.decode_step_paged(tc, tokens, positions, page_map)
             plain, _ = tm.decode_step_paged(
