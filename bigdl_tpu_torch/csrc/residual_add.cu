@@ -14,12 +14,17 @@
 //
 // Design: the TPU kernel tiled a (rows, H*W) view into row blocks of at
 // most 64 dividing the row count — a VMEM budget, with a fall back to the
-// plain add when no block divided it. Here the kernel walks the flat range
-// in a grid-stride loop, so no shape needs a fall back: each thread loads
-// 16 bytes of x and of y per step (float4 / 8 x bf16 or fp16), adds, and
-// stores 16 bytes; a scalar loop takes the tail of fewer than one vector.
-// Pointers that are not 16-byte aligned take the scalar loop throughout.
-// The grid is a few blocks per SM, enough loads in flight to saturate HBM.
+// plain add when no block divided it. Here the flat range needs no tiling:
+// a one-shot grid gives every 16-byte vector (float4 / 8 x bf16 or fp16)
+// of the output its own thread, which loads x's and y's vectors, adds and
+// stores once, the way torch.add launches. On an H100 (700 W) at
+// (128,256,56,56) bf16 that is within 0.5% of torch.add, where a
+// grid-stride loop capped at a few blocks per SM (with 1 to 4 vectors in
+// flight per thread) and a persistent ring of bulk (TMA) copies with bulk
+// stores stay 5-6% behind it, and more vectors per thread or streaming
+// cache hints gain nothing (port_perf/variants.py). The few elements past
+// the last whole vector go to block 0; pointers that are not 16-byte
+// aligned take a one-shot scalar grid.
 #include <cuda_fp16.h>
 #include <stdint.h>
 
@@ -28,7 +33,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
 
 __device__ __forceinline__ float load_f(float v) { return v; }
 __device__ __forceinline__ float load_f(__nv_bfloat16 v) {
@@ -56,67 +60,77 @@ __device__ __forceinline__ T add1(T a, T b) {
   return store_f<T>(__fadd_rn(load_f(a), load_f(b)));
 }
 
+// One 16-byte vector of the output per thread; block 0 also adds the
+// n % kVec elements past the last whole vector.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     residual_add_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                        T* __restrict__ out, long long n, int vectorised) {
+                        T* __restrict__ out, long long n) {
   constexpr int kVec = 16 / sizeof(T);
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long done = 0;
-  if (vectorised) {
-    const long long n_vec = n / kVec;
-    const uint4* xv = reinterpret_cast<const uint4*>(x);
-    const uint4* yv = reinterpret_cast<const uint4*>(y);
-    uint4* ov = reinterpret_cast<uint4*>(out);
-    for (long long i = tid; i < n_vec; i += stride) {
-      const uint4 a = __ldg(xv + i);
-      const uint4 b = __ldg(yv + i);
-      const T* ae = reinterpret_cast<const T*>(&a);
-      const T* be = reinterpret_cast<const T*>(&b);
-      uint4 r;
-      T* re = reinterpret_cast<T*>(&r);
+  const long long n_vec = n / kVec;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i < n_vec) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(x) + i);
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(y) + i);
+    const T* ae = reinterpret_cast<const T*>(&a);
+    const T* be = reinterpret_cast<const T*>(&b);
+    uint4 r;
+    T* re = reinterpret_cast<T*>(&r);
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) re[k] = add1(ae[k], be[k]);
-      ov[i] = r;
-    }
-    done = n_vec * kVec;
+    for (int k = 0; k < kVec; ++k) re[k] = add1(ae[k], be[k]);
+    reinterpret_cast<uint4*>(out)[i] = r;
   }
-  for (long long i = done + tid; i < n; i += stride)
-    out[i] = add1(x[i], y[i]);
+  if (blockIdx.x == 0 && threadIdx.x < n - n_vec * kVec) {
+    const long long j = n_vec * kVec + threadIdx.x;
+    out[j] = add1(x[j], y[j]);
+  }
+}
+
+// Operands off a 16-byte boundary: one element per thread.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    residual_add_scalar_kernel(const T* __restrict__ x,
+                               const T* __restrict__ y, T* __restrict__ out,
+                               long long n) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) out[i] = add1(x[i], y[i]);
 }
 
 template <typename T>
-int launch(const void* x, const void* y, void* out, long long n, int sms,
+int launch(const void* x, const void* y, void* out, long long n,
            cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
+  if ((n + kThreads - 1) / kThreads > 0x7fffffffLL)   // the grid's limit
+    return (int)cudaErrorInvalidValue;
   const bool vectorised =
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
         reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  const long long work = vectorised ? (n + kVec - 1) / kVec : n;
-  long long blocks = (work + kThreads - 1) / kThreads;
-  const long long cap = (long long)(sms > 0 ? sms : 1) * kBlocksPerSm;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  residual_add_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<T*>(out), n, vectorised ? 1 : 0);
+  const T* xt = static_cast<const T*>(x);
+  const T* yt = static_cast<const T*>(y);
+  T* ot = static_cast<T*>(out);
+  if (vectorised) {
+    long long blocks = (n / kVec + kThreads - 1) / kThreads;
+    if (blocks < 1) blocks = 1;   // n < kVec: block 0 adds the tail
+    residual_add_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        xt, yt, ot, n);
+  } else {
+    residual_add_scalar_kernel<T>
+        <<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+            xt, yt, ot, n);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = launched). x, y and out hold
-// n contiguous elements of one type: dtype kF32, kBF16 or kF16. `sms` is
-// the device's SM count (the grid is a few blocks per SM).
+// n contiguous elements of one type: dtype kF32, kBF16 or kF16.
 extern "C" int bigdl_residual_add(const void* x, const void* y, void* out,
-                                  long long n, int dtype, int sms,
-                                  void* stream) {
+                                  long long n, int dtype, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == bigdl::kF32) return launch<float>(x, y, out, n, sms, st);
-  if (dtype == bigdl::kBF16)
-    return launch<__nv_bfloat16>(x, y, out, n, sms, st);
-  if (dtype == bigdl::kF16) return launch<__half>(x, y, out, n, sms, st);
+  if (dtype == bigdl::kF32) return launch<float>(x, y, out, n, st);
+  if (dtype == bigdl::kBF16) return launch<__nv_bfloat16>(x, y, out, n, st);
+  if (dtype == bigdl::kF16) return launch<__half>(x, y, out, n, st);
   return (int)cudaErrorInvalidValue;
 }

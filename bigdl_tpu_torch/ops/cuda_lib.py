@@ -32,12 +32,12 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "flash_attention": ("bigdl_flash_attention_fwd",
-                        [_P, _P, _P, _P, _L, _L, _L, _L, _P,
-                         _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]),
+                        [_P, _P, _P, _P, _L, _L, _L, _L, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]),
     "paged_attention": ("bigdl_paged_attention",
                         [_P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _F, _I, _I, _P]),
-    "residual_add": ("bigdl_residual_add", [_P, _P, _P, _L, _I, _I, _P]),
+    "residual_add": ("bigdl_residual_add", [_P, _P, _P, _L, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -17,7 +17,7 @@ Shapes follow (batch, heads, seq, head_dim), as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +31,11 @@ _DTYPE_PAIRS = {(torch.float32, torch.float32),
                 (torch.bfloat16, torch.bfloat16),
                 (torch.float32, torch.bfloat16)}
 MAX_HEAD_DIM = 256
+# B2 cuts the key lane into splits of SPLIT_TILE-key tiles, run by blocks
+# of their own and merged in split order; at most MAX_SPLITS partials per
+# query row
+SPLIT_TILE = 32
+MAX_SPLITS = 8
 
 
 # ------------------------------------------------------------ plain ----
@@ -128,6 +133,33 @@ def _check_contiguous(**tensors):
 # ------------------------------------------------------------- B2 ----
 
 
+class SplitPlan(NamedTuple):
+    """How B2 cuts the key lane: ``n_splits`` splits of ``span`` keys (the
+    last one ragged), and the fp32 scratch of partial rows that the
+    wrapper allocates when there is more than one split (None
+    otherwise): (B*H, n_splits, Sq, D + 2) — each row's unnormalised
+    accumulator, running max and running sum."""
+    span: int
+    n_splits: int
+    scratch: Optional[Tuple[int, int, int, int]]
+
+
+def split_plan(q_shape, sk: int) -> SplitPlan:
+    """B2's split plan for q of ``q_shape`` (B, H, Sq, D) against ``sk``
+    keys. The span is a function of Sk alone — never of Sq, B or H, nor of
+    the dtypes, which the kernel handles alike — so a query row's bits do
+    not depend on how many rows share its chunk (chunked prefill equals
+    whole prefill). Up to ``SPLIT_TILE * MAX_SPLITS`` keys it is one tile,
+    which spreads a 256-key lane over 8 blocks per head; past that it grows
+    in whole tiles so that a row never has more than MAX_SPLITS
+    partials."""
+    b, h, sq, d = q_shape
+    span = SPLIT_TILE * -(-sk // (SPLIT_TILE * MAX_SPLITS))
+    n_splits = -(-sk // span)
+    scratch = (b * h, n_splits, sq, d + 2) if n_splits > 1 else None
+    return SplitPlan(span, n_splits, scratch)
+
+
 def _launch_flash(q, k, v, bias, scale: float, causal: bool) -> torch.Tensor:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
@@ -155,12 +187,18 @@ def _launch_flash(q, k, v, bias, scale: float, causal: bool) -> torch.Tensor:
         bias = bias.to(torch.float32).expand(b, h, sq, sk)
         strides = bias.stride()
         bias_ptr = bias.data_ptr()
+    plan = split_plan(q.shape, sk)
     out = torch.empty_like(q)
+    partials = None
+    if plan.scratch is not None:
+        partials = torch.empty(plan.scratch, dtype=torch.float32,
+                               device=q.device)
     with torch.cuda.device(q.device):
         err = cuda_lib.entry("flash_attention")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
-            out.data_ptr(), b, h, sq, sk, d, float(scale), int(causal),
-            *codes, torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), None if partials is None else partials.data_ptr(),
+            b, h, sq, sk, d, plan.span, plan.n_splits, float(scale),
+            int(causal), *codes, torch.cuda.current_stream().cuda_stream)
         flash_attention.launches += 1
     cuda_lib.check(err, "flash_attention")
     return out

@@ -6,8 +6,9 @@ written by hand for Hopper (``csrc/residual_add.cu``) where the inputs
 qualify, and a plain ``x + y`` everywhere else. The Pallas kernel tiled a
 ``(rows, H*W)`` view into row blocks of at most 64 that divide the row
 count (a VMEM budget) and fell back to the plain add when no block larger
-than one row divided it; the CUDA kernel walks the flat element range with
-no divisibility condition, so that fall back is gone.
+than one row divided it; the CUDA kernel gives each 16-byte vector of the
+flat element range its own thread (a one-shot grid, as ``torch.add``
+launches) with no divisibility condition, so that fall back is gone.
 
 Dispatch (``_supported`` in the JAX package, with "CUDA tensor" in place
 of "running on a TPU"): both tensors on a CUDA device, same shape, same
@@ -51,12 +52,10 @@ def _launch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x on {x.device}, y on {y.device}")
     x, y = x.contiguous(), y.contiguous()
     out = torch.empty_like(x)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
         err = cuda_lib.entry("residual_add")(
             x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
-            _DTYPE_CODES[x.dtype], sms,
-            torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
         residual_add.launches += 1
     cuda_lib.check(err, "residual_add")
     return out

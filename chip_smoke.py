@@ -17,8 +17,11 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              at the serving shapes (every prompt bucket C against a
              256-row lane, with the validity bias), a causal square and an
              end-aligned Sq != Sk case, in fp32, bf16 and bf16 K/V under
-             fp32 q; error, kernel time, plain time and
-             ``scaled_dot_product_attention`` time.
+             fp32 q; row invariance (rows [a, b) of a chunk alone equal
+             those rows of the whole chunk) and determinism (10 launches),
+             bitwise; kernel, plain and ``scaled_dot_product_attention``
+             times at every prompt bucket in fp32 and, for bf16 x bf16, on
+             the causal square.
 4. B3      — the paged decode-attention kernel against its plain version
              at the serving shapes (8 slots x 8 heads, fragmented page map,
              positions 0/15/16/255/...), same three dtype pairs; error and
@@ -53,13 +56,14 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              engine's own peak memory), the mean token agreement with it
              (printed, not checked: random weights have no stated
              contract), and ``[trace]`` windows over 8 prompt calls and 20
-             decode steps of each engine.
+             decode steps of each engine (with B2's own device time in a
+             prompt call: its forward and merge kernels).
 8. B1      — the residual-add kernel against its plain version at the
              four residual-add shapes of ResNet-50 at batch 128, bf16 and
              fp32: bitwise equal; the dispatch cases that take the plain
-             add (small, mixed dtype, broadcast, CPU tensors); kernel time
-             at the layer1 bf16 shape, plain time, ``torch.add`` time and
-             the bound.
+             add (small, mixed dtype, broadcast, CPU tensors); kernel and
+             ``torch.add`` times at the layer1 bf16 shape in alternating
+             pairs with their median ratio, plain time and the bound.
 9. train   — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
              NCHW) at batch 128 under the bf16 mixed policy, SGD lr 0.1 /
              momentum 0.9, through ``optimizer(...).optimize()`` on 4 x 128
@@ -86,6 +90,7 @@ import logging
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -112,7 +117,8 @@ from bigdl_tpu_torch.serving import (
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12      # CUDA-core fp32; both kernels use FMA units
+FP32_FLOPS_PER_S = 67e12      # CUDA-core fp32 (B2 fp32, B3 use FMA units)
+BF16_FLOPS_PER_S = 989e12     # bf16 tensor cores, dense (B2 bf16 x bf16)
 INT8_OPS_PER_S = 1979e12      # int8 tensor cores, dense (the int8 GEMM)
 
 # the JAX package's on-chip serving configuration (bench.py --mode serving
@@ -169,6 +175,8 @@ RESNET50_ADDS = (("layer1", (128, 256, 56, 56), 3),
                  ("layer2", (128, 512, 28, 28), 4),
                  ("layer3", (128, 1024, 14, 14), 6),
                  ("layer4", (128, 2048, 7, 7), 3))
+# B1 against torch.add: alternating pairs, median ratio
+B1_PAIRS = 6
 # one fp32 SGD step of build_cifar(8) on the card vs the CPU, TF32 off:
 # cuDNN and the CPU sum the convolutions in other orders; relative to the
 # largest entry of each compared tensor
@@ -292,6 +300,10 @@ def phase_build():
             if tag and tag[2] == "2":
                 types = re.findall(r"13__nv_bfloat16|S\d*_|[fa]", tag[1])
                 dtype = "/".join(names.get(t, "bf16") for t in types)
+                if "flash_fwd_kernel" in fn:      # fp32 q over fp32/bf16 K/V
+                    dtype = "fp32/" + dtype
+                elif "flash_mma_kernel" in fn:    # bf16 x bf16, tensor cores
+                    dtype = "bf16/bf16 mma"
                 print(f"[build] {res.name} {dtype} D=64: {used}; {stack}")
         print(f"[build] {res.name}: {len(regs)} instantiations, max "
               f"{max(regs, default=0)} registers, {spills} spill bytes")
@@ -304,7 +316,7 @@ def phase_b2(card):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}   # by K/V dtype
-    timed = None
+    timed = {}
     for qdt, kvdt in DTYPES:
         cases = []
         for c in (1, 2, 4, 8, 16):   # the prompt buckets of max_prompt 16
@@ -333,25 +345,69 @@ def phase_b2(card):
             if err > TOL[kvdt] or out.dtype != qdt:
                 raise AssertionError(f"B2 {label} {tag}: error {err} > "
                                      f"{TOL[kvdt]} or output {out.dtype}")
-            if kvdt == qdt == torch.float32 and label.startswith("chunk C=16"):
-                timed = (q, k, v, bias)
-    q, k, v, bias = timed
-    ms = device_ms(lambda: fa.flash_attention(q, k, v, bias))
-    plain = device_ms(lambda: fa.plain_attention(q, k, v, bias))
-    lib = device_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                           attn_mask=bias))
-    eager = eager_ms(lambda: fa.flash_attention(q, k, v, bias))
-    out = torch.empty_like(q)
+            if label.startswith("chunk") or (
+                    qdt == kvdt == torch.bfloat16 and label == "causal square"):
+                timed[(qdt, kvdt, label)] = (q, k, v, bias, causal)
+    check_b2_bits(timed)
+    # every prompt bucket in fp32, the serving engine's case; bf16 x bf16
+    # on the causal square, where SDPA's is_causal=True is the same mask
+    for (qdt, kvdt, label), (q, k, v, bias, causal) in timed.items():
+        if kvdt != qdt or (qdt == torch.bfloat16 and label != "causal square"):
+            continue
+        row = time_b2(q, k, v, bias, causal)
+        print(f"[B2] {str(qdt)[6:]} {label}: kernel_ms={row['ms']:.5f} "
+              f"eager_ms={row['eager_ms']:.5f} plain_ms={row['plain_ms']:.5f}"
+              f" library_ms(sdpa)={row['library_ms']:.5f} bound_ms="
+              f"{row['bound_ms']:.6f} ({row['bound_by']}) kernel/sdpa="
+              f"{row['ms'] / row['library_ms']:.3f} on {card}")
+        if qdt == torch.float32 and label.startswith("chunk C=16"):
+            c16 = row
+    return dict(c16, max_abs_err=worst[torch.float32],
+                max_abs_err_bf16=worst[torch.bfloat16])
+
+
+def time_b2(q, k, v, bias, causal):
+    """B2's device ms per launch beside its plain version's and SDPA's on
+    the same inputs, its eager ms, and its bound."""
+    ms = device_ms(lambda: fa.flash_attention(q, k, v, bias, None, causal))
+    plain = device_ms(lambda: fa.plain_attention(q, k, v, bias, None,
+                                                 causal))
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias, is_causal=causal))
+    eager = eager_ms(lambda: fa.flash_attention(q, k, v, bias, None,
+                                                causal))
     b, h, sq, d = q.shape
-    bound_ms, bound_by = bound(nbytes(q, k, v, bias, out),
-                               4 * b * h * sq * k.shape[2] * d)
-    print(f"[B2] fp32 C=16 L=256: kernel_ms={ms:.5f} eager_ms={eager:.5f} "
-          f"plain_ms={plain:.5f} library_ms(sdpa)={lib:.5f} "
-          f"bound_ms={bound_ms:.6f} ({bound_by}) on {card}")
-    return dict(max_abs_err=worst[torch.float32],
-                max_abs_err_bf16=worst[torch.bfloat16], ms=ms, plain_ms=plain,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
-                eager_ms=eager)
+    sk = k.shape[2]
+    # causal: only the visible (row, col) pairs need arithmetic
+    pairs = sum(max(0, min(sk, i + sk - sq + 1)) for i in range(sq)) \
+        if causal else sq * sk
+    bound_ms, bound_by = bound(
+        nbytes(q, k, v, q) + (0 if bias is None else nbytes(bias)),
+        4 * b * h * pairs * d,
+        BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, eager_ms=eager,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_b2_bits(timed):
+    """Bitwise, each dtype pair at C=16 with the validity bias: B2 on rows
+    [a, b) of a chunk equals those rows of B2 on the whole chunk (chunked
+    prefill == whole prefill), and 10 launches give the same output."""
+    for (qdt, kvdt, label), (q, k, v, bias, _) in timed.items():
+        if not label.startswith("chunk C=16"):
+            continue
+        whole = fa.flash_attention(q, k, v, bias)
+        rows = all(torch.equal(
+            fa.flash_attention(q[:, :, a:b].contiguous(), k, v,
+                               bias[:, :, a:b].contiguous()),
+            whole[:, :, a:b]) for a, b in ((0, 1), (3, 7), (8, 16), (5, 13)))
+        same = all(torch.equal(fa.flash_attention(q, k, v, bias), whole)
+                   for _ in range(10))
+        print(f"[B2] q/kv {str(qdt)[6:]}/{str(kvdt)[6:]} C=16: "
+              f"row_invariant={rows} deterministic={same}")
+        if not (rows and same):
+            raise AssertionError(f"B2 {qdt}/{kvdt}: row invariance {rows}, "
+                                 f"determinism {same}")
 
 
 def phase_b3(card):
@@ -904,7 +960,7 @@ def trace_prompt_calls(model, card, run, cache_dtype=torch.float32,
     ms, n = run["spent"]["prefill"]
     label = "prompt call, 16 tokens" + (" (int8)" if cache_dtype == torch.int8
                                         else "")
-    report_trace(prof, calls, ms / n, card, label, watch="flash_fwd_kernel")
+    report_trace(prof, calls, ms / n, card, label, watch="flash_")
 
 
 def trace_decode_steps(model, card, step_ms: float,
@@ -952,6 +1008,12 @@ def report_trace(prof, steps, step_ms, card, label, top_n=5, watch=None):
     for name, us in top:
         print(f"[trace]   {us / 1e3 / steps:.4f} ms/step "
               f"({us / sum(by_name.values()):.1%}) {name[:90]}")
+    if watch:
+        watched = [ev for ev in prof.events()
+                   if ev.device_type.name == "CUDA" and watch in ev.name]
+        print(f"[trace]   kernels named {watch}*: "
+              f"{sum(ev.device_time for ev in watched) / 1e3 / steps:.4f} "
+              f"ms/step in {len(watched) / steps:.0f} launches")
     return device_ms
 
 
@@ -989,16 +1051,30 @@ def phase_b1(card):
         assert ra.residual_add.launches == before, label
     print(f"[B1] plain add, no launch: {', '.join(cases)}")
     x, y = timed
-    ms = device_ms(lambda: ra.residual_add(x, y))
+    # kernel and torch.add in turns (add, kernel, kernel, add): the card's
+    # clock and its neighbours drift between measurements
+    kernel_ms, add_ms, ratios = [], [], []
+    for _ in range(B1_PAIRS):
+        a1 = device_ms(lambda: torch.add(x, y))
+        k1 = device_ms(lambda: ra.residual_add(x, y))
+        k2 = device_ms(lambda: ra.residual_add(x, y))
+        a2 = device_ms(lambda: torch.add(x, y))
+        kernel_ms += [k1, k2]
+        add_ms += [a1, a2]
+        ratios.append((k1 + k2) / (a1 + a2))
+    ms = statistics.median(kernel_ms)
+    lib = statistics.median(add_ms)
+    ratio = statistics.median(ratios)
     plain = device_ms(lambda: ra.residual_add_plain(x, y))
-    lib = device_ms(lambda: torch.add(x, y))
     eager = eager_ms(lambda: ra.residual_add(x, y))
     bound_ms, bound_by = bound(nbytes(x, y, x), x.numel())
     print(f"[B1] bf16 layer1 {tuple(x.shape)}: kernel_ms={ms:.5f} "
           f"eager_ms={eager:.5f} plain_ms={plain:.5f} "
           f"library_ms(torch.add)={lib:.5f} bound_ms={bound_ms:.6f} "
-          f"({bound_by}; kernel {nbytes(x, y, x) / ms / 1e6:.0f} GB/s) on "
-          f"{card}")
+          f"({bound_by}; kernel {nbytes(x, y, x) / ms / 1e6:.0f} GB/s, "
+          f"{bound_ms / ms:.1%} of the bound) on {card}")
+    print(f"[B1] kernel / torch.add, median of {B1_PAIRS} alternating pairs: "
+          f"{ratio:.4f} (pairs {', '.join(f'{r:.4f}' for r in ratios)})")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib, eager_ms=eager)
 

@@ -16,6 +16,7 @@ bit-exact.
 """
 
 import importlib
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,6 +118,96 @@ def test_causal_bias_matches_jax():
 
     np.testing.assert_array_equal(tattn.causal_bias(5).numpy(),
                                   np.asarray(causal_bias(5)))
+
+
+# ------------------------------------------------- B2's split plan ----
+# On the card B2 cuts the key lane into splits run by blocks of their own
+# and merges each row's partials in split order. The plan is Python (the
+# wrapper computes it); the merge is emulated here in torch.
+
+
+@pytest.mark.parametrize("sk", [1, 9, 32, 33, 255, 256, 257, 300, 1000,
+                                2047, 2048, 2049])
+def test_split_plan_depends_on_the_key_lane_only(sk):
+    """Span and split count are the same for every batch, head count,
+    chunk length and head dim: a row's arithmetic on the card cannot
+    depend on how many rows share its chunk."""
+    plans = {tfa.split_plan(shape, sk)[:2] for shape in [
+        (1, 8, 16, 64), (1, 8, 1, 64), (2, 4, 7, 64), (3, 1, 300, 64),
+        (1, 8, 16, 37), (1, 8, 16, 256)]}
+    assert len(plans) == 1
+
+
+@pytest.mark.parametrize("sk", list(range(1, 70)) + [255, 256, 257, 300,
+                                                     511, 512, 513, 1000,
+                                                     2047, 2048, 2049, 8192])
+def test_split_plan_tiles_the_key_lane(sk):
+    span, n, _ = tfa.split_plan((1, 8, 16, 64), sk)
+    assert span % tfa.SPLIT_TILE == 0 and 1 <= n <= tfa.MAX_SPLITS
+    edges = [min(sk, i * span) for i in range(n + 1)]
+    assert edges[0] == 0 and edges[-1] == sk
+    assert all(lo < hi for lo, hi in zip(edges, edges[1:]))   # none empty
+
+
+def test_split_plan_scratch():
+    """Serving (Sk = 256): 8 splits of one 32-key tile, 64 blocks over 8
+    heads. One split needs no scratch. At Sk = 2048 the partials stay at
+    most MAX_SPLITS rows of D + 2 floats per output row."""
+    serving = tfa.split_plan((1, 8, 16, 64), 256)
+    assert serving == (32, 8, (8, 8, 16, 66))
+    assert tfa.split_plan((1, 8, 16, 64), 32).scratch is None
+    for shape in [(1, 8, 2048, 64), (4, 16, 2048, 128)]:
+        span, n, scratch = tfa.split_plan(shape, 2048)
+        b, h, sq, d = shape
+        assert n == tfa.MAX_SPLITS and span == 256
+        assert scratch == (b * h, n, sq, d + 2)
+        assert math.prod(scratch) <= (tfa.MAX_SPLITS * (d + 2) / d
+                                      * b * h * sq * d)
+
+
+def _split_and_merge(q, k, v, bias, scale, causal):
+    """B2's algorithm in torch: each split's partial (max, sum, unnormalised
+    P.V) per query row, merged in split order."""
+    sq, sk = q.shape[2], k.shape[2]
+    span, n, _ = tfa.split_plan(q.shape, sk)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias
+    if causal:
+        seen = torch.ones(sq, sk, dtype=torch.bool).tril(sk - sq)
+        s = s.masked_fill(~seen, float("-inf"))
+    parts = []
+    for i in range(n):
+        si = s[..., i * span:(i + 1) * span]
+        m = si.amax(-1, keepdim=True)
+        p = torch.where(m == float("-inf"), 0.0, torch.exp(si - m))
+        parts.append((m, p.sum(-1, keepdim=True),
+                      p @ v[..., i * span:(i + 1) * span, :]))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    total, acc = 0.0, 0.0
+    for m, l, a in parts:
+        w = torch.where(m == float("-inf"), 0.0, torch.exp(m - top))
+        total, acc = total + w * l, acc + w * a
+    return torch.where(total > 0, acc / total, 0.0)
+
+
+@pytest.mark.parametrize("sq, sk, causal, bias", [
+    (16, 256, False, True), (1, 256, False, True), (5, 300, False, True),
+    (64, 64, True, False), (40, 300, True, False), (7, 9, False, False),
+    (16, 2048, False, True)],
+    ids=["chunk16-bias", "chunk1-bias", "ragged-bias", "causal-square",
+         "causal-end-aligned", "one-split", "long-lane"])
+def test_split_and_merge_equals_plain_attention(sq, sk, causal, bias):
+    q, k, v = (torch.from_numpy(_np(shape, seed)) for shape, seed in
+               (((1, 2, sq, 16), 10), ((1, 2, sk, 16), 11),
+                ((1, 2, sk, 16), 12)))
+    b = None
+    if bias:   # the serving chunk's validity bias: row i sees cols <= i + 3
+        b = torch.where(torch.arange(sk)[None, :]
+                        <= torch.arange(sq)[:, None] + 3, 0.0, -1e9)[None, None]
+    got = _split_and_merge(q, k, v, b, 0.25, causal)
+    want = tfa.plain_attention(q, k, v, b, 0.25, causal)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
 
 
 # ------------------------------------------------------------ B3 ----

@@ -110,6 +110,130 @@ def test_flash_kernel_gradient_is_plain_gradient(cuda):
         assert (a - b).abs().max().item() < 1e-4
 
 
+def _flash_case(cuda, qdt, kvdt, b, h, sq, sk, d, bias=False, seed=0,
+                offset=0):
+    """q, k, v (and the serving chunk's validity bias: row i sees cols
+    <= i + Sk - Sq) for B2. ``offset`` > 0 starts every tensor that many
+    elements past a 16-byte boundary."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rand(*shape, dtype):
+        n = math.prod(shape)
+        t = torch.randn(n + offset, generator=g, device=cuda).to(dtype)
+        return t[offset:].view(shape)
+
+    q = rand(b, h, sq, d, dtype=qdt)
+    k, v = (rand(b, h, sk, d, dtype=kvdt) for _ in range(2))
+    mask = None
+    if bias:
+        mask = torch.where(torch.arange(sk, device=cuda)[None, :]
+                           <= torch.arange(sq, device=cuda)[:, None]
+                           + sk - sq, 0.0, -1e9)[None, None]
+    return q, k, v, mask
+
+
+def _flash_err(q, k, v, bias, causal):
+    out = tfa.flash_attention(q, k, v, bias, None, causal)
+    ref = tfa.plain_attention(q, k, v, bias, None, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype
+    return (out.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt, kvdt", DTYPES)
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16])
+def test_flash_kernel_serving_buckets(cuda, qdt, kvdt, c):
+    """Every prompt bucket of the serving engine against its 256-row lane
+    with the validity bias: 8 splits of 32 keys, merged."""
+    q, k, v, bias = _flash_case(cuda, qdt, kvdt, 1, 8, c, 256, 64, True)
+    assert _flash_err(q, k, v, bias, False) < TOL[kvdt]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt, kvdt", DTYPES)
+@pytest.mark.parametrize("sq, sk, causal, bias", [
+    (16, 300, False, True),     # 5 splits of 64, the last one ragged
+    (5, 9, False, True),        # one split shorter than a tile
+    (16, 20, True, False),      # one split, causal, Sq < Sk
+    (40, 300, True, False),     # end-aligned causal, Sq != Sk
+    (256, 256, True, False),    # causal square: tile 0 loads 1 of 8 splits
+    (64, 2048, True, True),     # long lane: 8 splits of 8 tiles each
+], ids=["ragged", "short", "short-causal", "end-aligned", "square", "long"])
+def test_flash_kernel_splits(cuda, qdt, kvdt, sq, sk, causal, bias):
+    q, k, v, mask = _flash_case(cuda, qdt, kvdt, 1, 4, sq, sk, 64, bias)
+    assert _flash_err(q, k, v, mask, causal) < TOL[kvdt]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt, kvdt", DTYPES)
+@pytest.mark.parametrize("sk", [20, 200])
+def test_flash_kernel_row_that_sees_nothing_is_zero(cuda, qdt, kvdt, sk):
+    """End-aligned causal with Sq > Sk: the first Sq - Sk rows see no
+    column and output 0 (one split and several); the rest match the plain
+    version."""
+    sq = sk + 24
+    q, k, v, _ = _flash_case(cuda, qdt, kvdt, 1, 2, sq, sk, 64)
+    out = tfa.flash_attention(q, k, v, None, None, True)
+    ref = tfa.plain_attention(q, k, v, None, None, True)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out[:, :, :sq - sk]) == 0
+    err = (out[:, :, sq - sk:].float() - ref[:, :, sq - sk:].float()).abs()
+    assert err.max().item() < TOL[kvdt]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt, kvdt", DTYPES)
+@pytest.mark.parametrize("d, offset", [(64, 0), (64, 2), (36, 0), (37, 0)],
+                         ids=["aligned", "unaligned-ptr", "d36", "d37"])
+def test_flash_kernel_load_paths(cuda, qdt, kvdt, d, offset):
+    """16-byte async copies (D x itemsize a multiple of 16, aligned
+    pointers) and the element-wise path (an odd head dim, or tensors 2
+    elements past a 16-byte boundary)."""
+    q, k, v, bias = _flash_case(cuda, qdt, kvdt, 1, 2, 16, 256, d, True,
+                                offset=offset)
+    assert _flash_err(q, k, v, bias, False) < TOL[kvdt]
+    assert _flash_err(q, k, v, None, True) < TOL[kvdt]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt, kvdt", DTYPES)
+def test_flash_kernel_rows_are_invariant_to_the_chunk(cuda, qdt, kvdt):
+    """Bitwise: B2 on rows [a, b) of a chunk equals those rows of B2 on the
+    whole chunk, for the same K/V lane and bias rows (chunked prefill ==
+    whole prefill)."""
+    q, k, v, bias = _flash_case(cuda, qdt, kvdt, 1, 8, 16, 256, 64, True,
+                                seed=5)
+    whole = tfa.flash_attention(q, k, v, bias)
+    for a, b in [(0, 1), (3, 7), (8, 16), (5, 13), (15, 16)]:
+        part = tfa.flash_attention(q[:, :, a:b].contiguous(), k, v,
+                                   bias[:, :, a:b].contiguous())
+        assert torch.equal(part, whole[:, :, a:b]), (a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt, kvdt", DTYPES)
+def test_flash_kernel_is_deterministic_and_capturable(cuda, qdt, kvdt):
+    """10 launches on the same inputs give the same bits, and a launch
+    captured in a CUDA graph replays to them."""
+    q, k, v, bias = _flash_case(cuda, qdt, kvdt, 1, 8, 16, 256, 64, True,
+                                seed=6)
+    first = tfa.flash_attention(q, k, v, bias)
+    for _ in range(10):
+        assert torch.equal(tfa.flash_attention(q, k, v, bias), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfa.flash_attention(q, k, v, bias)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tfa.flash_attention(q, k, v, bias)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("qdt, kvdt", DTYPES)
 def test_paged_kernel_matches_plain(cuda, qdt, kvdt):
@@ -390,6 +514,29 @@ def test_residual_add_kernel_tail_and_alignment(cuda, offset):
     out = ra.residual_add(x, y)
     torch.cuda.synchronize()
     assert torch.equal(out, x + y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n, offset", [
+    (1 << 20, 0), ((1 << 20) + 1, 0), ((1 << 20) + 4093, 0),
+    (12845056 + 7, 0), (1 << 20, 2), ((1 << 20) + 5, 2)],
+    ids=["2^20", "2^20+1", "ragged", "layer3+7", "offset2", "offset2+5"])
+def test_residual_add_kernel_sizes_and_offsets(cuda, dtype, n, offset):
+    """Bitwise torch.add at sizes that are not a multiple of a vector, a
+    block's share or a stage, and with operands 2 elements past a 16-byte
+    boundary."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    bx, by = (torch.randn(n + offset, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    x = bx[offset:].view(1, n)
+    y = by[offset:].view(1, n)
+    before = ra.residual_add.launches
+    out = ra.residual_add(x, y)
+    assert ra.residual_add.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.equal(out, torch.add(x, y))
 
 
 @pytest.mark.gpu

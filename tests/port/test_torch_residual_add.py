@@ -95,7 +95,7 @@ def test_kernel_backward_passes_the_cotangent_to_both():
 
 def test_kernel_library_is_declared():
     name, argtypes = cuda_lib.SIGNATURES["residual_add"]
-    assert name == "bigdl_residual_add" and len(argtypes) == 7
+    assert name == "bigdl_residual_add" and len(argtypes) == 6
     src = (cuda_lib.CSRC / "residual_add.cu").read_text()
     assert f'extern "C" int {name}(' in src
     assert cuda_lib._digest("residual_add") != cuda_lib._digest(
