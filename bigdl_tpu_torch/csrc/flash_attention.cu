@@ -62,50 +62,20 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "split_merge.cuh"
 
 namespace {
+
+using namespace bigdl;
 
 constexpr int kBlockQ = 16;       // query rows per block
 constexpr int kTileK = 32;        // keys per tile
 constexpr int kStages = 2;        // K/V tiles in flight
-constexpr int kMaxSplits = 8;     // the wrapper's bound on splits
 constexpr int kBiasStride = 40;   // floats per bias row in shared memory
 constexpr int kWarpsF = 4;        // FFMA kernel: warps per block
 constexpr int kThreadsF = kWarpsF * 32;
 constexpr int kRows = kBlockQ / kWarpsF;   // query rows per warp
-constexpr int kMergeThreads = 256;         // merge: one output element each
 static_assert(kRows == 4, "the FFMA kernel's P words hold 4 rows");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; `bytes` < 16 zero-fills the
-// rest (0: nothing is read from `src`).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Rows [0, rows) of shared `s` (row stride `stride` elements, kCols
 // elements used) from `rows` consecutive rows of D <= kCols elements at
@@ -156,27 +126,6 @@ __device__ __forceinline__ void load_bias(float* s,
     cp_async4(s + r * kBiasStride + j,
               ok ? bias + (q0 + r) * bs_q + (k0 + j) * bs_k : safe,
               ok ? 4 : 0);
-  }
-}
-
-// 16 bytes of shared K as floats
-__device__ __forceinline__ void load_chunk(const float* p, float (&f)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  f[0] = x.x;
-  f[1] = x.y;
-  f[2] = x.z;
-  f[3] = x.w;
-}
-
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
-                                           float (&f)[8]) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
   }
 }
 
@@ -672,75 +621,7 @@ __global__ void __launch_bounds__(32)
   }
 }
 
-// ------------------------------------------------------------ merge ----
-
-// One thread per output element: the row's visible splits' max, sum and
-// accumulator entry, all loaded at once (one round trip), rescaled to
-// their common max and summed in split order (no atomics: the same bits
-// every launch). Launched as a programmatic dependent of the forward
-// kernel: where that kernel lets it start early, its blocks are resident
-// before the forward ends and wait here for its writes.
-template <typename TQ>
-__global__ void __launch_bounds__(kMergeThreads)
-    flash_merge_kernel(const float* __restrict__ part, TQ* __restrict__ out,
-                       int rows, int Sq, int Sk, int D, int span,
-                       int n_splits, int causal) {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-  const long long t = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
-  if (t >= (long long)rows * D) return;
-  const int w = (int)(t / D);   // output row (b*h, i)
-  const int d = (int)(t - (long long)w * D);
-  const int bh = w / Sq;
-  const int i = w - bh * Sq;
-  int n = n_splits;
-  if (causal) {
-    const int k_end = min(Sk, i + Sk - Sq + 1);
-    n = k_end <= 0 ? 0 : min(n_splits, (k_end + span - 1) / span);
-  }
-  const size_t split_stride = (size_t)Sq * (D + 2);
-  const float* p0 = part + ((size_t)bh * n_splits * Sq + i) * (D + 2);
-  float ms[kMaxSplits], ls[kMaxSplits], as[kMaxSplits];
-#pragma unroll
-  for (int s = 0; s < kMaxSplits; ++s) {
-    ms[s] = -INFINITY;
-    ls[s] = 0.f;
-    as[s] = 0.f;
-    if (s < n) {
-      const float* ps = p0 + s * split_stride;
-      ms[s] = ps[D];
-      ls[s] = ps[D + 1];
-      as[s] = ps[d];
-    }
-  }
-  float mx = -INFINITY;
-#pragma unroll
-  for (int s = 0; s < kMaxSplits; ++s) mx = fmaxf(mx, ms[s]);
-  float total = 0.f;
-  float a = 0.f;
-#pragma unroll
-  for (int s = 0; s < kMaxSplits; ++s) {
-    if (s < n) {
-      const float wgt = ms[s] != -INFINITY ? expf(ms[s] - mx) : 0.f;
-      total = fmaf(wgt, ls[s], total);
-      a = fmaf(wgt, as[s], a);
-    }
-  }
-  const float inv = total > 0.f ? 1.f / total : 0.f;
-  out[(size_t)w * D + d] = bigdl::from_float<TQ>(a * inv);
-}
-
 // ----------------------------------------------------------- launch ----
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 struct Args {
   const void *q, *k, *v, *bias;
@@ -789,32 +670,6 @@ cudaError_t launch_mma(const Args& a) {
       static_cast<const float*>(a.bias), a.bs_b, a.bs_h, a.bs_q, a.bs_k,
       static_cast<__nv_bfloat16*>(a.out), a.part, a.H, a.Sq, a.Sk, a.D,
       a.span, a.n_splits, a.scale, a.causal, vec);
-  return cudaGetLastError();
-}
-
-// The merge, as a programmatic dependent launch: it may start while the
-// forward kernel runs and waits for it in `griddepcontrol.wait`.
-template <typename TQ>
-cudaError_t launch_merge(const Args& a) {
-  const int rows = a.B * a.H * a.Sq;
-  const long long blocks =
-      ((long long)rows * a.D + kMergeThreads - 1) / kMergeThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(kMergeThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = a.stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(
-      &cfg, flash_merge_kernel<TQ>, static_cast<const float*>(a.part),
-      static_cast<TQ*>(a.out), rows, a.Sq, a.Sk, a.D, a.span, a.n_splits,
-      a.causal);
-  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -871,6 +726,10 @@ extern "C" int bigdl_flash_attention_fwd(
          scale, causal, static_cast<cudaStream_t>(stream)};
   cudaError_t e = launch_main(a, q_dtype, kv_dtype);
   if (e != cudaSuccess || n_splits == 1) return (int)e;
-  if (q_dtype == bigdl::kBF16) return (int)launch_merge<__nv_bfloat16>(a);
-  return (int)launch_merge<float>(a);
+  const int rows = B * H * Sq;
+  if (q_dtype == bigdl::kBF16)
+    return (int)launch_merge(a.part, static_cast<__nv_bfloat16*>(out), rows,
+                             Sq, Sk, D, span, n_splits, causal, a.stream);
+  return (int)launch_merge(a.part, static_cast<float*>(out), rows, Sq, Sk,
+                           D, span, n_splits, causal, a.stream);
 }

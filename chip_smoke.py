@@ -24,11 +24,13 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              the causal square.
 4. B3      — the paged decode-attention kernel against its plain version
              at the serving shapes (8 slots x 8 heads, fragmented page map,
-             positions 0/15/16/255/...), same three dtype pairs; error and
-             times.
+             positions 0/15/16/255/...) and at the decode trace's (every
+             slot at 100), same three dtype pairs; error, and kernel, eager
+             and plain times with the bound at both sets of positions.
 5. B3-int8 — the paged decode kernel over int8 pools with per-token fp32
              scale pools against its plain version at the same shapes, q
-             fp32 and bf16; error and times; then the int8 GEMM on the card
+             fp32 and bf16; error and times at both sets of positions;
+             then the int8 GEMM on the card
              (``torch._int_mm``, token rows padded) bitwise against the
              CPU's integer product at the serving GEMM shapes, and the
              quantizers and ``int8_linear`` bitwise card against CPU.
@@ -43,8 +45,9 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              match the plain path on the CPU. Prints tokens/s, TTFT p50,
              decode-step ms and peak memory; then (``[trace]``) a
              torch.profiler window over 20 eager decode steps: device time
-             and kernels per step, the card's busy share of a step, and the
-             kernels that take most of it.
+             and kernels per step, the card's busy share of a step, the
+             kernels that take most of it, and B3's own device time per
+             launch and launches per step.
 7. engine-int8 — the same 32 requests through the int8 serving tier
              (``quantize="int8"``, ``cache_dtype=torch.int8``): B2 on every
              prompt call and B3-int8 on every decode step of every layer,
@@ -127,6 +130,8 @@ VOCAB, HIDDEN, HEADS, FILTER, LAYERS = 8192, 512, 8, 2048, 4
 MAX_LEN, MAX_PROMPT, PAGE, SLOTS = 256, 16, 16, 8
 HEAD_DIM = HIDDEN // HEADS
 N_REQUESTS, SHORT_NEW, LONG_NEW = 32, 8, 96
+# the position of every slot in the timed and traced decode steps
+TRACE_POSITION = 100
 
 # kernel vs plain version on the same inputs, by K/V dtype. fp32: both
 # accumulate in fp32 over <= 300 keys of O(1) values; only the summation
@@ -415,8 +420,7 @@ def phase_b3(card):
     n_pages = SLOTS * (MAX_LEN // PAGE)
     page_map = torch.randperm(n_pages, generator=g, device="cuda").reshape(
         SLOTS, MAX_LEN // PAGE).to(torch.int32)
-    positions = torch.tensor([0, 15, 16, 255, 37, 100, 128, 200],
-                             dtype=torch.int32, device="cuda")
+    sets = paged_position_sets()
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}   # by K/V dtype
     timed = None
     for qdt, kvdt in DTYPES:
@@ -425,39 +429,68 @@ def phase_b3(card):
                   for _ in range(2))
         q = torch.randn(SLOTS, HEADS, HEAD_DIM, generator=g,
                         device="cuda").to(qdt)
-        out = fa.paged_flash_attention(q, kp, vp, page_map, positions)
-        ref = fa.paged_attention_reference(q, kp, vp, page_map, positions)
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
-        worst[kvdt] = max(worst[kvdt], err)
         tag = f"{str(qdt)[6:]}/{str(kvdt)[6:]}"
-        print(f"[B3] q/kv {tag:17s} 8 slots x 8 heads, fragmented map, "
-              f"positions {positions.tolist()}: max_abs_err={err:.3e} "
-              f"(tol {TOL[kvdt]:g})")
-        if err > TOL[kvdt] or out.dtype != qdt:
-            raise AssertionError(f"B3 {tag}: error {err} > {TOL[kvdt]} or "
-                                 f"output {out.dtype}")
+        for label, pos in sets.items():
+            out = fa.paged_flash_attention(q, kp, vp, page_map, pos)
+            ref = fa.paged_attention_reference(q, kp, vp, page_map, pos)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            worst[kvdt] = max(worst[kvdt], err)
+            print(f"[B3] q/kv {tag:17s} 8 slots x 8 heads, fragmented map, "
+                  f"{label} (positions {pos.tolist()}): max_abs_err="
+                  f"{err:.3e} (tol {TOL[kvdt]:g})")
+            if err > TOL[kvdt] or out.dtype != qdt:
+                raise AssertionError(f"B3 {tag} {label}: error {err} > "
+                                     f"{TOL[kvdt]} or output {out.dtype}")
         if kvdt == qdt == torch.float32:
             timed = (q, kp, vp)
     q, kp, vp = timed
-    ms = device_ms(lambda: fa.paged_flash_attention(q, kp, vp, page_map,
-                                                    positions))
+    rows = {}
+    for label, pos in sets.items():
+        rows[label] = row = time_paged(q, kp, vp, page_map, pos)
+        print(f"[B3] fp32, {label} (positions {pos.tolist()}): kernel_ms="
+              f"{row['ms']:.5f} eager_ms={row['eager_ms']:.5f} plain_ms="
+              f"{row['plain_ms']:.5f} library_ms=none bound_ms="
+              f"{row['bound_ms']:.6f} ({row['bound_by']}, {row['bytes']} "
+              f"bytes: {row['rows']} visible rows) on {card}")
+    return dict(rows["[B3] case"], max_abs_err=worst[torch.float32],
+                max_abs_err_bf16=worst[torch.bfloat16], library_ms=None)
+
+
+def paged_position_sets():
+    """The two sets of slot positions B3 is checked and timed at: the
+    ``[B3]`` case (page edges, a full 256-key lane, a fragmented mix) and
+    the decode trace's (every slot at TRACE_POSITION)."""
+    edges = torch.tensor([0, 15, 16, 255, 37, 100, 128, 200],
+                         dtype=torch.int32, device="cuda")
+    return {"[B3] case": edges,
+            "trace case": torch.full_like(edges, TRACE_POSITION)}
+
+
+def time_paged(q, kp, vp, page_map, positions, ks=None, vs=None):
+    """B3's (or B3-int8's) device ms per launch beside its plain
+    version's, its eager ms, and its bound: each visible K/V row read once
+    (with its two fp32 scales for int8), q, the page map and the
+    positions read once, the output written once; 4 flops per visible K/V
+    element (6 with the dequantizing multiplies)."""
+    def kernel():
+        return fa.paged_flash_attention(q, kp, vp, page_map, positions,
+                                        k_scales=ks, v_scales=vs)
+
+    ms = device_ms(kernel)
     plain = device_ms(lambda: fa.paged_attention_reference(
-        q, kp, vp, page_map, positions))
-    eager = eager_ms(lambda: fa.paged_flash_attention(q, kp, vp, page_map,
-                                                      positions))
-    rows = int((positions.long() + 1).sum().item())   # visible K/V rows
-    row_bytes = HEADS * HEAD_DIM * kp.element_size()
-    bound_ms, bound_by = bound(
-        nbytes(q, q, page_map, positions) + 2 * rows * row_bytes,
-        4 * rows * HEADS * HEAD_DIM)
-    print(f"[B3] fp32 slice: kernel_ms={ms:.5f} eager_ms={eager:.5f} "
-          f"plain_ms={plain:.5f} library_ms=none bound_ms={bound_ms:.6f} "
-          f"({bound_by}, {rows} visible rows) on {card}")
-    return dict(max_abs_err=worst[torch.float32],
-                max_abs_err_bf16=worst[torch.bfloat16], ms=ms, plain_ms=plain,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                eager_ms=eager)
+        q, kp, vp, page_map, positions, k_scales=ks, v_scales=vs))
+    eager = eager_ms(kernel)
+    rows = int((positions.long() + 1).clamp(min=0).sum().item())
+    row_bytes = 2 * HEADS * HEAD_DIM * kp.element_size()
+    if ks is not None:
+        row_bytes += 2 * ks.element_size()
+    out = kernel()
+    n_bytes = nbytes(q, out, page_map, positions) + rows * row_bytes
+    flops = (6 if ks is not None else 4) * rows * HEADS * HEAD_DIM
+    bound_ms, bound_by = bound(n_bytes, flops)
+    return dict(ms=ms, plain_ms=plain, eager_ms=eager, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=n_bytes, rows=rows)
 
 
 def int8_pools(g, n_pages):
@@ -480,52 +513,41 @@ def phase_b3_int8(card):
     n_pages = SLOTS * (MAX_LEN // PAGE)
     page_map = torch.randperm(n_pages, generator=g, device="cuda").reshape(
         SLOTS, MAX_LEN // PAGE).to(torch.int32)
-    positions = torch.tensor([0, 15, 16, 255, 37, 100, 128, 200],
-                             dtype=torch.int32, device="cuda")
+    sets = paged_position_sets()
     kp, vp, ks, vs = int8_pools(g, n_pages + 1)
     worst, timed = 0.0, None
     for qdt in (torch.float32, torch.bfloat16):
         q = torch.randn(SLOTS, HEADS, HEAD_DIM, generator=g,
                         device="cuda").to(qdt)
-        out = fa.paged_flash_attention(q, kp, vp, page_map, positions,
-                                       k_scales=ks, v_scales=vs)
-        ref = fa.paged_attention_reference(q, kp, vp, page_map, positions,
+        for label, pos in sets.items():
+            out = fa.paged_flash_attention(q, kp, vp, page_map, pos,
                                            k_scales=ks, v_scales=vs)
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
-        worst = max(worst, err)
-        print(f"[B3-int8] q {str(qdt)[6:]:8s} int8 pools + fp32 scales, 8 "
-              f"slots x 8 heads, fragmented map, positions "
-              f"{positions.tolist()}: max_abs_err={err:.3e} (tol "
-              f"{INT8_TOL:g}) out {str(out.dtype)[6:]}")
-        if err > INT8_TOL or out.dtype != torch.float32:
-            raise AssertionError(f"B3-int8 q {qdt}: error {err} > "
-                                 f"{INT8_TOL} or output {out.dtype}")
+            ref = fa.paged_attention_reference(q, kp, vp, page_map, pos,
+                                               k_scales=ks, v_scales=vs)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            worst = max(worst, err)
+            print(f"[B3-int8] q {str(qdt)[6:]:8s} int8 pools + fp32 scales, "
+                  f"8 slots x 8 heads, fragmented map, {label} (positions "
+                  f"{pos.tolist()}): max_abs_err={err:.3e} (tol "
+                  f"{INT8_TOL:g}) out {str(out.dtype)[6:]}")
+            if err > INT8_TOL or out.dtype != torch.float32:
+                raise AssertionError(f"B3-int8 q {qdt} {label}: error {err} "
+                                     f"> {INT8_TOL} or output {out.dtype}")
         if qdt == torch.float32:
             timed = q
 
-    def kernel():
-        return fa.paged_flash_attention(timed, kp, vp, page_map, positions,
-                                        k_scales=ks, v_scales=vs)
-
-    ms = device_ms(kernel)
-    plain = device_ms(lambda: fa.paged_attention_reference(
-        timed, kp, vp, page_map, positions, k_scales=ks, v_scales=vs))
-    eager = eager_ms(kernel)
-    rows = int((positions.long() + 1).sum().item())   # visible K/V rows
-    # each visible row: its K and V int8 rows and their two fp32 scales
-    row_bytes = 2 * (HEADS * HEAD_DIM + 4)
-    bound_ms, bound_by = bound(
-        nbytes(timed, timed, page_map, positions) + rows * row_bytes,
-        6 * rows * HEADS * HEAD_DIM)
-    print(f"[B3-int8] fp32 q, int8 pools: kernel_ms={ms:.5f} "
-          f"eager_ms={eager:.5f} plain_ms={plain:.5f} library_ms=none "
-          f"bound_ms={bound_ms:.6f} ({bound_by}, {rows} visible rows, "
-          f"{nbytes(timed, timed, page_map, positions) + rows * row_bytes} "
-          f"bytes) on {card}")
+    rows = {}
+    for label, pos in sets.items():
+        rows[label] = row = time_paged(timed, kp, vp, page_map, pos, ks, vs)
+        print(f"[B3-int8] fp32 q, int8 pools, {label} (positions "
+              f"{pos.tolist()}): kernel_ms={row['ms']:.5f} eager_ms="
+              f"{row['eager_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+              f"library_ms=none bound_ms={row['bound_ms']:.6f} "
+              f"({row['bound_by']}, {row['bytes']} bytes: {row['rows']} "
+              f"visible rows) on {card}")
     check_int8_gemms(card)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, eager_ms=eager)
+    return dict(rows["[B3] case"], max_abs_err=worst, library_ms=None)
 
 
 def check_int8_gemms(card):
@@ -910,7 +932,7 @@ def _decode_inputs(model, cache_dtype):
     page_map = rs.permutation(SLOTS * ppn).reshape(SLOTS, ppn).astype(np.int32)
     cache = model.init_paged_cache(SLOTS * ppn + 1, PAGE, cache_dtype)
     tokens = rs.randint(1, VOCAB, (SLOTS,)).astype(np.int32)
-    positions = np.full((SLOTS,), 100, np.int32)
+    positions = np.full((SLOTS,), TRACE_POSITION, np.int32)
     for _ in range(5):
         toks, cache = kernels.decode(cache, tokens, positions, page_map)
         toks.cpu()
@@ -960,7 +982,8 @@ def trace_prompt_calls(model, card, run, cache_dtype=torch.float32,
     ms, n = run["spent"]["prefill"]
     label = "prompt call, 16 tokens" + (" (int8)" if cache_dtype == torch.int8
                                         else "")
-    report_trace(prof, calls, ms / n, card, label, watch="flash_")
+    report_trace(prof, calls, ms / n, card, label,
+                 watch=("flash_",))
 
 
 def trace_decode_steps(model, card, step_ms: float,
@@ -982,14 +1005,15 @@ def trace_decode_steps(model, card, step_ms: float,
     label = "eager decode step" + (" (int8)" if cache_dtype == torch.int8
                                    else "")
     report_trace(prof, steps, step_ms, card, label,
-                 watch="paged_attention_kernel")
+                 watch=("paged_attention_kernel",))
 
 
-def report_trace(prof, steps, step_ms, card, label, top_n=5, watch=None):
+def report_trace(prof, steps, step_ms, card, label, top_n=5, watch=()):
     """Device time and kernels per step from a torch.profiler window of
     ``steps`` steps, the card's busy share of an unprofiled step of
     ``step_ms``, the ``top_n`` kernels by device time, and the kernels
-    whose name contains ``watch``."""
+    whose name contains one of ``watch``: their device time per step, per
+    launch, and their launches per step."""
     by_name = {}
     for ev in prof.events():
         if ev.device_type.name == "CUDA":
@@ -1001,19 +1025,22 @@ def report_trace(prof, steps, step_ms, card, label, top_n=5, watch=None):
     print(f"[trace] {label}: {device_ms:.3f} ms device time in "
           f"{n_kernels / steps:.0f} kernels; busy share of a "
           f"{step_ms:.3f} ms step = {device_ms / step_ms:.1%} on {card}")
+
+    def watched(name):
+        return any(w in name for w in watch)
+
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
-    if watch:
-        top += [kv for kv in by_name.items() if watch in kv[0]
-                and kv not in top]
+    top += [kv for kv in by_name.items() if watched(kv[0]) and kv not in top]
     for name, us in top:
         print(f"[trace]   {us / 1e3 / steps:.4f} ms/step "
               f"({us / sum(by_name.values()):.1%}) {name[:90]}")
     if watch:
-        watched = [ev for ev in prof.events()
-                   if ev.device_type.name == "CUDA" and watch in ev.name]
-        print(f"[trace]   kernels named {watch}*: "
-              f"{sum(ev.device_time for ev in watched) / 1e3 / steps:.4f} "
-              f"ms/step in {len(watched) / steps:.0f} launches")
+        evs = [ev for ev in prof.events()
+               if ev.device_type.name == "CUDA" and watched(ev.name)]
+        ms = sum(ev.device_time for ev in evs) / 1e3
+        print(f"[trace]   kernels named {' or '.join(watch)}: "
+              f"{ms / steps:.4f} ms/step in {len(evs) / steps:g} launches "
+              f"per step, {ms / max(1, len(evs)):.5f} ms per launch")
     return device_ms
 
 
@@ -1183,7 +1210,7 @@ def trace_training_steps(opt, card, step_ms, steps=3):
         torch.cuda.synchronize()
     report_trace(prof, steps, step_ms, card,
                  "ResNet-50 b128 bf16 training step (B1 on)", top_n=8,
-                 watch="residual_add_kernel")
+                 watch=("residual_add_kernel",))
 
 
 def cifar_step(device, policy):

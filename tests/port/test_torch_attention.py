@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _paged_emulation import paged_tiles
 from bigdl_tpu.ops.attention import attention_bias_from_padding
 from bigdl_tpu_torch.ops import attention as tattn
 from bigdl_tpu_torch.ops import flash_attention as tfa
@@ -256,3 +257,58 @@ def test_gather_kv_lanes_is_exact_data_movement():
     out = tfa.gather_kv_lanes(torch.from_numpy(pages), torch.from_numpy(pm))
     np.testing.assert_array_equal(out.numpy(), ref)
     np.testing.assert_array_equal(out.numpy()[0, :, 4:8], pages[0])
+
+
+# ---------------------------------------------- B3's tiled softmax ----
+# On the card B3 scores a slot's keys in 16-key tiles, one max and one
+# rescale per tile, deals the tiles round-robin to the warps of a block
+# (up to 8: as many as fit its shared memory, by D and the pools' dtype)
+# and merges the warps once, in order. The algorithm is emulated in torch
+# (_paged_emulation.py) under every warp count the kernel can take, and
+# held against the plain version and the JAX Pallas kernel. Tolerance
+# against the plain version 1e-6: both fp32, online against two-pass
+# softmax over <= 320 keys of O(1) values.
+
+PAGED_CASES = {
+    "fragmented": dict(seed=1),
+    "page-edges": dict(seed=6, n_phys=40, heads=2, ps=16, d=64, slots=4,
+                       ppn=2, positions=(0, 15, 16, 31)),
+    "one-page": dict(seed=3, n_phys=17, heads=4, ps=16, d=64, slots=2,
+                     ppn=1, positions=(0, 15)),
+    "long-lane": dict(seed=7, n_phys=40, heads=2, ps=16, d=32, slots=3,
+                      ppn=20, positions=(319, 200, 37)),
+    "odd-page": dict(seed=8, n_phys=30, heads=2, ps=3, d=5, slots=3, ppn=9,
+                     positions=(26, 2, 13)),
+    "blind-slot": dict(seed=9, positions=(-1, 5, 11, 0)),
+}
+
+
+@pytest.mark.parametrize("warps", range(1, 9))
+@pytest.mark.parametrize("case", PAGED_CASES.values(), ids=PAGED_CASES.keys())
+def test_paged_tiles_equal_plain(case, warps):
+    """Every tile of the lane has one owning warp: with 1 to 8 warps (fewer
+    and more than the lane's tiles) the merged result is the softmax over
+    every visible key, and a slot that sees no key outputs 0."""
+    tq, tk, tv, tm, tp = (torch.from_numpy(a) for a in _paged_case(**case))
+    got = paged_tiles(tq, tk, tv, tm, tp, tq.shape[-1] ** -0.5, warps)
+    want = tfa.paged_attention_reference(tq, tk, tv, tm, tp)
+    if case.get("positions", (0,))[0] < 0:   # a slot that sees no key: 0
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        got, want = got[1:], want[1:]
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_paged_tiles_match_pallas_interpret():
+    """The emulated algorithm against the JAX Pallas kernel (interpret
+    mode) at page edges 0, 15, 16, 31 over a 2-page lane, with a warp for
+    each tile (8 warps, as the kernel runs D = 64) and with one warp
+    walking both tiles, atol 2e-5."""
+    for positions in ((0, 16, 31), (15, 31, 16)):
+        arrays = _paged_case(seed=10, n_phys=33, heads=2, ps=16, d=64,
+                             slots=3, ppn=2, positions=positions)
+        (jq, jk, jv, jm, jp), (tq, tk, tv, tm, tp) = _both(*arrays)
+        ref = np.asarray(jfa.paged_flash_attention(jq, jk, jv, jm, jp,
+                                                   interpret=True))
+        for warps in (8, 1):
+            got = paged_tiles(tq, tk, tv, tm, tp, 0.125, warps)
+            np.testing.assert_allclose(got.numpy(), ref, atol=KERNEL_TOL)

@@ -481,6 +481,131 @@ def test_int8_engine_on_card_launches_b3_int8_and_equals_static(cuda):
     assert static == outs
 
 
+# (q dtype, pool dtype) pairs of B3 and B3-int8
+PAGED_PAIRS = DTYPES + [(torch.float32, torch.int8),
+                        (torch.bfloat16, torch.int8)]
+
+
+def _paged_inputs(cuda, qdt, kvdt, slots=8, heads=8, d=64, ps=16, ppn=16,
+                  positions=PAGE_EDGES, seed=3, offset=0):
+    """q, pools (with int8 scale pools) of slots * ppn + 1 pages, a
+    fragmented page map and positions; ``offset`` elements in front of
+    each pool's data (not 16-byte aligned when it is not a multiple of
+    16 bytes)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n_pages = slots * ppn + 1
+    pm = torch.randperm(slots * ppn, device=cuda, generator=g)
+    pm = pm.reshape(slots, ppn).to(torch.int32)
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    q = torch.randn(slots, heads, d, generator=g, device=cuda).to(qdt)
+    shape = (n_pages, heads, ps, d)
+    pools, scales = [], [None, None]
+    for i in range(2):
+        rows = torch.randn(n_pages * ps, heads, d, generator=g, device=cuda)
+        if kvdt == torch.int8:
+            rows, scale = int8.quantize_kv_rows(rows)
+            scales[i] = scale.reshape(n_pages, ps)
+            rows = rows.reshape(n_pages, ps, heads, d).transpose(1, 2)
+        buf = torch.empty(offset + math.prod(shape), dtype=kvdt, device=cuda)
+        pool = buf[offset:].view(shape)
+        pool.copy_(rows.reshape(shape) if kvdt != torch.int8 else rows)
+        pools.append(pool)
+    return q, pools[0], pools[1], pm, pos, scales[0], scales[1]
+
+
+def _paged(q, kp, vp, pm, pos, ks, vs):
+    return tfa.paged_flash_attention(q, kp, vp, pm, pos, k_scales=ks,
+                                     v_scales=vs)
+
+
+def _paged_err(*inputs):
+    out = _paged(*inputs)
+    ref = tfa.paged_attention_reference(*inputs[:5], k_scales=inputs[5],
+                                        v_scales=inputs[6])
+    torch.cuda.synchronize()
+    kvdt = inputs[1].dtype
+    assert out.dtype == (torch.float32 if kvdt == torch.int8
+                         else inputs[0].dtype)
+    tol = TOL[torch.float32 if kvdt == torch.int8 else kvdt]
+    return (out.float() - ref.float()).abs().max().item(), tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt, kvdt", PAGED_PAIRS)
+def test_paged_kernel_slot_is_invariant_bitwise(cuda, qdt, kvdt):
+    """A slot's output depends only on its own q, position, pages and
+    scales: alone, among 8 slots, and under a page map widened from 16 to
+    64 pages, bitwise the same."""
+    q, kp, vp, pm, pos, ks, vs = _paged_inputs(cuda, qdt, kvdt, ppn=64,
+                                               seed=4)
+    narrow = pm[:, :16].contiguous()
+    among = _paged(q, kp, vp, narrow, pos, ks, vs)
+    wide = _paged(q, kp, vp, pm, pos, ks, vs)
+    assert torch.equal(among, wide)
+    for slot in range(8):
+        alone = _paged(q[slot:slot + 1].contiguous(), kp, vp,
+                       narrow[slot:slot + 1].contiguous(),
+                       pos[slot:slot + 1].contiguous(), ks, vs)
+        assert torch.equal(alone[0], among[slot]), slot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt, kvdt", PAGED_PAIRS)
+def test_paged_kernel_is_deterministic_and_capturable(cuda, qdt, kvdt):
+    """10 launches on the same inputs give the same bits, and a launch
+    captured in a CUDA graph replays to them."""
+    inputs = _paged_inputs(cuda, qdt, kvdt, seed=5)
+    first = _paged(*inputs)
+    for _ in range(10):
+        assert torch.equal(_paged(*inputs), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _paged(*inputs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _paged(*inputs)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvdt", [torch.float32, torch.int8])
+@pytest.mark.parametrize("d", [1, 33, 64, 128, 256])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_paged_kernel_shapes(cuda, ps, d, kvdt):
+    """Page sizes 8/16/32 and head dims 1..256, over a 1024-key lane: a
+    slot at its end, slots at page edges, one blind slot (pos -1: 0)."""
+    positions = [1023, 0, ps - 1, ps, 511, -1, 100, 2 * ps - 1]
+    inputs = _paged_inputs(cuda, torch.float32, kvdt, d=d, ps=ps,
+                           ppn=1024 // ps, positions=positions, heads=2,
+                           seed=d + ps)
+    out = _paged(*inputs)
+    ref = tfa.paged_attention_reference(*inputs[:5], k_scales=inputs[5],
+                                        v_scales=inputs[6])
+    torch.cuda.synchronize()
+    # the plain version gives a blind slot the mean of V (a softmax over
+    # -1e9 everywhere); the kernel gives it 0, as the TPU kernel does
+    seen = inputs[4] >= 0
+    assert (out[seen] - ref[seen]).abs().max().item() < TOL[torch.float32]
+    assert torch.equal(out[~seen], torch.zeros_like(out[~seen]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt, kvdt", PAGED_PAIRS)
+@pytest.mark.parametrize("d, offset", [(64, 0), (64, 2), (36, 0), (37, 0)],
+                         ids=["aligned", "unaligned-ptr", "d36", "d37"])
+def test_paged_kernel_load_paths(cuda, qdt, kvdt, d, offset):
+    """16-byte async copies (a row of whole 16-byte chunks, aligned pools)
+    and the element-wise path (an odd head dim, or pools 2 elements past a
+    16-byte boundary)."""
+    err, tol = _paged_err(*_paged_inputs(cuda, qdt, kvdt, d=d,
+                                         offset=offset, seed=6))
+    assert err < tol, err
+
+
 # the residual adds of ResNet-50 at batch 128, one per stage
 RESNET50_ADDS = [(128, 256, 56, 56), (128, 512, 28, 28), (128, 1024, 14, 14),
                  (128, 2048, 7, 7)]

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _paged_emulation import paged_tiles
 
 from bigdl_tpu.nn import int8 as jint8
 from bigdl_tpu.nn.layers.linear import Linear as JaxLinear
@@ -254,6 +255,53 @@ def test_plain_int8_paged_attention_matches_jax_kernel():
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(kernel), atol=2e-5)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
+
+
+def test_int8_paged_tiles_match_jax_kernel():
+    """Kernel B3-int8's algorithm on the card (16-key tiles over the
+    block's warps, one max and one rescale per tile, rows dequantized
+    before the dots; ``_paged_emulation.py``) against the JAX Pallas
+    kernel in interpret mode at page edges 0, 3, 4 and 11 of a fragmented
+    3-page lane, with 8 warps (as the kernel runs every int8 head dim) and
+    with one warp, atol 2e-5."""
+    q, kp, vp, ks, vs, page_map, _ = _int8_pools(11)
+    positions = np.array([0, 3, 4, 11], np.int32)
+    args = [jnp.asarray(a) for a in (q, kp, vp, page_map, positions)]
+    ref = np.asarray(jfa.paged_flash_attention(
+        *args, interpret=True, k_scales=jnp.asarray(ks),
+        v_scales=jnp.asarray(vs)))
+    tq = _t(q)
+    for warps in (8, 1):
+        got = paged_tiles(tq, _t(kp), _t(vp), _t(page_map), _t(positions),
+                          8 ** -0.5, warps, k_scales=_t(ks), v_scales=_t(vs))
+        np.testing.assert_allclose(got.numpy(), ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("warps", range(1, 9))
+@pytest.mark.parametrize("ps, ppn, positions", [
+    (4, 3, (0, 3, 4, 11)), (16, 10, (159, 100, 16, 15)), (3, 9, (26, 2, 13, 0)),
+    (16, 1, (15, 0, 7, 9))], ids=["fragmented", "long-lane", "odd-page",
+                                  "one-page"])
+def test_int8_paged_tiles_equal_plain(ps, ppn, positions, warps):
+    """The same algorithm against the plain int8 version over longer lanes
+    (more tiles than warps), odd page sizes and a one-page lane; fp32
+    both, atol 2e-5 as against the JAX kernel (outputs up to ~13 in
+    magnitude: 127 x a scale of up to 0.1)."""
+    rng = np.random.RandomState(ps * ppn)
+    n_pages = 4 * ppn + 1
+    kp, vp = (rng.randint(-127, 128, (n_pages, 2, ps, 8)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = ((rng.rand(n_pages, ps) * 0.1).astype(np.float32)
+              for _ in range(2))
+    page_map = rng.permutation(4 * ppn).reshape(4, ppn).astype(np.int32)
+    q = _t(rng.randn(4, 2, 8).astype(np.float32))
+    args = (q, _t(kp), _t(vp), _t(page_map), _t(np.array(positions,
+                                                          np.int32)))
+    got = paged_tiles(*args, 8 ** -0.5, warps, k_scales=_t(ks),
+                      v_scales=_t(vs))
+    want = tfa.paged_attention_reference(*args, k_scales=_t(ks),
+                                         v_scales=_t(vs))
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
 
 
 def test_plain_int8_paged_attention_outputs_fp32_under_bf16_q():

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package.
 
-An AST scan of every module of ``bigdl_tpu_torch`` and of ``chip_smoke.py``
-(no subprocess: a fresh interpreter per check would make this a slow
+An AST scan of every module of ``bigdl_tpu_torch``, of the measurement
+scripts ``port_perf/*.py`` and of ``chip_smoke.py`` (no subprocess: a fresh interpreter per check would make this a slow
 test). It rejects ``jax``, ``jaxlib`` and anything else under a ``jax*``
 top-level name, and ``bigdl_tpu`` / ``bigdl_tpu.*`` — while accepting
 ``bigdl_tpu_torch``, which shares the ``bigdl_tpu`` prefix.
@@ -45,6 +45,7 @@ def forbidden_imports(source: str):
 
 def _port_sources():
     files = sorted((REPO / "bigdl_tpu_torch").rglob("*.py"))
+    files += sorted((REPO / "port_perf").glob("*.py"))
     files.append(REPO / "chip_smoke.py")
     return files
 
@@ -52,6 +53,7 @@ def _port_sources():
 def test_port_tree_is_scanned():
     files = _port_sources()
     assert (REPO / "chip_smoke.py").exists()
+    assert REPO / "port_perf" / "variants.py" in files
     assert len(files) >= 15, files
 
 
