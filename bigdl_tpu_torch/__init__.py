@@ -13,7 +13,10 @@ Ported so far: the paged greedy generation engine serving a decoder-only
 with kernels B2 (flash-attention forward) and B3 (paged decode attention);
 single-device training (``optim.optimizer``, ``optim.SGD``,
 ``dataset.DataSet.tensors``) of the ResNets in ``models.resnet``, with
-kernel B1 (the residual add) under ``BIGDL_RESIDUAL_ADD=pallas``.
+kernel B1 (the residual add) under ``BIGDL_RESIDUAL_ADD=pallas``, and of
+``nn.Transformer`` (language model, translation, untied head) with
+dropout keyed by ``core.threefry`` keys bit for bit as the JAX package
+keys it, and B2 with a gradient.
 """
 
 __version__ = "0.1.0"

@@ -1,18 +1,34 @@
-"""Host-side deterministic randomness (``bigdl_tpu/core/rng.py``
-counterpart, numpy half only).
+"""Deterministic randomness (``bigdl_tpu/core/rng.py`` counterpart).
 
 The JAX package's ``RandomGenerator`` wraps a numpy ``default_rng`` for
 host draws (shuffles, augmentation) beside a lazy threefry key for device
 code. The port keeps the numpy half bit for bit — one seed gives the same
 shuffle order in both packages — and draws device-side init from explicit
-``torch.Generator``s instead of keys.
+``torch.Generator``s instead of keys. The keyed draws that must match
+the JAX package's bits (dropout masks) come from the threefry keys of
+:mod:`~bigdl_tpu_torch.core.threefry`, re-exported here with the JAX
+module's key helpers ``fold_in_str``, ``threefry_key_data`` and
+``request_seed``.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import Optional
 
 import numpy as np
+
+from bigdl_tpu_torch.core.threefry import (  # noqa: F401  (re-exports)
+    Key,
+    bernoulli,
+    bits,
+    fold_in,
+    fold_in_str,
+    key,
+    key_data,
+    split,
+    uniform,
+)
 
 _M64 = (1 << 64) - 1
 
@@ -37,6 +53,22 @@ def np_rng(seed: int, index: int = 0, stream: int = 0) -> np.random.Generator:
     if index or stream:
         seed = element_seed(seed, index, stream)
     return np.random.default_rng(int(seed))
+
+
+def threefry_key_data(seed: int) -> np.ndarray:
+    """The ``(2,)`` uint32 words ``[seed >> 32, seed & 0xFFFFFFFF]`` (both
+    masked to 32 bits): the JAX package's host-side key words of a
+    per-slot sampling seed."""
+    seed = int(seed)
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                    np.uint32)
+
+
+def request_seed(base_seed: int, payload: bytes, stream: int = 0) -> int:
+    """Per-request seed from an engine's ``base_seed`` and the request's
+    identifying bytes: :func:`element_seed` with the payload's crc32 as
+    the index, so the seed depends on the request's content alone."""
+    return element_seed(base_seed, zlib.crc32(payload), stream)
 
 
 class RandomGenerator:

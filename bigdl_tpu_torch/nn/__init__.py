@@ -9,6 +9,7 @@ from bigdl_tpu_torch.nn.containers import (
 from bigdl_tpu_torch.nn.criterion import (
     ClassNLLCriterion,
     CrossEntropyCriterion,
+    TimeDistributedCriterion,
 )
 from bigdl_tpu_torch.nn.layers.activation import ReLU
 from bigdl_tpu_torch.nn.layers.attention import (
@@ -20,6 +21,7 @@ from bigdl_tpu_torch.nn.layers.attention import (
 )
 from bigdl_tpu_torch.nn.layers.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.layers.dropout import Dropout
+from bigdl_tpu_torch.nn.layers.embedding import LookupTable
 from bigdl_tpu_torch.nn.layers.linear import Identity, Linear
 from bigdl_tpu_torch.nn.layers.norm import (
     BatchNormalization,
@@ -39,7 +41,8 @@ __all__ = ["Attention", "BatchNormalization", "CAddTable",
            "ClassNLLCriterion", "ConcatTable", "Container", "Criterion",
            "CrossEntropyCriterion", "Dropout", "FeedForwardNetwork",
            "GlobalAveragePooling2D", "Identity", "LayerNormalization",
-           "Linear", "Padding", "ReLU", "Sequential", "SpatialAveragePooling",
-           "SpatialBatchNormalization", "SpatialConvolution",
-           "SpatialMaxPooling", "Transformer", "TransformerLayer", "named",
-           "position_encoding"]
+           "Linear", "LookupTable", "Padding", "ReLU", "Sequential",
+           "SpatialAveragePooling", "SpatialBatchNormalization",
+           "SpatialConvolution", "SpatialMaxPooling",
+           "TimeDistributedCriterion", "Transformer", "TransformerLayer",
+           "named", "position_encoding"]

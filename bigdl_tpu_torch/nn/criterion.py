@@ -1,6 +1,6 @@
-"""Criterions (``bigdl_tpu/nn/criterion.py``): ``ClassNLLCriterion`` and
-``CrossEntropyCriterion``. Class labels are 0-based integers, as in the
-JAX package."""
+"""Criterions (``bigdl_tpu/nn/criterion.py``): ``ClassNLLCriterion``,
+``CrossEntropyCriterion`` and ``TimeDistributedCriterion``. Class labels
+are 0-based integers, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -28,7 +28,9 @@ class ClassNLLCriterion(Criterion):
         t = target.long()
         picked = torch.gather(logp, -1, t[..., None])[..., 0]
         if self.weights is not None:
-            w = torch.as_tensor(self.weights, device=logp.device)[t]
+            # fp32 whatever the caller's dtype, as ``jnp.take`` gives them
+            w = torch.as_tensor(self.weights, dtype=torch.float32,
+                                device=logp.device)[t]
             total = -torch.sum(picked * w)
             return total / torch.sum(w) if self.size_average else total
         return torch.mean(-picked) if self.size_average \
@@ -46,3 +48,29 @@ class CrossEntropyCriterion(Criterion):
 
     def forward(self, output, target):
         return self.inner.forward(torch.log_softmax(output, dim=-1), target)
+
+
+class TimeDistributedCriterion(Criterion):
+    """``criterion`` at every step of a (batch, time, ...) output: the sum
+    over the steps of ``criterion(output_t, target_t)``, or their mean with
+    ``size_average``. Computed as the JAX package computes it: one call on
+    the output flattened over (batch, time), times the number of steps
+    when ``criterion`` averages, divided by it with ``size_average``."""
+
+    def __init__(self, criterion: Criterion, size_average: bool = False,
+                 dimension: int = 1):
+        self.criterion = criterion
+        self.size_average = size_average
+        self.dimension = dimension
+
+    def forward(self, output, target):
+        steps = output.shape[self.dimension]
+        o = torch.movedim(output, self.dimension, 1)
+        t = torch.movedim(target, self.dimension, 1) \
+            if target.dim() >= 2 else target
+        flat = self.criterion.forward(o.reshape((-1,) + o.shape[2:]),
+                                      t.reshape((-1,) + t.shape[2:])
+                                      if t.dim() >= 2 else t)
+        total = flat * steps if getattr(self.criterion, "size_average",
+                                        True) else flat
+        return total / steps if self.size_average else total

@@ -1,6 +1,7 @@
 """Transformer tier (``bigdl_tpu/nn/layers/attention.py``): multi-head
-attention, FFN, pre-norm transformer layer, and the decoder-only language
-model with its paged KV-cache step API.
+self- and cross-attention, FFN, pre-norm transformer layer, and the
+``Transformer`` in its two modes — the decoder-only language model, with
+its paged KV-cache step API, and the encoder-decoder translation model.
 
 Child modules carry the JAX package's module-path names, so a parameter's
 dotted name here (``decoder_0.self_attention.inner.q_layer.weight``) is
@@ -14,11 +15,16 @@ differences from the JAX code:
   functionally: the port keeps one pool per layer for the engine's
   lifetime and never copies it, which is the memory the JAX package
   recovers by donating the cache to every jitted call;
-- this slice ports the language-model paged path only: the full causal
-  forward, ``init_paged_cache``, ``prefill_paged`` (prompt chunks) and
+- the step API ported is the language model's paged one:
+  ``init_paged_cache``, ``prefill_paged`` (prompt chunks) and
   ``decode_step_paged`` (one token per slot, no external bias), with
-  float or int8 pools. The dense slot-table cache, the speculative verify
-  step and translation mode come with later slices.
+  float or int8 pools. The dense slot-table cache and the speculative
+  verify step come with later slices.
+
+In training mode the forward takes a threefry key (``model(ids,
+rng=key)``); every dropout draws its mask from it under its JAX module
+path and the forward's draw count, so the masks are the JAX package's
+(``nn.module.RngContext``).
 """
 
 from __future__ import annotations
@@ -39,7 +45,12 @@ from bigdl_tpu_torch.nn.int8 import (
 from bigdl_tpu_torch.nn.layers.dropout import Dropout
 from bigdl_tpu_torch.nn.layers.linear import Linear
 from bigdl_tpu_torch.nn.layers.norm import LayerNormalization
-from bigdl_tpu_torch.ops.attention import dot_product_attention, paged_attention
+from bigdl_tpu_torch.nn.module import RngContext, draw_key
+from bigdl_tpu_torch.ops.attention import (
+    attention_bias_from_padding,
+    dot_product_attention,
+    paged_attention,
+)
 from bigdl_tpu_torch.ops.flash_attention import (
     gather_kv_lanes,
     gather_scale_lanes,
@@ -67,8 +78,10 @@ def position_encoding(length: int, hidden_size: int,
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with bias-free q/k/v/output projections
-    (reference ``Attention.scala:35``)."""
+    """Multi-head attention with bias-free q/k/v/output projections
+    (reference ``Attention.scala:35``): self-attention over ``x``, or
+    cross-attention over ``(x, y)`` (queries from ``x``, keys and values
+    from ``y``)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  attention_dropout: float = 0.0, *, device: DeviceLike = None,
@@ -100,14 +113,17 @@ class Attention(nn.Module):
 
     def forward(self, x, bias: Optional[torch.Tensor] = None,
                 causal: bool = False, cache_index=None, paged=None,
-                write_len: Optional[int] = None):
+                write_len: Optional[int] = None, rng=None):
+        x, y = x if isinstance(x, (tuple, list)) else (x, x)
         q = self._split_heads(self.q_layer(x))
-        k = self._split_heads(self.k_layer(x))
-        v = self._split_heads(self.v_layer(x))
-        drop = self.attention_dropout if self.training else 0.0
+        k = self._split_heads(self.k_layer(y))
+        v = self._split_heads(self.v_layer(y))
         if paged is None:
+            drop = self.attention_dropout if self.training else 0.0
+            key = (draw_key(RngContext.of(rng, self), self) if drop > 0.0
+                   else None)
             out = dot_product_attention(q, k, v, bias, causal=causal,
-                                        dropout_rate=drop)
+                                        dropout_rate=drop, dropout_key=key)
             return self.output_layer(self._join_heads(out))
 
         # Block-table KV cache: pools "k"/"v" (num_pages, H, page_size, D)
@@ -197,12 +213,15 @@ class FeedForwardNetwork(nn.Module):
         self.output_layer = Linear(filter_size, hidden_size, device=device,
                                    generator=gen)
 
-    def forward(self, x):
-        return self.output_layer(self.drop(torch.relu(self.filter_layer(x))))
+    def forward(self, x, rng=None):
+        return self.output_layer(self.drop(torch.relu(self.filter_layer(x)),
+                                           rng=rng))
 
 
 class _SubLayer(nn.Module):
-    """Pre/post-processing wrapper: LayerNorm -> fn -> dropout -> +residual."""
+    """Pre/post-processing wrapper: LayerNorm -> fn -> dropout -> +residual.
+    A ``(x, y)`` input (cross-attention) normalises and adds back ``x``
+    only."""
 
     def __init__(self, inner: nn.Module, hidden_size: int, dropout: float, *,
                  device: DeviceLike = None):
@@ -211,51 +230,84 @@ class _SubLayer(nn.Module):
         self.inner = inner
         self.drop = Dropout(dropout)
 
-    def forward(self, x, **kw):
-        out = self.inner(self.norm(x), **kw)
+    def forward(self, x, rng=None, **kw):
+        if isinstance(x, (tuple, list)):
+            residual, y = x
+            out = self.inner((self.norm(residual), y), rng=rng, **kw)
+        else:
+            residual = x
+            out = self.inner(self.norm(x), rng=rng, **kw)
         cache = None
         if isinstance(out, tuple):
             out, cache = out
-        out = x + self.drop(out).to(x.dtype)
+        out = residual + self.drop(out, rng=rng).to(residual.dtype)
         return (out, cache) if cache is not None else out
 
 
 class TransformerLayer(nn.Module):
-    """One pre-norm block: self-attention + FFN (decoder-only)."""
+    """One pre-norm block: self-attention (+ cross-attention over an
+    encoder's output, in a translation decoder) + FFN."""
 
     def __init__(self, hidden_size: int, num_heads: int, filter_size: int,
                  attention_dropout: float = 0.0, ffn_dropout: float = 0.0,
-                 residual_dropout: float = 0.0, *, device: DeviceLike = None,
+                 residual_dropout: float = 0.0, cross_attention: bool = False,
+                 *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         gen = default_generator(generator)
-        self.self_attention = _SubLayer(
-            Attention(hidden_size, num_heads, attention_dropout,
-                      device=device, generator=gen),
-            hidden_size, residual_dropout, device=device)
-        self.ffn = _SubLayer(
-            FeedForwardNetwork(hidden_size, filter_size, ffn_dropout,
-                               device=device, generator=gen),
-            hidden_size, residual_dropout, device=device)
 
-    def forward(self, x, bias=None, causal=False, cache_index=None,
-                paged=None, write_len=None):
+        def sublayer(inner):
+            return _SubLayer(inner, hidden_size, residual_dropout,
+                             device=device)
+
+        def attention():
+            return Attention(hidden_size, num_heads, attention_dropout,
+                             device=device, generator=gen)
+
+        self.self_attention = sublayer(attention())
+        if cross_attention:
+            self.cross_attention = sublayer(attention())
+        self.ffn = sublayer(FeedForwardNetwork(
+            hidden_size, filter_size, ffn_dropout, device=device,
+            generator=gen))
+
+    def forward(self, x, bias=None, causal=False, encoder_output=None,
+                encoder_bias=None, cache_index=None, paged=None,
+                write_len=None, rng=None):
         out = self.self_attention(x, bias=bias, causal=causal,
                                   cache_index=cache_index, paged=paged,
-                                  write_len=write_len)
+                                  write_len=write_len, rng=rng)
         new_cache = None
         if isinstance(out, tuple):
             out, new_cache = out
-        out = self.ffn(out)
+        if encoder_output is not None and "cross_attention" in self._modules:
+            out = self.cross_attention((out, encoder_output),
+                                       bias=encoder_bias, rng=rng)
+        out = self.ffn(out, rng=rng)
         return (out, new_cache) if new_cache is not None else out
 
 
+LANGUAGE_MODEL = "language_model"
+TRANSLATION = "translation"
+
+
 class Transformer(nn.Module):
-    """Decoder-only transformer language model (reference
-    ``DL/nn/Transformer.scala:53``, ``language_model`` mode with shared
-    embedding/output weights): token ids (B, S) -> logits (B, S, vocab).
-    The embedding is scaled by sqrt(hidden). Translation mode and an
-    untied output projection come with the training slice.
+    """Transformer (reference ``DL/nn/Transformer.scala:53``). The
+    embedding is scaled by sqrt(hidden) and, with
+    ``with_share_weights_linear``, is the output projection too; otherwise
+    a bias-free ``project`` Linear is. ``embedding_dropout`` also drops
+    each sublayer's output before its residual add.
+
+    - ``transformer_type="language_model"``: decoder-only causal LM, token
+      ids (B, S) -> logits (B, S, vocab).
+    - ``"translation"``: encoder-decoder over ``(src_ids, tgt_ids)`` ->
+      logits (B, S_tgt, vocab). Source tokens equal to ``padding_value``
+      are masked out of the encoder's self-attention and of every
+      decoder layer's cross-attention.
+
+    ``forward(x, rng=key)`` in training mode draws every dropout mask
+    from the threefry ``key`` as the JAX package's ``apply(..., rng=key)``
+    does.
 
     ``device=None`` means ``"cuda"`` (raises without a card). Weights are
     drawn from ``generator`` (a seeded CPU ``torch.Generator``; default
@@ -267,22 +319,40 @@ class Transformer(nn.Module):
                  filter_size: int, num_hidden_layers: int,
                  embedding_dropout: float = 0.0,
                  attention_dropout: float = 0.0, ffn_dropout: float = 0.0,
+                 padding_value: int = 0,
+                 with_share_weights_linear: bool = True,
+                 transformer_type: str = LANGUAGE_MODEL,
                  *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if transformer_type not in (LANGUAGE_MODEL, TRANSLATION):
+            raise ValueError(f"transformer_type {transformer_type!r}: "
+                             f"{LANGUAGE_MODEL!r} or {TRANSLATION!r}")
         device = resolve_device(device)
         gen = default_generator(generator)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_heads = num_heads
         self.num_hidden_layers = num_hidden_layers
+        self.padding_value = padding_value
+        self.transformer_type = transformer_type
         self.embed_drop = Dropout(embedding_dropout)
-        for i in range(num_hidden_layers):
-            self.add_module(f"decoder_{i}", TransformerLayer(
-                hidden_size, num_heads, filter_size, attention_dropout,
-                ffn_dropout, residual_dropout=embedding_dropout,
-                device=device, generator=gen))
+
+        def stack(prefix, cross):
+            for i in range(num_hidden_layers):
+                self.add_module(f"{prefix}{i}", TransformerLayer(
+                    hidden_size, num_heads, filter_size, attention_dropout,
+                    ffn_dropout, residual_dropout=embedding_dropout,
+                    cross_attention=cross, device=device, generator=gen))
+
+        if transformer_type == TRANSLATION:
+            stack("encoder_", False)
+            self.src_norm = LayerNormalization(hidden_size, device=device)
+        stack("decoder_", transformer_type == TRANSLATION)
         self.final_norm = LayerNormalization(hidden_size, device=device)
+        if not with_share_weights_linear:
+            self.project = Linear(hidden_size, vocab_size, with_bias=False,
+                                  device=device, generator=gen)
         emb = RandomNormal(0.0, hidden_size ** -0.5)(
             gen, (vocab_size, hidden_size), vocab_size, hidden_size)
         self.embedding = nn.Parameter(emb.to(device))
@@ -301,11 +371,16 @@ class Transformer(nn.Module):
             self._pe[key] = pe
         return pe
 
-    def _decoders(self):
+    def _stack(self, prefix: str):
         return [(n, m) for n, m in self.named_children()
-                if n.startswith("decoder_")]
+                if n.startswith(prefix)]
+
+    def _decoders(self):
+        return self._stack("decoder_")
 
     def _logits(self, h):
+        if "project" in self._modules:
+            return self.project(h)
         if "embedding_q" in self._parameters:
             # int8 lm head (quantize_for_serving): the float embedding
             # keeps doing the lookups
@@ -315,14 +390,32 @@ class Transformer(nn.Module):
     def _as_ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(ids, device=self.device).long()
 
-    def forward(self, ids) -> torch.Tensor:
-        ids = self._as_ids(ids)
+    def _embed(self, ids, rng):
         x = self.embedding[ids] * (self.hidden_size ** 0.5)
         x = x + self._positions(ids.shape[1], x.dtype)[None]
-        h = self.embed_drop(x)
+        return self.embed_drop(x, rng=rng)
+
+    def forward(self, x, rng=None) -> torch.Tensor:
+        """Token ids (B, S) (language model) or ``(src_ids, tgt_ids)``
+        (translation) -> logits. ``rng``: the threefry key of a training
+        forward with dropout."""
+        rng = RngContext.of(rng, self)
+        if self.transformer_type == LANGUAGE_MODEL:
+            h = self._embed(self._as_ids(x), rng)
+            for _, layer in self._decoders():
+                h = layer(h, causal=True, rng=rng)
+            return self._logits(self.final_norm(h))
+        src, tgt = (self._as_ids(ids) for ids in x)
+        src_bias = attention_bias_from_padding(src == self.padding_value)
+        enc = self._embed(src, rng)
+        for _, layer in self._stack("encoder_"):
+            enc = layer(enc, bias=src_bias, rng=rng)
+        enc = self.src_norm(enc)
+        dec = self._embed(tgt, rng)
         for _, layer in self._decoders():
-            h = layer(h, causal=True)
-        return self._logits(self.final_norm(h))
+            dec = layer(dec, causal=True, encoder_output=enc,
+                        encoder_bias=src_bias, rng=rng)
+        return self._logits(self.final_norm(dec))
 
     # ------------------------------------------------- paged decoding ----
     # The serving step API: a shared pool of fixed-size KV pages per layer
@@ -336,6 +429,9 @@ class Transformer(nn.Module):
         model's device. ``dtype=torch.int8`` stores the pages int8 with
         per-token fp32 scale pools of shape ``(num_pages, page_size)``
         beside them: ``{layer: (K, V, K_scale, V_scale)}``."""
+        if self.transformer_type != LANGUAGE_MODEL:
+            raise ValueError("incremental decoding needs a language_model "
+                             "transformer (decoder-only)")
         head_dim = self.hidden_size // self.num_heads
         shape = (num_pages, self.num_heads, page_size, head_dim)
 

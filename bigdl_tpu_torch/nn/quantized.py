@@ -11,7 +11,9 @@ module, and the copy's parameter names are that tree's paths, so
   drops ``weight`` and holds ``weight_q`` (int8, (out, in)) and ``scale``
   (fp32, (out,)), plus its ``bias`` in fp32 if it has one;
 - the ``Transformer`` root keeps its float ``embedding`` for the lookups
-  and gains ``embedding_q`` + ``lm_scale``, the int8 lm head.
+  and, when the embedding is also the lm head, gains ``embedding_q`` +
+  ``lm_scale``, the int8 head (an untied model's head is its ``project``
+  Linear, quantized as the others).
 
 ``Linear.forward`` and ``Transformer._logits`` see the quantized
 parameters and run :func:`~bigdl_tpu_torch.nn.int8.int8_linear`. The
@@ -52,7 +54,9 @@ def quantize_for_serving(model: nn.Module) -> nn.Module:
             if module.bias is not None:
                 module.bias = nn.Parameter(module.bias.detach().float())
     emb = model._parameters.get("embedding")
-    if emb is not None and emb.dim() == 2:
+    # the shared-embedding head only: an untied model's head is its
+    # ``project`` Linear, quantized above
+    if emb is not None and emb.dim() == 2 and "project" not in model._modules:
         eq, es = _int8.quantize_weight(emb.detach())
         model.embedding_q = _frozen(eq)
         model.lm_scale = _frozen(es)

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from bigdl_tpu_torch.core.threefry import Key
 from bigdl_tpu_torch.ops import flash_attention as _fa
 
 _NEG = -1e9
@@ -61,16 +62,17 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = False,
                           sm_scale: Optional[float] = None,
                           dropout_rate: float = 0.0,
+                          dropout_key: Optional[Key] = None,
                           use_flash: Optional[bool] = None) -> torch.Tensor:
     """Attention over (B, H, S, D) tensors. ``use_flash=None``/``True``:
     kernel B2 for CUDA tensors (any sequence lengths — the kernel masks
     ragged edges itself), its plain version for CPU tensors; ``False``:
-    the plain version everywhere."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is training-only and comes with the port's "
-            "training slice")
-    if use_flash is False:
-        return _fa.plain_attention(q, k, v, bias, sm_scale, causal)
+    the plain version everywhere. Attention dropout (``dropout_rate`` > 0,
+    training only, under ``dropout_key``) takes the plain version on every
+    device, as the JAX package sends it to XLA: the mask sits inside the
+    probabilities, which the fused kernel never holds."""
+    if use_flash is False or dropout_rate > 0.0:
+        return _fa.plain_attention(q, k, v, bias, sm_scale, causal,
+                                   dropout_rate, dropout_key)
     return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                bias, sm_scale, causal)

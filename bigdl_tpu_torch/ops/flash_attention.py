@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from bigdl_tpu_torch.core.threefry import Key, dropout
 from bigdl_tpu_torch.ops import cuda_lib
 
 _NEG_INF = -1e30
@@ -42,10 +43,13 @@ MAX_SPLITS = 8
 
 
 def plain_attention(q, k, v, bias=None, sm_scale: Optional[float] = None,
-                    causal: bool = False) -> torch.Tensor:
+                    causal: bool = False, dropout_rate: float = 0.0,
+                    dropout_key: Optional[Key] = None) -> torch.Tensor:
     """The plain version of B2: ``_xla_attention`` in PyTorch. Scores and
     softmax in fp32; the causal mask is END-aligned (query row i sees key
-    cols j <= i + Sk - Sq), masked scores set to -1e30."""
+    cols j <= i + Sk - Sq), masked scores set to -1e30. With
+    ``dropout_rate`` > 0 the probabilities go through the JAX package's
+    dropout under ``dropout_key``, a mask at their (B, H, Sq, Sk) shape."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
@@ -56,6 +60,10 @@ def plain_attention(q, k, v, bias=None, sm_scale: Optional[float] = None,
                           device=s.device).tril(klen - qlen)
         s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if dropout_rate > 0.0:
+        if dropout_key is None:
+            raise ValueError("attention dropout needs dropout_key")
+        p = dropout(p, dropout_rate, dropout_key)
     return torch.matmul(p.to(v.dtype), v)
 
 
@@ -205,42 +213,45 @@ def _launch_flash(q, k, v, bias, scale: float, causal: bool) -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the B2 kernel. Backward: autograd through the plain
-    version (recompute), as the JAX package's ``_vjp_bwd`` differentiates
-    the XLA recompute rather than a Pallas backward."""
+    """B2 with a gradient. Forward: the kernel for CUDA tensors, its plain
+    version for CPU tensors. Backward: autograd through a recompute of the
+    plain version, as the JAX package's ``_vjp_bwd`` differentiates the XLA
+    recompute rather than a Pallas backward; ``bias`` gets its gradient
+    too, in its own (broadcast) shape."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, causal):
         ctx.save_for_backward(q, k, v, bias)
         ctx.scale, ctx.causal = scale, causal
+        if q.device.type == "cpu":
+            return plain_attention(q, k, v, bias, scale, causal)
         return _launch_flash(q, k, v, bias, scale, causal)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias = ctx.saved_tensors
-        inputs = [q, k, v, bias]
         with torch.enable_grad():
             leaves = [None if t is None else t.detach().requires_grad_(need)
-                      for t, need in zip(inputs, ctx.needs_input_grad[:4])]
-            out = plain_attention(leaves[0], leaves[1], leaves[2], leaves[3],
-                                  ctx.scale, ctx.causal).to(g.dtype)
+                      for t, need in zip((q, k, v, bias),
+                                         ctx.needs_input_grad[:4])]
+            out = plain_attention(*leaves, ctx.scale, ctx.causal).to(g.dtype)
             wanted = [t for t in leaves if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, g)) if wanted else iter(())
-        return tuple(next(grads) if t is not None and t.requires_grad else None
-                     for t in leaves) + (None, None)
+            grads = iter(torch.autograd.grad(out, wanted, g) if wanted
+                         else ())
+        return tuple(next(grads) if t is not None and t.requires_grad
+                     else None for t in leaves) + (None, None)
 
 
 def flash_attention(q, k, v, bias=None, sm_scale: Optional[float] = None,
                     causal: bool = False) -> torch.Tensor:
-    """Fused online-softmax attention (kernel B2). q (B,H,Sq,D), k/v
-    (B,H,Sk,D), optional additive bias broadcastable to (B,H,Sq,Sk).
-    CPU tensors take :func:`plain_attention`; CUDA tensors launch the
-    kernel, which takes float32 or bfloat16 (bf16 K/V may sit under fp32
-    q), any Sq/Sk, D <= 256 and contiguous q/k/v, and returns q's dtype
-    (anything else raises)."""
+    """Fused online-softmax attention (kernel B2), differentiable in q, k,
+    v and bias. q (B,H,Sq,D), k/v (B,H,Sk,D), optional additive bias
+    broadcastable to (B,H,Sq,Sk). CPU tensors take :func:`plain_attention`;
+    CUDA tensors launch the kernel, which takes float32 or bfloat16 (bf16
+    K/V may sit under fp32 q), any Sq/Sk, D <= 256 and contiguous q/k/v,
+    and returns q's dtype (anything else raises)."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-    if _device_kind(q, k, v, bias) == "cpu":
-        return plain_attention(q, k, v, bias, scale, causal)
+    _device_kind(q, k, v, bias)
     return _FlashAttention.apply(q, k, v, bias, scale, causal)
 
 

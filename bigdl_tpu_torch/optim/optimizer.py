@@ -2,12 +2,16 @@
 ``LocalOptimizer`` and the ``optimizer()`` factory, single device.
 
 One step: cast the input to the policy's compute dtype, run the model in
-training mode (BN updates its running statistics), cast the output to
-fp32, take the criterion's loss, differentiate it with autograd and apply
-the optim method. The loop keeps the JAX package's ``TrainingState``
-accounting — ``end_when`` checked before each step and again at an epoch's
-end, epochs counted by records processed — and logs the loss, the learning
-rate and the throughput. Each log record also carries ``loss`` and
+training mode (BN updates its running statistics; a model whose forward
+takes ``rng`` draws its dropout masks from the step's key), cast the
+output to fp32, take the criterion's loss, differentiate it with autograd
+and apply the optim method. The keys are the JAX loop's: the loop holds
+``key(config.seed)``, takes one split where the JAX loop initialises its
+params (the port's model arrives initialised) and one before each step.
+The loop keeps the JAX package's ``TrainingState`` accounting —
+``end_when`` checked before each step and again at an epoch's end, epochs
+counted by records processed — and logs the loss, the learning rate and
+the throughput. Each log record also carries ``loss`` and
 ``step_seconds`` as named attributes, for readers that need the numbers
 rather than the text. The device is the model's; the batch for the
 next step is fetched and copied while the current step runs on the card.
@@ -20,6 +24,7 @@ trainer (ROADMAP A.6).
 
 from __future__ import annotations
 
+import inspect
 import logging
 import time
 from typing import Optional
@@ -28,6 +33,7 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch.core.config import EngineConfig
+from bigdl_tpu_torch.core.threefry import Key, key, split
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.prefetch import device_prefetch
 from bigdl_tpu_torch.nn.module import Criterion
@@ -61,6 +67,9 @@ class Optimizer:
         self.state = TrainingState()
         self.metrics = Metrics()
         self._optim_state = None
+        # the JAX loop splits its root key once to initialise the params
+        self._rng, _ = split(key(self.config.seed))
+        self._keyed = "rng" in inspect.signature(model.forward).parameters
 
     # ------------------------------------------------ builder setters ----
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
@@ -94,11 +103,12 @@ class Optimizer:
             self._optim_state = self.optim_method.init_state(
                 dict(self.model.named_parameters()))
 
-    def _step(self, x, y, epoch: int) -> torch.Tensor:
+    def _step(self, x, y, epoch: int, step_key: Key) -> torch.Tensor:
         """One training step; returns the loss tensor (not synchronised)."""
         params = dict(self.model.named_parameters())
         self.model.train()
-        out = self.model(self.config.dtypes.cast_compute(x))
+        x = self.config.dtypes.cast_compute(x)
+        out = self.model(x, rng=step_key) if self._keyed else self.model(x)
         loss = self.criterion.forward(out.float(), y)
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True, materialize_grads=True)
@@ -126,7 +136,8 @@ class Optimizer:
                 break
             t0 = time.time()
             x, y = batch
-            loss = self._step(x, y, state.epoch)
+            self._rng, step_key = split(self._rng)
+            loss = self._step(x, y, state.epoch, step_key)
             # fetch and copy the next batch while this step runs
             batch = next(stream, None)
             loss = float(loss)

@@ -261,10 +261,18 @@ class _Core:
     request bookkeeping only, so the loop can fail every stream and exit
     even after the facade (model, cache) has been collected."""
 
-    __slots__ = ("cond", "pending", "active", "free", "closed", "drain")
+    __slots__ = ("lock", "wake", "pending", "active", "free", "closed",
+                 "drain")
 
     def __init__(self, max_slots: int):
-        self.cond = threading.Condition()
+        self.lock = threading.RLock()
+        # the idle loop blocks on this; submit, close and the engine's
+        # collection each put one token. ``SimpleQueue.put`` takes no
+        # Python-level lock, so the collection's finalizer, which the
+        # garbage collector may run on any thread at any allocation (one
+        # made while that thread holds some lock included), can wake the
+        # loop without acquiring a lock there
+        self.wake: "_queue.SimpleQueue[None]" = _queue.SimpleQueue()
         self.pending: "deque[_GenRequest]" = deque()
         self.active: Dict[int, _SlotState] = {}
         self.free: List[int] = list(range(max_slots))
@@ -277,7 +285,7 @@ def _fail_streams(core: _Core, error: BaseException,
     """Fail every pending/active stream; with the engine still alive,
     return the active slots' pages to the pool. Called only from the loop
     thread or after it has exited."""
-    with core.cond:
+    with core.lock:
         reqs = list(core.pending) + [s.req for s in core.active.values()]
         states = list(core.active.items())
         core.pending.clear()
@@ -298,13 +306,12 @@ def _engine_loop(engine_ref: "weakref.ref[GenerationEngine]",
     """Loop thread body. Holds only a weak ref to the engine while idle,
     so an engine whose owner forgot ``close()`` is collectable."""
     while True:
-        with core.cond:
-            while not core.pending and not core.active and not core.closed:
-                if engine_ref() is None:
-                    break
-                core.cond.wait()   # submit, close and GC all notify
-                if engine_ref() is None:
-                    break
+        with core.lock:
+            idle = not core.pending and not core.active and not core.closed
+        if idle and engine_ref() is not None:
+            core.wake.get()   # submit, close and GC each put a token
+            continue
+        with core.lock:
             if core.closed:
                 if not core.drain:
                     _fail_streams(core, RuntimeError(
@@ -333,9 +340,9 @@ def _engine_loop(engine_ref: "weakref.ref[GenerationEngine]",
 
 def _notify_core(core: _Core) -> None:
     """``weakref.finalize`` hook: wake the idle loop when the engine is
-    collected, so it observes the dead weakref and exits."""
-    with core.cond:
-        core.cond.notify_all()
+    collected, so it observes the dead weakref and exits. Takes no lock:
+    see ``_Core.wake``."""
+    core.wake.put(None)
 
 
 class GenerationEngine:
@@ -447,7 +454,7 @@ class GenerationEngine:
                           None if deadline is None
                           else stream.t_submit + float(deadline), stream)
         core = self._core
-        with core.cond:
+        with core.lock:
             if self._failed is not None:
                 raise RuntimeError(
                     "generation engine stopped after a step failure"
@@ -458,7 +465,7 @@ class GenerationEngine:
                 self.metrics.record_rejected()
                 raise Overloaded(len(core.pending), self.max_queue)
             core.pending.append(req)
-            core.cond.notify_all()
+            core.wake.put(None)
         return stream
 
     def generate(self, prompt: Sequence[int], *,
@@ -480,7 +487,7 @@ class GenerationEngine:
         slot."""
         core = self._core
         self._admit_and_prefill()
-        with core.cond:
+        with core.lock:
             active = sorted((s, st) for s, st in core.active.items()
                             if st.phase == "decode")
         if active:
@@ -495,7 +502,7 @@ class GenerationEngine:
     def _admit_and_prefill(self) -> None:
         core = self._core
         while True:
-            with core.cond:
+            with core.lock:
                 if not core.pending or not core.free:
                     break
                 if not self._pool.can_reserve(
@@ -503,7 +510,7 @@ class GenerationEngine:
                     break   # page pressure delays the FIFO head, never reorders
                 req = core.pending.popleft()
             self._admit_paged(req)
-        with core.cond:
+        with core.lock:
             prefilling = sorted((s, st) for s, st in core.active.items()
                                 if st.phase == "prefill")
         for slot, st in prefilling:
@@ -520,7 +527,7 @@ class GenerationEngine:
             self._finish_request(req, why)
             return
         core = self._core
-        with core.cond:
+        with core.lock:
             core.free.sort()
             slot = core.free.pop(0)
         pages = self._pool.alloc(self._pages_needed(req))
@@ -528,7 +535,7 @@ class GenerationEngine:
                       np.int32)
         row[:len(pages)] = pages
         st = _SlotState(req, pages, row, self.pad_id)
-        with core.cond:
+        with core.lock:
             core.active[slot] = st
         self._report_pages()
 
@@ -605,7 +612,7 @@ class GenerationEngine:
         page so the next decode step can neither read nor clobber a page
         the next owner gets."""
         core = self._core
-        with core.cond:
+        with core.lock:
             core.active.pop(slot, None)
             core.free.append(slot)
         self._pool.release(st.pages or ())
@@ -657,7 +664,7 @@ class GenerationEngine:
         chunked) and every prompt bucket once, before traffic. Every write
         goes to the trash page. Must run before the first submit."""
         core = self._core
-        with core.cond:
+        with core.lock:
             if core.pending or core.active:
                 raise RuntimeError("warmup() must run before traffic")
         trash_row = np.full((self._pool.pages_per_slot,), self._pool.trash,
@@ -684,10 +691,10 @@ class GenerationEngine:
         until every pending and in-flight stream finishes, otherwise they
         fail with ``RuntimeError``. Joins the loop thread."""
         core = self._core
-        with core.cond:
+        with core.lock:
             core.closed = True
             core.drain = drain
-            core.cond.notify_all()
+            core.wake.put(None)
         self._thread.join(timeout)
         if not self._thread.is_alive():
             # a request that raced the close flag in must fail rather than
@@ -699,7 +706,7 @@ class GenerationEngine:
 
     @property
     def failed(self) -> Optional[BaseException]:
-        with self._core.cond:
+        with self._core.lock:
             return self._failed
 
     @property

@@ -78,8 +78,32 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              memory; then one fp32 step of ``build_cifar(8)`` at batch 8 on
              the card against the CPU, and (``[trace]``) a torch.profiler
              window over 3 training steps of the second leg.
-10. a ``{"kernels": [...]}`` line, the card's name and power limit, and the
-    last line ``{"ok": true, "device": {...}}``.
+10. train-lm — a Transformer language model at the width of the JAX
+             package's ``bench.py --mode lm`` (vocab 8192, hidden 512, 8
+             heads, filter 2048, 4 layers), batch 8 x 128 tokens, fp32,
+             embedding/residual and FFN dropout 0.1 (threefry-keyed),
+             attention dropout 0, ``TimeDistributedCriterion(
+             CrossEntropyCriterion())``, SGD lr 0.1 / momentum 0.9, trained
+             through ``optimizer(...).optimize()`` for 12 iterations on
+             token ids from numpy seed 0 (targets: the ids shifted by
+             one), weights from a seeded generator. Checks B2's launches
+             (4 per step: one per layer's forward) and that the plain
+             attention ran only as the backward's recompute (one call per
+             launch), the first loss (against the same first step on the
+             CPU, and above ln 8192 - 1.5) and that every loss is finite;
+             prints tokens/s, ms per step and peak memory, a ``[trace]``
+             of 3 steps and the share of the step's device time the
+             threefry dropouts take. Then one fp32
+             training step of a small Transformer on the card against the
+             same step on the CPU, as a language model and in translation
+             mode (B2 through Sq != Sk with the padding bias, forward and
+             backward): the dropout masks bitwise, logits and grads within
+             a stated tolerance; a full-width mask card vs CPU, bitwise;
+             and B2 at the training shape (8, 8, 128, 64), causal, fp32
+             and bf16 x bf16: error, kernel, plain, SDPA and bound times.
+11. a ``{"kernels": [...]}`` line (B2's row counts its launches on both
+    paths and carries its training-shape times), the card's name and
+    power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time per launch: the launches are captured
 back-to-back in one CUDA graph and the graph is replayed between CUDA
@@ -103,9 +127,15 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.core import DtypePolicy, EngineConfig, RandomGenerator
+from bigdl_tpu_torch.core import threefry
 from bigdl_tpu_torch.dataset import DataSet
 from bigdl_tpu_torch.models.resnet import build_cifar, build_imagenet
-from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer, int8
+from bigdl_tpu_torch.nn import (
+    CrossEntropyCriterion,
+    TimeDistributedCriterion,
+    Transformer,
+    int8,
+)
 from bigdl_tpu_torch.nn.layers import attention as attention_layers
 from bigdl_tpu_torch.nn.quantized import quantize_for_serving
 from bigdl_tpu_torch.ops import cuda_lib
@@ -194,6 +224,29 @@ STEP_TOL = 1e-4
 # grads differ by 7.1 and 16.7 spacings for two data seeds; the same bf16
 # step against an fp32 one differs by 40-45, which this must fail
 BF16_STEP_ULPS = 24
+
+# the LM training run: a Transformer LM at the width of the JAX package's
+# bench.py --mode lm (vocab 8192, hidden 512, 8 heads, filter 2048, 4
+# layers), batch 8 x 128 tokens, fp32, embedding/residual and FFN dropout
+# 0.1 with attention dropout 0 (so B2 runs), SGD lr 0.1 / momentum 0.9
+LM_BATCH, LM_SEQ, LM_STEPS, LM_WARMUP, LM_DROPOUT = 8, 128, 12, 2, 0.1
+# the first loss against the same first step on the CPU (same weights,
+# batch and key, so the same masks), relative: fp32 with TF32 off, the
+# GEMMs and attention summed in other orders through 4 layers
+LM_FIRST_LOSS_REL = 1e-4
+# and at least ln(vocab) - 1.5: an untrained model cannot beat the uniform
+# guess by much. It does not sit near ln(vocab): the tied head gives each
+# input token's own logit ~13 at hidden 512 (the JAX package's init does
+# the same: 13.67 against ln 1024 = 6.93 on the CPU at vocab 1024), so
+# the first loss is ~ln(vocab) + 4
+LM_FIRST_LOSS_FLOOR = 1.5
+# one fp32 training step of a small Transformer (vocab 50, hidden 32, 4
+# heads, filter 64, 2 layers) on the card vs the CPU, TF32 off, relative
+# to each compared tensor's largest entry: the same masks (checked
+# bitwise), B2 and cuBLAS against the CPU's plain attention and GEMMs,
+# which sum in other orders (a few fp32 ulps per op)
+LM_STEP_TOL = 1e-4
+LM_SMALL = (50, 32, 4, 64, 2)
 
 
 def nvidia_smi() -> str:
@@ -1284,6 +1337,251 @@ def cifar_card_vs_cpu():
         f"the bf16 check cannot tell bf16 from fp32 ({mixup} ulps)")
 
 
+# ---------------------------------------------------------- train-lm ----
+
+
+class _Counted:
+    """Wraps a module-level function and counts its calls."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn, self.calls = getattr(module, name), 0
+
+    def __enter__(self):
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.fn(*args, **kw)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+class _Recorded:
+    """Records the masks threefry.bernoulli returns (the dropout masks of
+    a forward), on the CPU."""
+
+    def __init__(self):
+        self.fn, self.masks = threefry.bernoulli, []
+
+    def __enter__(self):
+        def recorded(*args, **kw):
+            mask = self.fn(*args, **kw)
+            self.masks.append(mask.cpu())
+            return mask
+        threefry.bernoulli = recorded
+        return self
+
+    def __exit__(self, *exc):
+        threefry.bernoulli = self.fn
+
+
+def lm_inputs(vocab, mode, rs):
+    """Token ids and next-token targets for the small card-vs-CPU step."""
+    if mode == "translation":
+        src = rs.randint(1, vocab, (2, 7))
+        src[0, 5:] = src[1, 6:] = 0                # padding, masked out
+        return (src, rs.randint(1, vocab, (2, 9))), rs.randint(0, vocab,
+                                                                (2, 9))
+    return rs.randint(0, vocab, (2, 12)), rs.randint(0, vocab, (2, 12))
+
+
+def lm_small_step(device, mode):
+    """One fp32 training step of the small Transformer in ``mode`` from
+    seeded weights, ids and key: the loss, logits and grads as fp32 on the
+    CPU, the dropout masks it drew, and its B2 launches and plain
+    attention calls."""
+    rs = np.random.RandomState(3)
+    x, y = lm_inputs(LM_SMALL[0], mode, rs)
+    model = Transformer(*LM_SMALL, embedding_dropout=LM_DROPOUT,
+                        ffn_dropout=LM_DROPOUT, transformer_type=mode,
+                        device=device,
+                        generator=torch.Generator().manual_seed(1))
+    model.train()
+    params = dict(model.named_parameters())
+    to = (lambda a: torch.from_numpy(a).to(device))
+    x = tuple(map(to, x)) if isinstance(x, tuple) else to(x)
+    fa.flash_attention.launches = 0
+    with _Recorded() as rec, _Counted(fa, "plain_attention") as plain:
+        logits = model(x, rng=threefry.key(9))
+        loss = TimeDistributedCriterion(CrossEntropyCriterion(), True)(
+            logits, to(y))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+    tensors = {"loss": loss.reshape(1), "logits": logits,
+               **{"grad " + k: g for k, g in zip(params, grads)}}
+    return ({k: v.detach().float().cpu() for k, v in tensors.items()},
+            rec.masks, fa.flash_attention.launches, plain.calls)
+
+
+def lm_card_vs_cpu():
+    """The small step on the card and on the CPU, as a language model and
+    in translation mode (B2 through Sq != Sk with the padding bias, in the
+    cross-attention, forward and backward): the masks bitwise, the rest
+    within LM_STEP_TOL of each tensor's largest entry."""
+    for mode in ("language_model", "translation"):
+        card, card_masks, launches, plain = lm_small_step("cuda", mode)
+        host, host_masks, _, _ = lm_small_step("cpu", mode)
+        masks_equal = len(card_masks) == len(host_masks) > 0 and all(
+            torch.equal(a, b) for a, b in zip(card_masks, host_masks))
+        worst = {kind: max(max_err(card[k], v) / max(1.0, v.abs().max()
+                                                     .item())
+                           for k, v in host.items() if k.startswith(kind))
+                 for kind in ("loss", "logits", "grad")}
+        layers = LM_SMALL[4]
+        b2_calls = layers * (3 if mode == "translation" else 1)
+        print(f"[train-lm] small {mode} fp32 step, card vs CPU: "
+              f"{len(card_masks)} dropout masks bitwise equal: {masks_equal};"
+              f" largest differences (relative to each tensor's largest "
+              f"entry): " + " ".join(f"{k} {v:.2e}" for k, v in
+                                     worst.items())
+              + f" (tol {LM_STEP_TOL:g}); B2 launches {launches}, plain "
+              f"attention calls {plain} (the backward's recomputes)")
+        assert masks_equal, f"{mode}: dropout masks differ card vs CPU"
+        assert max(worst.values()) < LM_STEP_TOL, (mode, worst)
+        assert launches == plain == b2_calls, (mode, launches, plain)
+
+
+def lm_mask_check(shape, p):
+    """A full-width dropout mask, card vs CPU, bitwise."""
+    k = threefry.fold_in(threefry.key(0), 1)
+    card = threefry.bernoulli(k, p, shape, "cuda").cpu()
+    host = threefry.bernoulli(k, p, shape, "cpu")
+    same = torch.equal(card, host)
+    print(f"[train-lm] bernoulli({p}) mask {tuple(shape)} "
+          f"({card.numel()} draws) card vs CPU bitwise equal: {same}; kept "
+          f"share {card.float().mean().item():.5f}")
+    assert same, f"mask {shape} differs card vs CPU"
+
+
+def lm_b2(card):
+    """B2 at the training shape, (8, 8, 128, 64) causal, in fp32 and
+    bf16 x bf16: error against the plain version, and kernel, plain, SDPA
+    and bound times."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(LM_BATCH, HEADS, LM_SEQ, HEAD_DIM, generator=g,
+                               device="cuda").to(dt) for _ in range(3))
+        err = max_err(fa.flash_attention(q, k, v, None, None, True),
+                      fa.plain_attention(q, k, v, None, None, True))
+        row = dict(time_b2(q, k, v, None, True), max_abs_err=err)
+        print(f"[train-lm] B2 {str(dt)[6:]} ({LM_BATCH}, {HEADS}, {LM_SEQ}, "
+              f"{HEAD_DIM}) causal: max_abs_err={err:.3e} (tol {TOL[dt]:g})"
+              f" kernel_ms={row['ms']:.5f} eager_ms={row['eager_ms']:.5f} "
+              f"plain_ms={row['plain_ms']:.5f} library_ms(sdpa)="
+              f"{row['library_ms']:.5f} bound_ms={row['bound_ms']:.6f} "
+              f"({row['bound_by']}) kernel/sdpa="
+              f"{row['ms'] / row['library_ms']:.3f} on {card}")
+        assert err <= TOL[dt], (dt, err)
+        rows[dt] = row
+    return rows
+
+
+def lm_rng_ms():
+    """Device ms of the dropouts of one step of the full-width model: per
+    step the embedding and two residual dropouts per layer at (8, 128,
+    512), and one FFN dropout per layer at (8, 128, 2048)."""
+    k = threefry.key(1)
+    per = {}
+    for width in (HIDDEN, FILTER):
+        x = torch.randn(LM_BATCH, LM_SEQ, width, device="cuda")
+        per[width] = device_ms(lambda x=x: threefry.dropout(x, LM_DROPOUT,
+                                                            k), reps=10)
+    return (1 + 2 * LAYERS) * per[HIDDEN] + LAYERS * per[FILTER], per
+
+
+def lm_training_run(device, ids, steps):
+    """The full-width LM trained through ``optimizer(...).optimize()`` on
+    ``device`` for ``steps`` iterations from seed-0 weights: the
+    optimizer, the per-iteration (loss, seconds) and the B2 launches and
+    plain attention calls of the run."""
+    model = Transformer(VOCAB, HIDDEN, HEADS, FILTER, LAYERS,
+                        embedding_dropout=LM_DROPOUT, ffn_dropout=LM_DROPOUT,
+                        device=device,
+                        generator=torch.Generator().manual_seed(0))
+    opt = optimizer(model, DataSet.tensors(ids[:, :-1], ids[:, 1:],
+                                           RandomGenerator(0)),
+                    TimeDistributedCriterion(CrossEntropyCriterion(),
+                                             size_average=True), LM_BATCH)
+    opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9))
+    opt.set_end_when(Trigger.max_iteration(steps))
+    handler = _LogRecords()
+    logger = logging.getLogger("bigdl_tpu_torch.optim")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    # the main path, with the launch count zeroed just before it
+    fa.flash_attention.launches = 0
+    try:
+        with _Counted(fa, "plain_attention") as plain:
+            opt.optimize()
+            if device == "cuda":
+                torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(handler)
+    runs = [(r.loss, r.step_seconds) for r in handler.records]
+    assert len(runs) == steps == opt.state.iteration, (len(runs), steps)
+    return opt, runs, fa.flash_attention.launches, plain.calls
+
+
+def phase_train_lm(card):
+    """The Transformer LM trained through ``optimizer(...).optimize()``
+    at full width (its first step against the same step on the CPU);
+    then the small card-vs-CPU steps, a full-width mask, B2 at the
+    training shape and a trace of 3 steps."""
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, VOCAB, (LM_BATCH * LM_STEPS, LM_SEQ + 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt, runs, launches, plain = lm_training_run("cuda", ids, LM_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    _, host, _, _ = lm_training_run("cpu", ids, 1)
+    losses = [loss for loss, _ in runs]
+    secs = [dt for _, dt in runs[LM_WARMUP:]]
+    step_ms = 1e3 * sum(secs) / len(secs)
+    first_rel = abs(losses[0] - host[0][0]) / host[0][0]
+    print(f"[train-lm] Transformer LM vocab {VOCAB} hidden {HIDDEN} heads "
+          f"{HEADS} filter {FILTER} layers {LAYERS}, b{LM_BATCH}x{LM_SEQ} "
+          f"fp32, dropout {LM_DROPOUT}: losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}")
+    print(f"[train-lm] first loss {losses[0]!r} on the card, {host[0][0]!r} "
+          f"on the CPU (relative difference {first_rel:.2e}, tol "
+          f"{LM_FIRST_LOSS_REL:g}); ln {VOCAB} = {math.log(VOCAB):.4f}")
+    tokens_per_s = LM_BATCH * LM_SEQ * len(secs) / sum(secs)
+    print(f"[train-lm] tokens/s={tokens_per_s:.1f} step_ms={step_ms:.2f} "
+          f"(mean of steps {LM_WARMUP + 1}-{LM_STEPS})"
+          f" peak_mem_GiB={peak / 2**30:.3f} B2 launches={launches} "
+          f"({launches / LM_STEPS:g} per step), plain attention calls="
+          f"{plain} (the backward's recomputes) on {card}")
+    assert all(math.isfinite(v) for v in losses), losses
+    assert first_rel <= LM_FIRST_LOSS_REL, (losses[0], host[0][0])
+    assert losses[0] > math.log(VOCAB) - LM_FIRST_LOSS_FLOOR, losses[0]
+    assert launches == LAYERS * LM_STEPS, launches
+    assert plain == launches, (plain, launches)
+    rng_ms, per = lm_rng_ms()
+    opt.set_end_when(Trigger.max_iteration(opt.state.iteration + 3))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.optimize()
+        torch.cuda.synchronize()
+    step_device_ms = report_trace(
+        prof, 3, step_ms, card, f"Transformer LM b{LM_BATCH}x{LM_SEQ} fp32 "
+        f"training step", top_n=8, watch=("flash_",))
+    print(f"[train-lm] threefry dropouts of one step, timed alone: "
+          f"{rng_ms:.4f} ms ({per[HIDDEN]:.4f} ms a mask at width {HIDDEN}"
+          f" x {1 + 2 * LAYERS}, {per[FILTER]:.4f} at {FILTER} x {LAYERS})"
+          f" = {rng_ms / step_device_ms:.1%} of the step's device time")
+    del opt
+    torch.cuda.empty_cache()
+    lm_card_vs_cpu()
+    lm_mask_check((LM_BATCH, LM_SEQ, HIDDEN), 1.0 - LM_DROPOUT)
+    rows = lm_b2(card)
+    return launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
@@ -1301,6 +1599,10 @@ def main() -> int:
     del model, float_run
     b1 = phase_b1(card)
     launches["residual_add"] = phase_train(card)
+    lm_launches, lm_b2_rows = phase_train_lm(card)
+    b2_paths = {"engine": launches["flash_attention"],
+                "train_lm": lm_launches}
+    launches["flash_attention"] = sum(b2_paths.values())
     rows = []
     for name, src, replaces, res in (
             ("residual_add", "bigdl_tpu_torch/csrc/residual_add.cu",
@@ -1321,6 +1623,13 @@ def main() -> int:
                      "eager_ms": res["eager_ms"]})
         if "max_abs_err_bf16" in res:
             rows[-1]["max_abs_err_bf16"] = res["max_abs_err_bf16"]
+        if name == "flash_attention":
+            rows[-1]["launches_by_path"] = b2_paths
+            for dt, row in lm_b2_rows.items():
+                rows[-1][f"train_lm_{str(dt)[6:]}"] = {
+                    key: row[key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "max_abs_err")}
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

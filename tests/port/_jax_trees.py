@@ -1,4 +1,5 @@
-"""Seeded numpy ``params``/``state`` trees for the parity tests.
+"""Seeded numpy ``params``/``state`` trees for the parity tests, and the
+fast-compiling jit they run their JAX references through.
 
 The JAX package's ``init`` draws every weight through threefry, which is
 slow on the CPU for a whole ResNet. The tests instead take the tree's
@@ -65,3 +66,22 @@ def assert_trees_close(got, want, rtol, atol, what):
         scale = max(1.0, float(np.abs(want_k).max(initial=0.0)))
         np.testing.assert_allclose(np.asarray(g[k]), want_k, rtol=rtol,
                                    atol=atol * scale, err_msg=f"{what} {k}")
+
+
+# XLA's CPU backend at optimisation level 0: the same HLO and the same
+# fusions, with LLVM's passes off. The reference models are small, so
+# compiling them is most of what a parity test costs; compiled this way
+# it costs a fraction. Results may move by ulps, inside every test's
+# stated tolerance.
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def compile_fast(fn, *args):
+    """``jax.jit(fn)`` lowered for ``args`` and compiled with
+    ``FAST_COMPILE``; call the result with ``args``."""
+    return jax.jit(fn).lower(*args).compile(FAST_COMPILE)
+
+
+def run_fast(fn, *args):
+    """``jax.jit(fn)(*args)``, compiled with ``FAST_COMPILE``, as numpy."""
+    return jax.device_get(compile_fast(fn, *args)(*args))

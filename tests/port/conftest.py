@@ -1,8 +1,14 @@
 """Shared set-up for the PyTorch port's tests."""
 
 import gc
+from pathlib import Path
 
 import pytest
+import torch
+
+PORT_TESTS = Path(__file__).resolve().parent
+# the intra-op thread count the tests after the port's get back
+TORCH_THREADS = torch.get_num_threads()
 
 
 @pytest.fixture(scope="session")
@@ -10,7 +16,7 @@ def jax_lm():
     """The small language model the serving parity tests share: the JAX
     package's ``Transformer(64, 32, 4, 64, 2)`` and its params from
     ``init(key(2))``. Built once: its eager init is seconds of JAX
-    compiles, and each module's executables are dropped after it."""
+    compiles."""
     import jax
 
     from bigdl_tpu.nn.layers.attention import Transformer
@@ -21,18 +27,38 @@ def jax_lm():
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _drop_jax_executables():
-    """The parity tests compile many small JAX executables (the Pallas
-    kernels in interpret mode, eager reference calls, the JAX engine).
-    JAX keeps compiled executables in one process-wide cache of bounded
-    size, and the JAX package's compile-once tests, which run later in the
-    same process, read their functions' entries in it. Drop this module's
-    entries when it is done, so the later tests see the cache as if the
-    port's tests had not run. Collect the module's garbage too (models,
-    engines, autograd graphs), so the later tests start from a heap that
-    holds none of it."""
+def _collect_module_garbage():
+    """Collect each module's garbage (models, engines, autograd graphs)
+    when it is done, so the tests after it start from a heap that holds
+    none of it."""
     yield
-    import jax
-
-    jax.clear_caches()
     gc.collect()
+
+
+def pytest_runtest_setup(item):
+    """The port's tests run torch on one thread: their tensors are small,
+    and on a host whose cores other work shares, the intra-op pool's
+    hand-offs cost more than they save (a 77,100-draw threefry took
+    0.2-1.0 s on 8 threads, 0.03 s on one)."""
+    torch.set_num_threads(1)
+
+
+def pytest_runtest_teardown(item, nextitem):
+    """After the last of the port's tests, give the tests after them
+    torch's thread count back and drop the JAX executables the port's
+    tests compiled. The parity tests compile many small JAX executables
+    (the Pallas kernels in interpret mode, eager reference calls, the JAX
+    engine). JAX keeps compiled executables in one process-wide cache of
+    bounded size, and the JAX package's compile-once tests, which run
+    later in the same process, read their functions' entries in it: they
+    must see the cache as if the port's tests had not run. Between the
+    port's own modules the cache stays, so an executable one module
+    compiled (an eager op at a shape, the shared LM's init) serves the
+    next."""
+    if nextitem is None or PORT_TESTS not in Path(
+            str(nextitem.path)).resolve().parents:
+        import jax
+
+        torch.set_num_threads(TORCH_THREADS)
+        jax.clear_caches()
+        gc.collect()

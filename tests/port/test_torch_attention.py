@@ -3,7 +3,8 @@
 On the CPU the port's wrappers run the kernels' plain versions; these are
 held against the JAX package's Pallas kernels run in interpret mode (as
 ``tests/test_attention.py`` and ``tests/test_paged_generation.py`` run
-them) and against its XLA reference math. The CUDA kernels themselves
+them) and against its XLA reference math, jitted and compiled with
+``_jax_trees.FAST_COMPILE``. The CUDA kernels themselves
 run only on a card: ``test_torch_gpu.py``.
 
 Tolerances, fp32 throughout (JAX at ``jax_default_matmul_precision=
@@ -18,13 +19,16 @@ bit-exact.
 import importlib
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _jax_trees import run_fast
 from _paged_emulation import paged_tiles
 from bigdl_tpu.ops.attention import attention_bias_from_padding
+from bigdl_tpu_torch.core import threefry
 from bigdl_tpu_torch.ops import attention as tattn
 from bigdl_tpu_torch.ops import flash_attention as tfa
 
@@ -67,7 +71,8 @@ def test_flash_plain_matches_pallas_interpret(shape_q, shape_k, causal, bias,
         jb = attention_bias_from_padding(jnp.asarray(pad))
         tb = tattn.attention_bias_from_padding(torch.from_numpy(pad))
         np.testing.assert_array_equal(np.asarray(jb), tb.numpy())
-    ref = jfa.flash_attention(jq, jk, jv, jb, None, causal, block, block, True)
+    ref = run_fast(lambda q, k, v, b: jfa.flash_attention(
+        q, k, v, b, None, causal, block, block, True), jq, jk, jv, jb)
     out = tfa.flash_attention(tq, tk, tv, tb, None, causal)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=KERNEL_TOL)
 
@@ -109,9 +114,54 @@ def test_wrappers_reject_other_devices():
 
 
 def test_dropout_is_not_ported():
-    q = torch.zeros(1, 1, 2, 4)
-    with pytest.raises(NotImplementedError, match="training"):
-        tattn.dot_product_attention(q, q, q, dropout_rate=0.1)
+    """Attention dropout runs the plain version with the mask at the
+    probabilities' (B, H, Sq, Sk) shape: equal to the JAX package's
+    ``_xla_attention`` with dropout under the same key (the masks are
+    threefry draws, bit for bit); without a key it raises, as JAX's
+    dispatch does."""
+    q, k, v = _np((2, 3, 6, 8), 9), _np((2, 3, 10, 8), 10), \
+        _np((2, 3, 10, 8), 11)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v)
+    ref = run_fast(lambda q, k, v, key: jfa._xla_attention(
+        q, k, v, None, 0.35, True, dropout_rate=0.2, dropout_rng=key),
+        jq, jk, jv, jax.random.key(4))
+    out = tattn.dot_product_attention(tq, tk, tv, causal=True, sm_scale=0.35,
+                                      dropout_rate=0.2,
+                                      dropout_key=threefry.key(4))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=XLA_TOL)
+    plain = tfa.plain_attention(tq, tk, tv, None, 0.35, True)
+    assert not torch.allclose(out, plain)
+    with pytest.raises(ValueError, match="dropout_key"):
+        tattn.dot_product_attention(tq, tk, tv, dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("causal, bias", [(True, False), (False, True)],
+                         ids=["causal-sq<sk", "padding-bias-sq<sk"])
+def test_flash_gradient_matches_jax_vjp(causal, bias):
+    """B2's gradient (``flash_attention`` is differentiable in q, k, v and
+    the bias) against the JAX kernel's backward, ``_vjp_bwd``: both
+    differentiate a recompute of the plain attention. The bias is the
+    padding bias (B, 1, 1, Sk) and gets its gradient in that shape."""
+    q, k, v = _np((2, 2, 6, 16), 12), _np((2, 2, 10, 16), 13), \
+        _np((2, 2, 10, 16), 14)
+    g = _np((2, 2, 6, 16), 15)
+    b = None
+    if bias:
+        pad = np.zeros((2, 10), np.float32)
+        pad[:, 8:] = 1
+        b = np.asarray(attention_bias_from_padding(jnp.asarray(pad)))
+    arrays = [q, k, v] + ([b] if bias else [])
+    jargs, targs = _both(*arrays)
+    want = run_fast(lambda *a: jfa._vjp_bwd(
+        None, causal, 128, 128, True, (*a[:3], a[3] if bias else None),
+        a[-1]), *jargs, jnp.asarray(g))
+    leaves = [t.requires_grad_() for t in targs]
+    out = tfa.flash_attention(*leaves[:3], leaves[3] if bias else None,
+                              None, causal)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    assert got[-1].shape == leaves[-1].shape
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=XLA_TOL)
 
 
 def test_causal_bias_matches_jax():
@@ -236,10 +286,11 @@ def _paged_case(seed, n_phys=12, heads=2, ps=4, d=8, slots=4, ppn=3,
 def test_paged_plain_matches_pallas_interpret(case):
     arrays = _paged_case(**case)
     (jq, jk, jv, jm, jp), (tq, tk, tv, tm, tp) = _both(*arrays)
-    ref = jfa.paged_flash_attention(jq, jk, jv, jm, jp, interpret=True)
+    ref, xla = run_fast(lambda *a: (
+        jfa.paged_flash_attention(*a, interpret=True),
+        jfa.paged_attention_reference(*a)), jq, jk, jv, jm, jp)
     out = tfa.paged_flash_attention(tq, tk, tv, tm, tp)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=KERNEL_TOL)
-    xla = jfa.paged_attention_reference(jq, jk, jv, jm, jp)
     np.testing.assert_allclose(out.numpy(), np.asarray(xla), atol=XLA_TOL)
 
 
@@ -307,8 +358,8 @@ def test_paged_tiles_match_pallas_interpret():
         arrays = _paged_case(seed=10, n_phys=33, heads=2, ps=16, d=64,
                              slots=3, ppn=2, positions=positions)
         (jq, jk, jv, jm, jp), (tq, tk, tv, tm, tp) = _both(*arrays)
-        ref = np.asarray(jfa.paged_flash_attention(jq, jk, jv, jm, jp,
-                                                   interpret=True))
+        ref = run_fast(lambda *a: jfa.paged_flash_attention(
+            *a, interpret=True), jq, jk, jv, jm, jp)
         for warps in (8, 1):
             got = paged_tiles(tq, tk, tv, tm, tp, 0.125, warps)
             np.testing.assert_allclose(got.numpy(), ref, atol=KERNEL_TOL)

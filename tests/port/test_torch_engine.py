@@ -69,6 +69,9 @@ def port_streams(lm):
 def test_greedy_streams_match_jax_engine(lm, port_streams):
     jm, params, tm, requests = lm
     jax_outs = _run(JaxEngine(jm, params, **CFG), requests)
+    # the JAX engine's finalizer takes a lock: collect the engine here,
+    # on this thread, and not wherever the collector next runs
+    gc.collect()
     outs, _ = port_streams
     assert outs == jax_outs
     # every token won its argmax by a margin no summation order can undo
@@ -286,6 +289,35 @@ def test_dropped_engine_is_collected_and_its_loop_exits(lm):
     thread = engine._thread
     del engine
     gc.collect()
+    thread.join(RESULT_TIMEOUT)
+    assert not thread.is_alive()
+
+
+def test_collection_wakes_the_loop_without_a_lock(lm):
+    """The finalizer runs inside the garbage collector, which may fire on
+    any thread at any allocation, one made while that thread holds a lock
+    included: it wakes the idle loop without acquiring any lock. Here
+    another thread holds the engine's lock while the engine is collected;
+    the collection returns at once and the loop exits once the lock is
+    free."""
+    _, _, tm, _ = lm
+    engine = _engine(tm)
+    core, thread = engine._core, engine._thread
+    held, release = threading.Event(), threading.Event()
+
+    def hold():
+        with core.lock:
+            held.set()
+            release.wait(RESULT_TIMEOUT)
+
+    holder = threading.Thread(target=hold)
+    holder.start()
+    assert held.wait(RESULT_TIMEOUT)
+    del engine
+    gc.collect()
+    assert holder.is_alive()    # the collection did not wait for the lock
+    release.set()
+    holder.join(RESULT_TIMEOUT)
     thread.join(RESULT_TIMEOUT)
     assert not thread.is_alive()
 

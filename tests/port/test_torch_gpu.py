@@ -25,6 +25,9 @@ largest entry (both sides round each layer's output to bf16; a sum that
 rounds the other way moves an entry by a spacing that later layers
 amplify, 7-17 spacings measured on an H100), while the bf16 step against
 the fp32 one differs by 40-45, which the test checks it would catch.
+Threefry draws and dropout masks: bitwise equal to the CPU's (exact
+integer ops). A small translation Transformer's training step, card vs
+CPU: 1e-4 relative to each tensor's largest entry, as the ResNet step.
 """
 
 import math
@@ -33,11 +36,16 @@ import numpy as np
 import pytest
 import torch
 
-from bigdl_tpu_torch.core import DtypePolicy
+from bigdl_tpu_torch.core import DtypePolicy, threefry
 from bigdl_tpu_torch.dataset import MiniBatch
 from bigdl_tpu_torch.dataset.prefetch import device_prefetch
 from bigdl_tpu_torch.models.resnet import build_cifar
-from bigdl_tpu_torch.nn import CAddTable, CrossEntropyCriterion, Transformer
+from bigdl_tpu_torch.nn import (
+    CAddTable,
+    CrossEntropyCriterion,
+    TimeDistributedCriterion,
+    Transformer,
+)
 from bigdl_tpu_torch.nn import int8
 from bigdl_tpu_torch.ops import flash_attention as tfa
 from bigdl_tpu_torch.ops import residual_add as ra
@@ -108,6 +116,82 @@ def test_flash_kernel_gradient_is_plain_gradient(cuda):
         tfa.plain_attention(q, k, v, None, None, True).sum(), (q, k, v))
     for a, b in zip(grads, refs):
         assert (a - b).abs().max().item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_flash_kernel_gradient_with_padding_bias_and_sq_ne_sk(cuda):
+    """B2 as a cross-attention sees it in a translation decoder: Sq != Sk
+    and a padding bias (B, 1, 1, Sk), which gets its gradient in that
+    shape; one kernel launch, and the backward's plain recompute."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(2, 4, 9, 32, generator=g, device=cuda,
+                    requires_grad=True)
+    k, v = (torch.randn(2, 4, 7, 32, generator=g, device=cuda,
+                        requires_grad=True) for _ in range(2))
+    pad = torch.zeros(2, 7, device=cuda)
+    pad[0, 5:] = 1
+    bias = (pad * -1e9)[:, None, None, :].requires_grad_()
+    ct = torch.randn(2, 4, 9, 32, generator=g, device=cuda)
+    before = tfa.flash_attention.launches
+    grads = torch.autograd.grad(
+        tfa.flash_attention(q, k, v, bias, None, False), (q, k, v, bias), ct)
+    assert tfa.flash_attention.launches == before + 1
+    refs = torch.autograd.grad(
+        tfa.plain_attention(q, k, v, bias, None, False), (q, k, v, bias), ct)
+    assert grads[3].shape == bias.shape
+    for a, b in zip(grads, refs):
+        assert (a - b).abs().max().item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_threefry_draws_and_dropout_on_card_equal_cpu(cuda):
+    """Keys are host integers and the draws exact integer ops: the card's
+    bits, uniforms, masks and dropout equal the CPU's in every bit, here
+    at a full-width activation's 524,288 draws."""
+    k = threefry.fold_in(threefry.split(threefry.key(3))[1], 7)
+    shape = (8, 128, 512)
+    for fn in (threefry.bits, threefry.uniform):
+        assert torch.equal(fn(k, shape, cuda).cpu(), fn(k, shape, "cpu"))
+    assert torch.equal(threefry.bernoulli(k, 0.9, shape, cuda).cpu(),
+                       threefry.bernoulli(k, 0.9, shape, "cpu"))
+    x = torch.randn(shape)
+    assert torch.equal(threefry.dropout(x.to(cuda), 0.1, k).cpu(),
+                       threefry.dropout(x, 0.1, k))
+
+
+@pytest.mark.gpu
+def test_translation_training_step_card_vs_cpu(cuda):
+    """One fp32 training step of a small translation Transformer with
+    dropout, card against CPU from one seed and one key: every encoder,
+    decoder and cross-attention runs B2 forward (6 launches) and its
+    plain recompute backward; logits and grads within 1e-4 of each
+    tensor's largest entry (the same masks; sums in other orders)."""
+    rs = np.random.RandomState(3)
+    src = rs.randint(1, 50, (2, 7))
+    src[0, 5:] = 0
+    tgt, y = rs.randint(1, 50, (2, 9)), rs.randint(0, 50, (2, 9))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = Transformer(50, 32, 4, 64, 2, embedding_dropout=0.1,
+                            ffn_dropout=0.1, transformer_type="translation",
+                            device=dev,
+                            generator=torch.Generator().manual_seed(1))
+        model.train()
+        params = dict(model.named_parameters())
+        before = tfa.flash_attention.launches
+        logits = model((torch.from_numpy(src).to(dev),
+                        torch.from_numpy(tgt).to(dev)),
+                       rng=threefry.key(9))
+        loss = TimeDistributedCriterion(CrossEntropyCriterion(), True)(
+            logits, torch.from_numpy(y).to(dev))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        launches = tfa.flash_attention.launches - before
+        out[dev.type] = (launches, [t.detach().float().cpu()
+                                    for t in (logits, *grads)])
+    assert out["cuda"][0] == 6 and out["cpu"][0] == 0
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(
+            1.0, b.abs().max().item())
 
 
 def _flash_case(cuda, qdt, kvdt, b, h, sq, sk, d, bias=False, seed=0,

@@ -23,9 +23,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _jax_trees import seeded_trees
 from _paged_emulation import paged_tiles
 
 from bigdl_tpu.nn import int8 as jint8
+from bigdl_tpu.nn.layers.attention import Transformer as JaxTransformer
 from bigdl_tpu.nn.layers.linear import Linear as JaxLinear
 from bigdl_tpu.nn.quantized import count_quantized_gemms as jax_count
 from bigdl_tpu.nn.quantized import quantize_for_serving as jax_quantize
@@ -158,6 +160,24 @@ def test_quantized_tree_is_the_jax_tree_bitwise(lm):
         assert np.array_equal(ours[name], np.asarray(leaf)), name
     assert count_quantized_gemms(qt) == jax_count(qparams) == 6 * LAYERS + 1
     assert count_quantized_gemms(tm) == 0
+
+
+def test_untied_quantized_tree_is_the_jax_tree_bitwise():
+    """An untied model's head is its ``project`` Linear, quantized as the
+    other GEMMs; neither package adds the embedding's int8 twin."""
+    jm = JaxTransformer(VOCAB, HIDDEN, HEADS, FILTER, LAYERS,
+                        with_share_weights_linear=False)
+    params, _ = seeded_trees(jm, seed=3)
+    qparams = jax.device_get(jax_quantize(params))
+    tm = Transformer(VOCAB, HIDDEN, HEADS, FILTER, LAYERS, device="cpu",
+                     with_share_weights_linear=False)
+    qt = quantize_for_serving(load_jax_params(tm, params))
+    ref, ours = flatten_tree(qparams), flatten_tree(export_params(qt))
+    assert sorted(ours) == sorted(ref)
+    assert "embedding_q" not in ours and "project.weight_q" in ours
+    for name, leaf in ref.items():
+        assert np.array_equal(ours[name], np.asarray(leaf)), name
+    assert count_quantized_gemms(qt) == jax_count(qparams) == 6 * LAYERS + 1
 
 
 def test_quantize_leaves_the_callers_model_untouched(lm):

@@ -16,6 +16,7 @@
 - The knob errors.
 """
 
+import gc
 import threading
 
 import jax
@@ -72,8 +73,12 @@ def int8_streams(lm):
 @pytest.fixture(scope="module")
 def jax_int8_streams(lm):
     jm, params, _, requests = lm
-    return _run(JaxEngine(jm, params, quantize="int8", cache_dtype="int8",
+    outs = _run(JaxEngine(jm, params, quantize="int8", cache_dtype="int8",
                           **CFG), requests)
+    # the JAX engine's finalizer takes a lock: collect the engine here,
+    # on this thread, and not wherever the collector next runs
+    gc.collect()
+    return outs
 
 
 def _teacher_forced_logits(model, prompt, out):

@@ -17,10 +17,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _jax_trees import run_fast
 
 from bigdl_tpu.core import rng as jrng
 from bigdl_tpu.nn import criterion as jcrit
 from bigdl_tpu.nn.layers import conv as jconv
+from bigdl_tpu.nn.layers import embedding as jemb
 from bigdl_tpu.nn.layers import norm as jnorm
 from bigdl_tpu.nn.layers import pooling as jpool
 from bigdl_tpu.nn.layers import shape_ops as jshape
@@ -53,8 +55,13 @@ def rand(rs, *shape):
 
 
 def jax_vjp(fn, args, ct):
-    out, vjp = jax.vjp(fn, *args)
-    return out, vjp(ct)
+    """``fn(*args)`` and its vjp at ``ct``, jitted and compiled with
+    ``_jax_trees.FAST_COMPILE``."""
+    def both(args, ct):
+        out, vjp = jax.vjp(fn, *args)
+        return out, vjp(ct)
+
+    return run_fast(both, tuple(args), ct)
 
 
 def torch_grads(out, inputs, ct):
@@ -274,6 +281,64 @@ def test_cross_entropy_matches_jax(weighted, size_average):
         lambda o: jc.forward(o, jnp.asarray(target)))(logits)
     close(loss, want)
     close(torch.autograd.grad(loss, [lt])[0], grad)
+
+
+def test_class_nll_float64_weights_match_jax_bitwise():
+    """Class weights given as float64 (numpy's default) are taken in fp32,
+    as ``jnp.take`` takes them: the loss is fp32 and equals JAX's in every
+    bit (8 picked entries, one sum of each; the division is the same fp32
+    division)."""
+    rs = np.random.RandomState(12)
+    logp = np.log(np.abs(rand(rs, 8, 5)) + 0.1).astype(np.float32)
+    target = rs.randint(0, 5, (8,))
+    w = np.abs(rs.standard_normal(5)) + 0.1          # float64
+    for size_average in (True, False):
+        want = jax.jit(jcrit.ClassNLLCriterion(w, size_average).forward)(
+            logp, jnp.asarray(target))
+        got = nn.ClassNLLCriterion(w, size_average)(torch.from_numpy(logp),
+                                                    torch.from_numpy(target))
+        assert got.dtype == torch.float32
+        assert np.float32(got.item()) == np.float32(want), (got, want)
+
+
+@pytest.mark.parametrize("inner_average", [True, False])
+@pytest.mark.parametrize("size_average", [True, False])
+def test_time_distributed_criterion_matches_jax(inner_average, size_average):
+    """The per-step criterion over (batch, time, classes), rescaled by the
+    number of steps as the JAX package rescales it."""
+    rs = np.random.RandomState(13)
+    out = rand(rs, 3, 4, 6) * 2.0
+    target = rs.randint(0, 6, (3, 4))
+    jc = jcrit.TimeDistributedCriterion(
+        jcrit.CrossEntropyCriterion(size_average=inner_average), size_average)
+    tc = nn.TimeDistributedCriterion(
+        nn.CrossEntropyCriterion(size_average=inner_average), size_average)
+    ot = torch.from_numpy(out).requires_grad_()
+    loss = tc(ot, torch.from_numpy(target))
+    want, grad = jax.value_and_grad(
+        lambda o: jc.forward(o, jnp.asarray(target)))(out)
+    close(loss, want)
+    close(torch.autograd.grad(loss, [ot])[0], grad)
+
+
+def test_lookup_table_matches_jax():
+    """``weight[ids]`` for ids of any shape, and its gradient (rows summed
+    per id); the padding row starts at zero."""
+    rs = np.random.RandomState(14)
+    w = rand(rs, 10, 6)
+    ids = rs.randint(0, 10, (3, 5))
+    jm = jemb.LookupTable(10, 6)
+    tm = load_jax_params(nn.LookupTable(10, 6, device="cpu"),
+                         {"weight": w})
+    ct = rand(rs, 3, 5, 6)
+    want, (gw,) = jax_vjp(lambda p: jm.apply({"weight": p},
+                                             jnp.asarray(ids))[0], (w,), ct)
+    got = tm(torch.from_numpy(ids))
+    assert torch.equal(got, torch.from_numpy(np.asarray(want)))
+    close(torch_grads(got, [tm.weight], ct)[0], gw)
+    padded = nn.LookupTable(10, 6, padding_value=3, device="cpu")
+    assert padded.weight[3].abs().sum().item() == 0.0
+    assert padded.weight[4].abs().sum().item() > 0.0
 
 
 def test_class_nll_on_probabilities_matches_jax():

@@ -131,6 +131,37 @@ def test_local_optimizer_matches_jax(caplog, end):
                        rtol=1e-5, atol=1e-5, what="param")
 
 
+def test_multistep_tenth_matches_jax_bitwise_across_the_milestone():
+    """gamma = 0.1, whose powers binary fractions do not hold exactly: at
+    each step count before, at and after the milestone, the port's rate
+    equals the JAX package's jitted one (as its training loop computes it)
+    in every bit, and so does a momentum-SGD update of 1000 parameters
+    from that step count (velocity zero, so the update's own arithmetic is
+    one product and one difference on both sides, and only the rate can
+    move a bit)."""
+    rs = np.random.RandomState(21)
+    p0 = rs.standard_normal(1000).astype(np.float32)
+    jm = jopt.SGD(0.1, momentum=0.9, schedule=jsched.MultiStep([2], 0.1))
+    tm = SGD(0.1, momentum=0.9, schedule=MultiStep([2], 0.1))
+    update = jax.jit(jm.update)
+    rate = jax.jit(lambda step: jm.current_lr({"step": step}))
+    for step in range(4):
+        g = rs.standard_normal(1000).astype(np.float32)
+        tparams = {"w": torch.from_numpy(p0.copy())}
+        tstate = dict(tm.init_state(tparams), step=step)
+        want = np.float32(rate(np.int32(step)))
+        assert np.float32(tm.current_lr(tstate)).view(np.uint32) == \
+            want.view(np.uint32), (step, tm.current_lr(tstate), want)
+        jparams, _ = update({"w": g}, {"w": p0},
+                            dict(jm.init_state({"w": p0}),
+                                 step=np.int32(step)))
+        tm.update({"w": torch.from_numpy(g)}, tparams, tstate)
+        np.testing.assert_array_equal(
+            tparams["w"].numpy().view(np.uint32),
+            np.asarray(jparams["w"]).view(np.uint32), err_msg=f"step {step}")
+    assert want == np.float32(0.1) * np.float32(0.1)
+
+
 def test_optimize_continues_from_its_state():
     x, y = _data()
     opt = optimizer(_port_model(), DataSet.tensors(x, y, RandomGenerator(1)),

@@ -5,7 +5,8 @@ The weights and BN statistics come from one seeded numpy tree
 the port's through ``load_jax_params``. Everything runs in fp32, JAX at
 ``highest`` matmul precision; what differs is the summation order inside
 the convolutions and the BN sums (XLA's CPU kernels vs PyTorch's), a few
-ulps per op. Tolerances, stated per check below:
+ulps per op. The JAX references run jitted, compiled with
+``_jax_trees.FAST_COMPILE``. Tolerances, stated per check below:
 
 - one SGD step of ``build_cifar(8)``: loss rtol 1e-5; grads, updated
   params, velocity and running statistics rtol 1e-4, atol 1e-5 of each
@@ -21,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _jax_trees import assert_trees_close, flat, seeded_trees
+from _jax_trees import assert_trees_close, flat, run_fast, seeded_trees
 
 from bigdl_tpu.models import resnet as jresnet
 from bigdl_tpu.nn import CrossEntropyCriterion as JaxCE
@@ -54,7 +55,6 @@ def test_cifar8_sgd_step_matches_jax():
     kw = dict(learning_rate=0.1, momentum=0.9, weight_decay=1e-4)
     method, crit = JaxSGD(**kw), JaxCE()
 
-    @jax.jit
     def jax_step(p, s, x, y):
         def loss_fn(p):
             out, ns = jm.apply(p, x, state=s, training=True)
@@ -64,8 +64,8 @@ def test_cifar8_sgd_step_matches_jax():
                                      jnp.int32(1))
         return loss, grads, new_p, new_o, ns
 
-    jloss, jgrads, jparams, jostate, jstate = jax.device_get(
-        jax_step(params, state, x, y))
+    jloss, jgrads, jparams, jostate, jstate = run_fast(jax_step, params,
+                                                       state, x, y)
 
     named = dict(tm.named_parameters())
     loss = CrossEntropyCriterion()(tm(torch.from_numpy(x)).float(),
@@ -93,9 +93,8 @@ def test_imagenet50_eval_logits_match_jax():
         jm, lambda: resnet.build_imagenet(50, device="cpu"))
     x = np.random.RandomState(2).standard_normal(
         (2, 3, 64, 64)).astype(np.float32)
-    want, _ = jax.jit(lambda p, s, x: jm.apply(p, x, state=s))(
-        params, state, x)
-    want = np.asarray(want)
+    want, _ = run_fast(lambda p, s, x: jm.apply(p, x, state=s), params,
+                       state, x)
     with torch.no_grad():
         got = tm.eval()(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (2, 1000)
@@ -151,8 +150,8 @@ def test_bottleneck_hwio_training_matches_jax():
         out, ns = jm.apply(p, x, state=state, training=True)
         return jnp.sum(out * out), (out, ns)
 
-    (jloss, (jout, jstate)), (jgp, jgx) = jax.value_and_grad(
-        loss_fn, argnums=(0, 1), has_aux=True)(params, x)
+    (jloss, (jout, jstate)), (jgp, jgx) = run_fast(
+        jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True), params, x)
     xt = torch.from_numpy(x).requires_grad_()
     out = tm.train()(xt)
     named = dict(tm.named_parameters())
@@ -164,8 +163,7 @@ def test_bottleneck_hwio_training_matches_jax():
                        {"out": jout, "dx": jgx}, what="output", **tol)
     assert_trees_close(to_numpy_tree(dict(zip(named, grads[1:]))), jgp,
                        what="grad", **tol)
-    assert_trees_close(export_state(tm), jax.device_get(jstate),
-                       what="state", **tol)
+    assert_trees_close(export_state(tm), jstate, what="state", **tol)
 
 
 @pytest.mark.parametrize("kw", [dict(data_format="NHWC"),
