@@ -8,9 +8,11 @@ caller asks for the CPU; the TPU kernels of the JAX package become CUDA
 kernels written for Hopper under ``csrc/``, each with a plain PyTorch
 version beside it.
 
-Ported so far: the paged greedy generation engine serving a decoder-only
+Ported so far: the paged generation engine serving a decoder-only
 ``Transformer`` (``serving.GenerationEngine``, ``serving.static_generate``)
-with kernels B2 (flash-attention forward) and B3 (paged decode attention);
+with kernels B2 (flash-attention forward) and B3 (paged decode attention),
+greedy or sampled (``ops.sampling``, threefry-keyed per request), plain or
+speculative (``speculate=(draft_model, k)``), float or int8;
 single-device training (``optim.optimizer``, ``optim.SGD``,
 ``dataset.DataSet.tensors``) of the ResNets in ``models.resnet``, with
 kernel B1 (the residual add) under ``BIGDL_RESIDUAL_ADD=pallas``, and of

@@ -8,7 +8,10 @@ shuffle order in both packages — and draws device-side init from explicit
 the JAX package's bits (dropout masks) come from the threefry keys of
 :mod:`~bigdl_tpu_torch.core.threefry`, re-exported here with the JAX
 module's key helpers ``fold_in_str``, ``threefry_key_data`` and
-``request_seed``.
+``request_seed``. The in-step sampler's per-slot keys are raw ``(S, 2)``
+uint32 words, as in the JAX engine; ``split_keys``, ``fold_in_keys`` and
+``uniform_keys`` are ``jax.vmap`` of ``jax.random.split``, ``fold_in``
+and 0-d ``uniform`` over them, bit for bit, computed on the host.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from bigdl_tpu_torch.core.threefry import (  # noqa: F401  (re-exports)
     key,
     key_data,
     split,
+    threefry2x32_words,
     uniform,
 )
 
@@ -69,6 +73,40 @@ def request_seed(base_seed: int, payload: bytes, stream: int = 0) -> int:
     identifying bytes: :func:`element_seed` with the payload's crc32 as
     the index, so the seed depends on the request's content alone."""
     return element_seed(base_seed, zlib.crc32(payload), stream)
+
+
+def split_keys(keys, num: int = 2) -> np.ndarray:
+    """``jax.vmap(lambda k: jax.random.split(k, num))`` over raw key words:
+    (S, 2) uint32 -> (S, num, 2) uint32. The per-slot key state of the
+    in-step sampler advances through this, one split per slot per step."""
+    keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+    s = keys.shape[0]
+    out = threefry2x32_words(np.repeat(keys, num, axis=0),
+                             np.tile(np.arange(num), s))
+    return out.reshape(s, num, 2)
+
+
+def fold_in_keys(keys, data) -> np.ndarray:
+    """``jax.random.fold_in`` row by row: ``keys`` (..., 2) uint32 raw
+    words and ``data`` integers in [0, 2**32), broadcast against each
+    other -> (..., 2) uint32."""
+    keys = np.asarray(keys, np.uint32)
+    data = np.asarray(data, np.int64)
+    lead = np.broadcast_shapes(keys.shape[:-1], data.shape)
+    data = np.broadcast_to(data, lead).reshape(-1)
+    if data.size and (data.min() < 0 or data.max() > 0xFFFFFFFF):
+        raise ValueError("fold_in data outside [0, 2**32)")
+    keys = np.broadcast_to(keys, lead + (2,)).reshape(-1, 2)
+    return threefry2x32_words(keys, data).reshape(lead + (2,))
+
+
+def uniform_keys(keys) -> np.ndarray:
+    """``jax.random.uniform(k, (), float32)`` for each key of ``keys``
+    (..., 2) uint32 -> (...) float32 in [0, 1)."""
+    keys = np.asarray(keys, np.uint32)
+    words = threefry2x32_words(keys.reshape(-1, 2), 0)
+    b = ((words[:, 0] ^ words[:, 1]) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return (b.view(np.float32) - np.float32(1.0)).reshape(keys.shape[:-1])
 
 
 class RandomGenerator:

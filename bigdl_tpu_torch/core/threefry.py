@@ -75,6 +75,44 @@ def threefry2x32(k: Key, x0, x1):
     return x0, x1
 
 
+def _pack(words: np.ndarray) -> int:
+    """(N,) 32-bit words as one Python int, word i in bits [64 i, 64 i +
+    32); the 32 bits above each word take the carries of an add and the
+    bits a shift pushes out, and every op masks them off again."""
+    return int.from_bytes(np.asarray(words, "<u8").tobytes(), "little")
+
+
+def _unpack(v: int, n: int) -> np.ndarray:
+    return np.frombuffer(v.to_bytes(8 * n, "little"), "<u8").astype(
+        np.uint32)
+
+
+def threefry2x32_words(keys: np.ndarray, x1) -> np.ndarray:
+    """``threefry2x32(keys[i], 0, x1[i])`` for every row ``i`` at once:
+    ``keys`` (N, 2) uint32 key words, ``x1`` (N,) counters (or one for
+    every row) -> (N, 2) uint32. The N lanes ride in one Python integer
+    64 bits apart, so each of the cipher's ~200 adds, shifts and xors is
+    one big-integer op over every lane (a constant in every lane is the
+    constant times ``ones``). The per-slot keys of sampling evolve here,
+    on the host."""
+    keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+    n = keys.shape[0]
+    ones = ((1 << (64 * n)) - 1) // ((1 << 64) - 1)     # 1 in every lane
+    m = _M32 * ones
+    k0, k1 = _pack(keys[:, 0]), _pack(keys[:, 1])
+    ks = (k0, k1, k0 ^ k1 ^ (_PARITY * ones))
+    x1 = (int(x1) * ones if np.ndim(x1) == 0
+          else _pack(np.asarray(x1, np.uint64).reshape(n)))
+    y0, y1 = k0, (x1 + k1) & m
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            y0 = (y0 + y1) & m
+            y1 = (((y1 << r) | (y1 >> (32 - r))) & m) ^ y0
+        y0 = (y0 + ks[(i + 1) % 3]) & m
+        y1 = (y1 + ks[(i + 2) % 3] + (i + 1) * ones) & m
+    return np.stack([_unpack(y0, n), _unpack(y1, n)], axis=1)
+
+
 def key(seed: int) -> Key:
     """The key of ``seed`` (``jax.random.key`` under JAX's default 32-bit
     mode): the high word 0, the low word ``seed & 0xFFFFFFFF``."""

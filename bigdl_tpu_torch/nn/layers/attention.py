@@ -16,10 +16,11 @@ differences from the JAX code:
   lifetime and never copies it, which is the memory the JAX package
   recovers by donating the cache to every jitted call;
 - the step API ported is the language model's paged one:
-  ``init_paged_cache``, ``prefill_paged`` (prompt chunks) and
-  ``decode_step_paged`` (one token per slot, no external bias), with
-  float or int8 pools. The dense slot-table cache and the speculative
-  verify step come with later slices.
+  ``init_paged_cache``, ``prefill_paged`` (prompt chunks),
+  ``decode_step_paged`` (one token per slot, no external bias) and
+  ``decode_verify_paged`` (the speculative verify step: W candidate rows
+  per slot, no external bias), with float or int8 pools. The dense
+  slot-table cache comes with a later slice.
 
 In training mode the forward takes a threefry key (``model(ids,
 rng=key)``); every dropout draws its mask from it under its JAX module
@@ -136,7 +137,43 @@ class Attention(nn.Module):
         pks, pvs = paged.get("k_scale"), paged.get("v_scale")
         int8_kv = pks is not None
         page_size = pk.shape[2]
-        if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
+        per_slot = (isinstance(cache_index, torch.Tensor)
+                    and cache_index.dim() == 1)
+        if per_slot and q.shape[2] > 1:
+            # verify (speculative decoding): W candidate rows per slot at
+            # positions cache_index .. cache_index+W-1; map is (S, ppn).
+            # Rows past the lane end (a slot running out its budget
+            # mid-verify) go to the trash page. The rows are scattered,
+            # then every slot's lane gathered, and B2 attends W rows
+            # against it under the validity bias. Rejected candidates'
+            # rows stay: they sit past the slot's rewound position,
+            # masked until a later verify overwrites them.
+            if bias is not None:
+                raise ValueError(
+                    "paged verify attention takes no external bias")
+            page_map = paged["map"].long()
+            ppn = page_map.shape[1]
+            pos = cache_index.long()[:, None] + torch.arange(
+                q.shape[2], device=q.device)[None, :]          # (S, W)
+            pg = torch.gather(page_map, 1,
+                              (pos // page_size).clamp(0, ppn - 1))
+            trash = paged.get("trash")
+            if trash is not None:
+                pg = torch.where(pos < ppn * page_size, pg,
+                                 torch.full_like(pg, int(trash)))
+            row = pos % page_size
+            _scatter_rows(pk, pks, pg, row, k.transpose(1, 2))
+            _scatter_rows(pv, pvs, pg, row, v.transpose(1, 2))
+            lk = gather_kv_lanes(pk, page_map)             # (S, H, L, D)
+            lv = gather_kv_lanes(pv, page_map)
+            if int8_kv:
+                lk = dequantize_lanes(lk, gather_scale_lanes(pks, page_map))
+                lv = dequantize_lanes(lv, gather_scale_lanes(pvs, page_map))
+            cols = torch.arange(lk.shape[2], device=q.device)
+            validity = torch.where(cols[None, None, :] <= pos[:, :, None],
+                                   0.0, -1e9)[:, None]     # (S, 1, W, L)
+            out = dot_product_attention(q, lk, lv, validity)
+        elif per_slot:
             # decode: one token per slot; map is (S, ppn)
             if bias is not None:
                 raise NotImplementedError(
@@ -500,6 +537,34 @@ class Transformer(nn.Module):
                                     use_kernel=use_kernel))
         x = self.final_norm(x)
         return self._logits(x)[:, 0, :], cache
+
+    def decode_verify_paged(self, cache: Cache, tokens, positions,
+                            page_map, trash: int):
+        """The verify step of speculative decoding: ``tokens`` (S, W) are
+        each slot's last accepted token and its W-1 draft candidates,
+        ``positions`` (S,) the cache row the first of them writes. Writes
+        K/V rows ``positions .. positions+W-1`` (rows past the lane end go
+        to ``trash``) and returns ``(logits (S, W, vocab), cache)``: row
+        ``i`` scores the token after the candidate at ``positions + i``,
+        which plain decode would take W steps to score. The pools update
+        in place."""
+        tokens = self._as_ids(tokens)
+        positions = torch.as_tensor(positions, device=self.device).to(
+            torch.int32)
+        page_map = torch.as_tensor(page_map, device=self.device).to(
+            torch.int32)
+        page_size = next(iter(cache.values()))[0].shape[2]
+        max_len = page_map.shape[1] * page_size
+        x = self.embedding[tokens] * (self.hidden_size ** 0.5)  # (S, W, h)
+        pos = positions.long()[:, None] + torch.arange(
+            tokens.shape[1], device=self.device)[None, :]
+        x = x + self._positions(max_len, x.dtype)[pos.clamp(0, max_len - 1)]
+        for name, layer in self._decoders():
+            x, cache[name] = layer(
+                x, cache_index=positions,
+                paged=_paged_inputs(cache[name], map=page_map,
+                                    trash=int(trash)))
+        return self._logits(self.final_norm(x)), cache
 
 
 def _paged_inputs(entry, **extra) -> dict:

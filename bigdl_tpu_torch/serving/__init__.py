@@ -1,10 +1,12 @@
-"""Serving tier: paged continuous-batching generation."""
+"""Serving tier: paged continuous-batching generation, greedy or sampled,
+plain or speculative."""
 
 from bigdl_tpu_torch.serving.batcher import bucket_sizes_for
 from bigdl_tpu_torch.serving.engine import (
     GenerationEngine,
     GenerationStream,
     PagedDecodeKernels,
+    SpeculativeKernels,
     static_generate,
 )
 from bigdl_tpu_torch.serving.errors import (
@@ -18,5 +20,6 @@ from bigdl_tpu_torch.serving.paging import PagePool, page_bytes, pages_per_lane
 
 __all__ = ["DeadlineExceeded", "GenerationEngine", "GenerationStream",
            "Overloaded", "PagePool", "PagedDecodeKernels", "ServingError",
-           "ServingMetrics", "StreamCancelled", "bucket_sizes_for",
-           "page_bytes", "pages_per_lane", "static_generate"]
+           "ServingMetrics", "SpeculativeKernels", "StreamCancelled",
+           "bucket_sizes_for", "page_bytes", "pages_per_lane",
+           "static_generate"]

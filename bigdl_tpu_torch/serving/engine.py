@@ -34,9 +34,22 @@ scale pools, and the decode step's attention runs kernel B3-int8. The
 metrics report ``quantized_gemms``, ``kv_cache_dtype`` and
 ``kv_bytes_in_use`` (scale pools included).
 
-This slice decodes greedily; sampling, speculative decoding, prefix
-caching, KV tiers, disaggregation, grammar masks, async scheduling,
-tensor parallelism, faults and tracing come with later slices.
+Sampling: ``submit(temperature=, top_k=, top_p=, seed=)`` samples inside
+the step from a per-request threefry key; the key defaults to a pure
+function of the engine's ``seed`` and the prompt, so sampled streams, like
+greedy ones, are the same across runs, admission orders and schedulers
+(``static_generate(sampling=...)``).
+
+Speculative decoding: ``speculate=(draft_model, k)`` pairs the target with
+a cheap draft of the same vocabulary. Each iteration runs k+1 draft decode
+steps (the +1 pre-writes the bonus row of the draft's cache, so a full
+acceptance leaves no hole) and ONE target verify forward over all k
+candidates; the two models' lanes sit side by side in the one page pool,
+tagged ``"target"`` and ``"draft"``. Greedy speculative output is the
+plain engine's token for token.
+
+Prefix caching, KV tiers, disaggregation, grammar masks, async
+scheduling, tensor parallelism, faults and tracing come with later slices.
 """
 
 from __future__ import annotations
@@ -53,11 +66,20 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.device import DeviceLike, resolve_device
+from bigdl_tpu_torch.core.rng import request_seed, threefry_key_data
 from bigdl_tpu_torch.nn.quantized import (
     count_quantized_gemms,
     quantize_for_serving,
 )
-from bigdl_tpu_torch.ops.sampling import check_greedy, greedy_tokens
+from bigdl_tpu_torch.ops.sampling import (
+    EXTRA_STREAM,
+    check_no_bias,
+    check_temperature,
+    draft_sample,
+    position_sample,
+    sample_tokens,
+    speculative_sample,
+)
 from bigdl_tpu_torch.serving.batcher import bucket_sizes_for
 from bigdl_tpu_torch.serving.errors import (
     DeadlineExceeded,
@@ -107,29 +129,20 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-class PagedDecodeKernels:
-    """The ``(prefill, chunk, decode)`` triple over a paged model
-    (``init_paged_cache`` / ``prefill_paged`` / ``decode_step_paged``).
-    Host inputs (numpy or lists) are copied to the model's device; only
-    the int32 next-token vector comes back. Greedy selection runs on the
-    device."""
+class _PagedKernels:
+    """What both kernel sets share: the target ``model``, its device, and
+    the non-final prompt chunk."""
 
     def __init__(self, model):
         self.model = model
         self.device = next(model.parameters()).device
 
     def _ids(self, a) -> torch.Tensor:
+        """Host ids (numpy or lists) copied to the model's device as int32;
+        a device tensor (a draft step's tokens) stays where it is."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, torch.int32)
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
-
-    @torch.inference_mode()
-    def prefill(self, cache, pages, tokens, start: int, length: int,
-                trash: int):
-        """Final (or only) chunk of one prompt: writes its K/V rows and
-        returns ``(first generated token (device int32 scalar), cache)``."""
-        logits, cache = self.model.prefill_paged(
-            cache, self._ids(pages), self._ids(tokens), int(start),
-            int(length), int(trash))
-        return greedy_tokens(logits), cache
 
     @torch.inference_mode()
     def chunk(self, cache, pages, tokens, start: int, length: int,
@@ -139,14 +152,143 @@ class PagedDecodeKernels:
             cache, self._ids(pages), self._ids(tokens), int(start),
             int(length), int(trash), need_logits=False)
 
+
+class PagedDecodeKernels(_PagedKernels):
+    """The ``(prefill, chunk, decode)`` triple over a paged model
+    (``init_paged_cache`` / ``prefill_paged`` / ``decode_step_paged``).
+    Host inputs (numpy or lists) are copied to the model's device; only
+    the int32 next-token vector comes back. Token selection runs on the
+    device: greedy argmax, or sampling from per-slot ``temperature`` /
+    ``top_k`` / ``top_p`` under per-slot threefry keys, split once per call
+    (``ops.sampling.sample_tokens``). A non-None ``bias`` (the grammar
+    mask) raises ``NotImplementedError``."""
+
     @torch.inference_mode()
-    def decode(self, cache, tokens, positions, page_map):
-        """One decode step for every slot -> ``(next token per slot (S,)
-        device int32, cache)``."""
+    def prefill(self, cache, pages, tokens, start: int, length: int,
+                trash: int, temperature: float = 0.0, top_k: int = 0,
+                top_p: float = 1.0, key=None, bias=None):
+        """Final (or only) chunk of one prompt: writes its K/V rows and
+        samples the first generated token under ``key`` (2,). Returns
+        ``(token (device int32 scalar), new key (1, 2), cache)``."""
+        check_no_bias(bias)
+        key = np.zeros(2, np.uint32) if key is None else key
+        logits, cache = self.model.prefill_paged(
+            cache, self._ids(pages), self._ids(tokens), int(start),
+            int(length), int(trash))
+        toks, new_key = sample_tokens(
+            logits[None], [temperature], [top_k], [top_p],
+            np.asarray(key, np.uint32).reshape(1, 2))
+        return toks[0], new_key, cache
+
+    @torch.inference_mode()
+    def decode(self, cache, tokens, positions, page_map, temps, top_ks,
+               top_ps, keys, bias=None):
+        """One decode step for every slot with its sampling parameters and
+        key (host arrays (S,) and (S, 2)) -> ``(next token per slot (S,)
+        device int32, new keys (S, 2), cache)``."""
+        check_no_bias(bias)
         logits, cache = self.model.decode_step_paged(
             cache, self._ids(tokens), self._ids(positions),
             self._ids(page_map))
-        return greedy_tokens(logits), cache
+        toks, new_keys = sample_tokens(logits, temps, top_ks, top_ps, keys)
+        return toks, new_keys, cache
+
+
+class SpeculativeKernels(_PagedKernels):
+    """The kernel set of draft-verified (speculative) generation over two
+    paged models with one vocabulary: the ``draft_model`` proposes
+    candidates with ordinary decode steps and the ``model`` (the target)
+    scores them all in ONE verify forward
+    (``Transformer.decode_verify_paged``), whose logits feed the rejection
+    sampler (``ops.sampling.speculative_sample``).
+
+    - ``prefill`` / ``chunk``: the target's prompt path, the first token
+      drawn with the position-keyed draw (EXTRA_STREAM, output position 0)
+      instead of a key split, so a stream is a pure function of its
+      request whatever the acceptance history;
+    - ``draft_write``: a prompt chunk through the draft (K/V writes only);
+    - ``draft``: one draft decode step for every slot, sampled into
+      ``(tokens, dists)``; tokens stay on the device, to feed the next
+      draft step without a host round trip;
+    - ``verify``: the target's step over ``[last token, d_1..d_k]`` plus
+      the rejection sampler -> ``(n_accepted, tokens, cache)``.
+
+    Keys are each slot's constant request key; draws fold in the stream
+    and the output position. A non-None ``bias`` raises
+    ``NotImplementedError``."""
+
+    def __init__(self, model, draft_model):
+        if not hasattr(draft_model, "decode_step_paged"):
+            raise ValueError(
+                "speculative decoding needs a PAGED draft model "
+                "(decode_step_paged — see nn.Transformer)")
+        if getattr(model, "vocab_size", None) != getattr(
+                draft_model, "vocab_size", None):
+            raise ValueError(
+                f"draft and target models must share one vocabulary, got "
+                f"{getattr(draft_model, 'vocab_size', None)} vs "
+                f"{getattr(model, 'vocab_size', None)}")
+        super().__init__(model)
+        self.draft_model = draft_model
+
+    @torch.inference_mode()
+    def prefill(self, cache, pages, tokens, start: int, length: int,
+                trash: int, temperature: float = 0.0, top_k: int = 0,
+                top_p: float = 1.0, key=None, bias=None):
+        """Final (or only) chunk of one prompt through the target; the
+        first token is the EXTRA_STREAM draw at output position 0 of
+        ``key``. -> ``(token (device int32 scalar), cache)``."""
+        check_no_bias(bias)
+        key = np.zeros(2, np.uint32) if key is None else key
+        logits, cache = self.model.prefill_paged(
+            cache, self._ids(pages), self._ids(tokens), int(start),
+            int(length), int(trash))
+        tok, _ = position_sample(
+            logits[None], [temperature], [top_k], [top_p],
+            np.asarray(key, np.uint32).reshape(1, 2), EXTRA_STREAM, [0])
+        return tok[0], cache
+
+    @torch.inference_mode()
+    def draft_write(self, dcache, pages, tokens, start: int, length: int,
+                    trash: int):
+        """A prompt chunk through the draft, final or not (the draft never
+        samples during prefill). -> draft cache."""
+        return self.draft_model.prefill_paged(
+            dcache, self._ids(pages), self._ids(tokens), int(start),
+            int(length), int(trash), need_logits=False)
+
+    @torch.inference_mode()
+    def draft(self, dcache, tokens, positions, page_map, temps, top_ks,
+              top_ps, keys, out_pos, bias=None):
+        """One draft decode step for every slot (``tokens`` a host array or
+        the previous draft step's device tensor) -> ``(tokens (S,) device
+        int32, dists (S, V), draft cache)``."""
+        check_no_bias(bias)
+        logits, dcache = self.draft_model.decode_step_paged(
+            dcache, self._ids(tokens), self._ids(positions),
+            self._ids(page_map))
+        toks, dists = draft_sample(logits, temps, top_ks, top_ps, keys,
+                                   out_pos)
+        return toks, dists, dcache
+
+    @torch.inference_mode()
+    def verify(self, cache, last_tokens, draft_tokens, positions, page_map,
+               trash: int, temps, top_ks, top_ps, keys, out_base,
+               draft_dists, bias=None):
+        """The target's verify forward and the rejection sampler.
+        ``draft_tokens`` / ``draft_dists`` are the k draft steps' outputs.
+        -> ``(n_accepted (S,), tokens (S, k+1), cache)`` on the device."""
+        check_no_bias(bias)
+        d_tokens = torch.stack([self._ids(t) for t in draft_tokens], dim=1)
+        tokens = torch.cat([self._ids(last_tokens)[:, None], d_tokens],
+                           dim=1)
+        logits, cache = self.model.decode_verify_paged(
+            cache, tokens, self._ids(positions), self._ids(page_map),
+            int(trash))
+        n_acc, out = speculative_sample(
+            logits, d_tokens, torch.stack(list(draft_dists), dim=1), temps,
+            top_ks, top_ps, keys, out_base)
+        return n_acc, out, cache
 
 
 class GenerationStream:
@@ -227,14 +369,25 @@ class GenerationStream:
 
 
 class _GenRequest:
-    __slots__ = ("prompt", "max_new_tokens", "deadline", "stream")
+    __slots__ = ("prompt", "max_new_tokens", "deadline", "stream",
+                 "temperature", "top_k", "top_p", "seed")
 
     def __init__(self, prompt: List[int], max_new_tokens: int,
-                 deadline: Optional[float], stream: GenerationStream):
+                 deadline: Optional[float], stream: GenerationStream,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, seed: Optional[int] = None):
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
         self.deadline = deadline
         self.stream = stream
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.seed = seed
+
+    @property
+    def sampled(self) -> bool:
+        return self.temperature > 0.0
 
 
 class _SlotState:
@@ -242,10 +395,12 @@ class _SlotState:
     "prefill", flipped to "decode" once the final prompt chunk has run."""
 
     __slots__ = ("req", "last_token", "position", "generated", "phase",
-                 "pages", "page_row", "prefill_pos")
+                 "pages", "page_row", "prefill_pos", "draft_pages",
+                 "dpage_row")
 
     def __init__(self, req: _GenRequest, pages: List[int], page_row,
-                 pad_id: int):
+                 pad_id: int, draft_pages: Optional[List[int]] = None,
+                 dpage_row=None):
         self.req = req
         self.last_token = pad_id
         self.position = 0          # cache row the NEXT token writes
@@ -254,6 +409,8 @@ class _SlotState:
         self.pages: Optional[List[int]] = pages
         self.page_row = page_row   # (ppn,) int32 map row
         self.prefill_pos = 0       # next prompt index to prefill
+        self.draft_pages = draft_pages   # the draft's lane (speculative)
+        self.dpage_row = dpage_row
 
 
 class _Core:
@@ -293,9 +450,7 @@ def _fail_streams(core: _Core, error: BaseException,
         core.active.clear()
     if engine is not None:
         for slot, st in states:
-            engine._pool.release(st.pages or ())
-            st.pages = None
-            engine._page_map[slot] = engine._pool.trash
+            engine._release_lanes(slot, st)
         engine._report_pages()
     for r in reqs:
         r.stream._finish(error)
@@ -346,16 +501,20 @@ def _notify_core(core: _Core) -> None:
 
 
 class GenerationEngine:
-    """Continuous-batching greedy generation over a paged language model
+    """Continuous-batching generation over a paged language model
     (``nn.layers.attention.Transformer``).
 
-    ``submit(prompt, max_new_tokens=..., deadline=...)`` returns a
-    :class:`GenerationStream`. ``warmup()`` runs every kernel shape once
-    (and, on a card, builds the CUDA kernels) before traffic. ``device``
-    defaults to ``"cuda"`` and must be where the model's parameters are.
-    ``quantize="int8"`` serves an int8 copy of ``model`` (the caller's
-    model is untouched); ``cache_dtype=torch.int8`` keeps int8 KV pages
-    with per-token fp32 scales.
+    ``submit(prompt, max_new_tokens=..., deadline=..., temperature=...,
+    top_k=..., top_p=..., seed=...)`` returns a :class:`GenerationStream`.
+    ``warmup()`` runs every kernel shape once (and, on a card, builds the
+    CUDA kernels) before traffic. ``device`` defaults to ``"cuda"`` and
+    must be where the model's parameters are. ``quantize="int8"`` serves
+    an int8 copy of ``model`` (and of the draft; the caller's models are
+    untouched); ``cache_dtype=torch.int8`` keeps int8 KV pages with
+    per-token fp32 scales. ``seed`` is the engine's base seed for the
+    requests that name none. ``speculate=(draft_model, k)`` serves
+    draft-verified: k candidates per round from ``draft_model``, one
+    verify forward of ``model``.
     """
 
     def __init__(self, model, *, device: DeviceLike = None,
@@ -364,22 +523,36 @@ class GenerationEngine:
                  eos_id: Optional[int] = None, pad_id: int = 0,
                  max_queue: int = 64,
                  cache_dtype: torch.dtype = torch.float32,
-                 kernels: Optional[PagedDecodeKernels] = None,
+                 kernels=None,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, seed: int = 0,
+                 speculate: Optional[tuple] = None):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if max_len < 2:
             raise ValueError("max_len must be >= 2 (prompt + 1 token)")
         self.device = _model_device(model, device)
+        self.speculative = speculate is not None
+        self.draft_model, self.spec_k = _speculate_knob(speculate)
+        if kernels is not None and hasattr(kernels, "verify") \
+                != self.speculative:
+            # half of either is a silent wrong-mode engine
+            raise ValueError(
+                "speculate=(draft_model, k) and SpeculativeKernels go "
+                "together: pass both or neither")
         model = _serving_model(model, quantize, kernels)
+        if self.speculative:
+            _model_device(self.draft_model, device)
+            self.draft_model = _serving_model(self.draft_model, quantize,
+                                              kernels)
         self.model = model
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
         self.eos_id = None if eos_id is None else int(eos_id)
         self.pad_id = int(pad_id)
         self.max_queue = int(max_queue)
+        self.seed = int(seed)
         self.metrics = ServingMetrics()
         self.max_prompt_len = int(max_prompt_len or (max_len - 1))
         if not 1 <= self.max_prompt_len < self.max_len:
@@ -393,9 +566,14 @@ class GenerationEngine:
         self.prompt_buckets = bucket_sizes_for(
             min(self.max_prompt_len, self.prefill_chunk))
         ppn = pages_per_lane(self.max_len, self.page_size)
-        self.num_pages = int(num_pages or self.max_slots * ppn)
+        # a speculative slot reserves a target lane and a draft lane
+        self._lanes = 2 if self.speculative else 1
+        self.num_pages = int(num_pages or self.max_slots * ppn * self._lanes)
         self._pool = PagePool(self.num_pages, self.page_size, self.max_len)
-        self.kernels = kernels or PagedDecodeKernels(model)
+        if kernels is None:
+            kernels = (SpeculativeKernels(model, self.draft_model)
+                       if self.speculative else PagedDecodeKernels(model))
+        self.kernels = kernels
         self.metrics.set_quantized_gemms(
             count_quantized_gemms(self.kernels.model))
         self._cache = model.init_paged_cache(self.num_pages + 1,
@@ -403,12 +581,25 @@ class GenerationEngine:
         # what one reserved page costs across all layers, scale pools
         # included: the kv_bytes_in_use gauge
         self.cache_dtype_name = _dtype_name(cache_dtype)
-        self._kv_page_bytes = model.num_hidden_layers * page_bytes(
-            self.page_size, model.num_heads,
-            model.hidden_size // model.num_heads, cache_dtype)
-        # the decode step's page map; rows change on admission/retirement
+        self._kv_page_bytes = _lane_page_bytes(model, self.page_size,
+                                               cache_dtype)
+        # the decode step's inputs; rows change on admission/retirement.
+        # A plain engine's keys evolve by one split per step; a
+        # speculative engine's stay each slot's request key (its draws
+        # fold in the output position)
         self._page_map = np.full((self.max_slots, ppn), self._pool.trash,
                                  np.int32)
+        self._temps = np.zeros((self.max_slots,), np.float32)
+        self._top_ks = np.zeros((self.max_slots,), np.int32)
+        self._top_ps = np.ones((self.max_slots,), np.float32)
+        self._keys = np.zeros((self.max_slots, 2), np.uint32)
+        if self.speculative:
+            self._dcache = self.draft_model.init_paged_cache(
+                self.num_pages + 1, self.page_size, cache_dtype)
+            self._dpage_map = np.full((self.max_slots, ppn),
+                                      self._pool.trash, np.int32)
+            self._kv_dpage_bytes = _lane_page_bytes(
+                self.draft_model, self.page_size, cache_dtype)
         self._report_pages()
         self._failed: Optional[BaseException] = None
         self._core = _Core(self.max_slots)
@@ -423,13 +614,22 @@ class GenerationEngine:
     def submit(self, prompt: Sequence[int], *,
                max_new_tokens: Optional[int] = None,
                deadline: Optional[float] = None,
-               temperature: float = 0.0) -> GenerationStream:
+               temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 1.0,
+               seed: Optional[int] = None) -> GenerationStream:
         """Enqueue one prompt (token ids). ``max_new_tokens`` caps the
         generation (default: whatever fits in ``max_len``); ``deadline``
         is seconds from now. Raises :class:`Overloaded` when the pending
-        queue is full and ``NotImplementedError`` for ``temperature > 0``
-        (this slice decodes greedily)."""
-        check_greedy(float(temperature))
+        queue is full.
+
+        ``temperature > 0`` samples inside the step, optionally filtered
+        by ``top_k`` / nucleus ``top_p``; ``temperature=0`` (default) is
+        greedy argmax. The stream's key defaults to a pure function of
+        the engine's seed and the prompt, so sampled output is the same
+        across runs and admission orders; ``seed`` gives byte-identical
+        prompts distinct streams."""
+        temperature = float(temperature)
+        check_temperature(temperature)
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -441,7 +641,8 @@ class GenerationEngine:
                                                       room)
         if mnt < 1:
             raise ValueError("no room to generate even one token")
-        need = self._pool.pages_for(min(len(prompt) + mnt - 1, self.max_len))
+        need = self._lanes * self._pool.pages_for(
+            min(len(prompt) + mnt - 1, self.max_len))
         if need > self.num_pages:
             # a reservation the pool can never satisfy would block the FIFO
             # head forever: reject it on the caller's thread instead
@@ -452,7 +653,10 @@ class GenerationEngine:
         stream = GenerationStream()
         req = _GenRequest(prompt, mnt,
                           None if deadline is None
-                          else stream.t_submit + float(deadline), stream)
+                          else stream.t_submit + float(deadline), stream,
+                          temperature=temperature, top_k=int(top_k),
+                          top_p=float(top_p),
+                          seed=None if seed is None else int(seed))
         core = self._core
         with core.lock:
             if self._failed is not None:
@@ -469,12 +673,9 @@ class GenerationEngine:
         return stream
 
     def generate(self, prompt: Sequence[int], *,
-                 max_new_tokens: Optional[int] = None,
-                 deadline: Optional[float] = None,
-                 timeout: Optional[float] = None) -> List[int]:
-        """Blocking convenience: ``submit(...).result(timeout)``."""
-        return self.submit(prompt, max_new_tokens=max_new_tokens,
-                           deadline=deadline).result(timeout)
+                 timeout: Optional[float] = None, **knobs) -> List[int]:
+        """Blocking convenience: ``submit(prompt, **knobs).result(timeout)``."""
+        return self.submit(prompt, **knobs).result(timeout)
 
     # ------------------------------------------------- loop internals ----
     # Everything below runs on the loop thread only (except warmup, which
@@ -483,19 +684,22 @@ class GenerationEngine:
     def _step(self) -> None:
         """One scheduler iteration: admit pending prompts into free slots
         (FIFO, while the pool covers the head's full reservation), advance
-        one chunk per prefilling slot, one decode step over every decoding
-        slot."""
+        one chunk per prefilling slot, then one decode step (or one
+        speculative round) over every decoding slot."""
         core = self._core
         self._admit_and_prefill()
         with core.lock:
             active = sorted((s, st) for s, st in core.active.items()
                             if st.phase == "decode")
         if active:
-            self._decode_once(active)
+            if self.speculative:
+                self._speculative_round(active)
+            else:
+                self._decode_once(active)
 
     def _pages_needed(self, req: _GenRequest) -> int:
-        # rows written = prompt + generated - 1 (the last token is
-        # returned but never written back)
+        # pages per lane: rows written = prompt + generated - 1 (the last
+        # token is returned but never written back)
         return self._pool.pages_for(
             min(len(req.prompt) + req.max_new_tokens - 1, self.max_len))
 
@@ -506,7 +710,7 @@ class GenerationEngine:
                 if not core.pending or not core.free:
                     break
                 if not self._pool.can_reserve(
-                        self._pages_needed(core.pending[0])):
+                        self._lanes * self._pages_needed(core.pending[0])):
                     break   # page pressure delays the FIFO head, never reorders
                 req = core.pending.popleft()
             self._admit_paged(req)
@@ -516,11 +720,21 @@ class GenerationEngine:
         for slot, st in prefilling:
             self._prefill_chunk_once(slot, st)
 
+    def _request_key(self, req: _GenRequest) -> np.ndarray:
+        seed = req.seed
+        if seed is None:
+            seed = request_seed(
+                self.seed, np.asarray(req.prompt, np.int32).tobytes(),
+                len(req.prompt))
+        return threefry_key_data(seed)
+
     def _admit_paged(self, req: _GenRequest) -> None:
-        """Reserve a slot and the request's full page budget. The slot's
-        row of the decode page map stays on the trash page until its final
-        prompt chunk has run: interleaved decode steps write a pad row for
-        every slot, prefilling ones included."""
+        """Reserve a slot and the request's full page budget (both lanes
+        of a speculative slot). The slot's decode page-map row and its
+        sampling parameters and key stay parked (trash page, greedy, zero
+        key) until its final prompt chunk has run: interleaved decode
+        steps write a pad row for every slot, prefilling ones included,
+        and split every slot's key."""
         now = time.monotonic()
         why = self._retire_why(None, req, now)
         if why is not None:
@@ -530,11 +744,19 @@ class GenerationEngine:
         with core.lock:
             core.free.sort()
             slot = core.free.pop(0)
-        pages = self._pool.alloc(self._pages_needed(req))
-        row = np.full((self._pool.pages_per_slot,), self._pool.trash,
-                      np.int32)
-        row[:len(pages)] = pages
-        st = _SlotState(req, pages, row, self.pad_id)
+        need = self._pages_needed(req)
+
+        def lane(owner):
+            pages = self._pool.alloc(need, owner=owner)
+            row = np.full((self._pool.pages_per_slot,), self._pool.trash,
+                          np.int32)
+            row[:len(pages)] = pages
+            return pages, row
+
+        pages, row = lane("target")
+        draft_pages, drow = lane("draft") if self.speculative else (None,
+                                                                    None)
+        st = _SlotState(req, pages, row, self.pad_id, draft_pages, drow)
         with core.lock:
             core.active[slot] = st
         self._report_pages()
@@ -542,7 +764,8 @@ class GenerationEngine:
     def _prefill_chunk_once(self, slot: int, st: _SlotState) -> None:
         """Advance one prompt chunk of a prefilling slot. Non-final chunks
         are exactly ``prefill_chunk`` tokens; the final chunk is
-        bucket-padded and yields the first generated token."""
+        bucket-padded, arms the slot's sampling parameters and key, and
+        yields the first generated token."""
         req = st.req
         now = time.monotonic()
         why = self._retire_why(None, req, now)
@@ -554,10 +777,15 @@ class GenerationEngine:
         start = st.prefill_pos
         remaining = len(prompt) - start
         if remaining > self.prefill_chunk:
+            piece = prompt[start:start + self.prefill_chunk]
             self._cache = self.kernels.chunk(
-                self._cache, st.page_row,
-                prompt[start:start + self.prefill_chunk], start,
-                self.prefill_chunk, self._pool.trash)
+                self._cache, st.page_row, piece, start, self.prefill_chunk,
+                self._pool.trash)
+            if self.speculative:
+                # the draft needs the prompt in its own cache to propose
+                self._dcache = self.kernels.draft_write(
+                    self._dcache, st.dpage_row, piece, start,
+                    self.prefill_chunk, self._pool.trash)
             st.prefill_pos += self.prefill_chunk
             st.position = st.prefill_pos
             self.metrics.record_chunk()
@@ -565,13 +793,35 @@ class GenerationEngine:
         bucket = next(b for b in self.prompt_buckets if b >= remaining)
         padded = np.full((bucket,), self.pad_id, np.int32)
         padded[:remaining] = prompt[start:]
-        tok_dev, self._cache = self.kernels.prefill(
-            self._cache, st.page_row, padded, start, remaining,
-            self._pool.trash)
+        self._temps[slot] = req.temperature
+        self._top_ks[slot] = req.top_k
+        self._top_ps[slot] = req.top_p
+        # the request's key, fresh here: token i draws from split i (or,
+        # speculative, from output position i) whatever decode traffic
+        # ran during the prefill
+        key = self._request_key(req)
+        sampling = (self._temps[slot], self._top_ks[slot],
+                    self._top_ps[slot], key)
+        if self.speculative:
+            tok_dev, self._cache = self.kernels.prefill(
+                self._cache, st.page_row, padded, start, remaining,
+                self._pool.trash, *sampling)
+            self._dcache = self.kernels.draft_write(
+                self._dcache, st.dpage_row, padded, start, remaining,
+                self._pool.trash)
+            self._keys[slot] = key
+            self._dpage_map[slot] = st.dpage_row
+        else:
+            tok_dev, new_key, self._cache = self.kernels.prefill(
+                self._cache, st.page_row, padded, start, remaining,
+                self._pool.trash, *sampling)
+            self._keys[slot] = new_key[0]
         tok = int(tok_dev.item())
         self._page_map[slot] = st.page_row   # K/V written: go live
         now = time.monotonic()
         self.metrics.record_prefill(now - req.stream.t_submit)
+        if req.sampled:
+            self.metrics.record_sampled(1)
         req.stream._push(tok)
         st.phase = "decode"
         st.last_token = tok
@@ -582,42 +832,129 @@ class GenerationEngine:
             self._release_slot(slot, st)
             self._finish_request(req, why)
 
-    def _decode_once(self, active: List[Tuple[int, _SlotState]]) -> None:
-        tokens = np.zeros((self.max_slots,), np.int32)
-        positions = np.zeros((self.max_slots,), np.int32)
+    def _step_inputs(self, active) -> Tuple[np.ndarray, ...]:
+        """Each active slot's last token, its position and its tokens so
+        far; zeros for the other slots."""
+        tokens, positions, generated = (
+            np.zeros((self.max_slots,), np.int32) for _ in range(3))
         for slot, st in active:
             tokens[slot] = st.last_token
             positions[slot] = st.position
-        toks_dev, self._cache = self.kernels.decode(
-            self._cache, tokens, positions, self._page_map)
+            generated[slot] = st.generated
+        return tokens, positions, generated
+
+    def _decode_once(self, active: List[Tuple[int, _SlotState]]) -> None:
+        tokens, positions, _ = self._step_inputs(active)
+        toks_dev, self._keys, self._cache = self.kernels.decode(
+            self._cache, tokens, positions, self._page_map, self._temps,
+            self._top_ks, self._top_ps, self._keys)
         toks = toks_dev.cpu().numpy()
         now = time.monotonic()
         self.metrics.record_decode_step(len(active))
+        sampled = 0
         retired = []
         for slot, st in active:
             tok = int(toks[slot])
             st.last_token = tok
             st.position += 1
             st.generated += 1
+            sampled += st.req.sampled
             st.req.stream._push(tok)
             why = self._retire_why(st, st.req, now)
             if why is not None:
                 retired.append((slot, st, why))
+        if sampled:
+            self.metrics.record_sampled(sampled)
         for slot, st, why in retired:
             self._release_slot(slot, st)
             self._finish_request(st.req, why)
 
+    def _speculative_round(self,
+                           active: List[Tuple[int, _SlotState]]) -> None:
+        """One speculative round over every decoding slot: k+1 draft decode
+        steps, each fed the previous one's tokens on the device (the +1
+        pre-writes the bonus token's row of the draft cache, so a full
+        acceptance leaves no hole), then ONE target verify forward scoring
+        all k candidates, then the host's accept and rollback bookkeeping.
+        Rollback is by position only: rejected candidates' rows sit past
+        the slot's position, masked, until a later round overwrites
+        them."""
+        k = self.spec_k
+        tokens, positions, out_base = self._step_inputs(active)
+        sampling = (self._temps, self._top_ks, self._top_ps, self._keys)
+        d_tokens, d_dists = [], []
+        cur = tokens
+        for i in range(k + 1):
+            # positions clamp at the lane end: a slot about to retire at
+            # max_len keeps its shapes (its proposals there are rejected
+            # or cut by the room cap below)
+            pos_i = np.minimum(positions + i, self.max_len - 1)
+            cur, dist, self._dcache = self.kernels.draft(
+                self._dcache, cur, pos_i, self._dpage_map, *sampling,
+                out_base + i)
+            if i < k:
+                d_tokens.append(cur)
+                d_dists.append(dist)
+        n_dev, out_dev, self._cache = self.kernels.verify(
+            self._cache, tokens, d_tokens, positions, self._page_map,
+            self._pool.trash, *sampling, out_base, d_dists)
+        n_acc = n_dev.cpu().numpy()
+        outs = out_dev.cpu().numpy()
+        now = time.monotonic()
+        self.metrics.record_decode_step(len(active))
+        accepted = pushed_total = sampled = 0
+        retired = []
+        for slot, st in active:
+            room = min(st.req.max_new_tokens - st.generated,
+                       self.max_len - st.position)
+            emit = min(int(n_acc[slot]) + 1, room)
+            pushed = 0
+            for j in range(emit):
+                tok = int(outs[slot, j])
+                st.req.stream._push(tok)
+                pushed += 1
+                if self.eos_id is not None and tok == self.eos_id:
+                    break
+            accepted += min(int(n_acc[slot]), pushed)
+            pushed_total += pushed
+            st.last_token = int(outs[slot, pushed - 1])
+            st.position += pushed
+            st.generated += pushed
+            sampled += pushed if st.req.sampled else 0
+            why = self._retire_why(st, st.req, now)
+            if why is not None:
+                retired.append((slot, st, why))
+        self.metrics.record_verify_step(k * len(active), accepted,
+                                        pushed_total - len(active))
+        if sampled:
+            self.metrics.record_sampled(sampled)
+        for slot, st, why in retired:
+            self._release_slot(slot, st)
+            self._finish_request(st.req, why)
+
+    def _release_lanes(self, slot: int, st: _SlotState) -> None:
+        """Return a slot's pages (both lanes) to the pool, park its map
+        rows on the trash page so the next step can neither read nor
+        clobber a page the next owner gets, and disarm its sampling row."""
+        self._pool.release(st.pages or ())
+        st.pages = None
+        self._page_map[slot] = self._pool.trash
+        if self.speculative:
+            self._pool.release(st.draft_pages or ())
+            st.draft_pages = None
+            self._dpage_map[slot] = self._pool.trash
+        self._temps[slot] = 0.0
+        self._top_ks[slot] = 0
+        self._top_ps[slot] = 1.0
+        self._keys[slot] = 0
+
     def _release_slot(self, slot: int, st: _SlotState) -> None:
-        """Free the slot and its pages; its page-map row parks on the trash
-        page so the next decode step can neither read nor clobber a page
-        the next owner gets."""
+        """Free the slot and its lanes."""
         core = self._core
         with core.lock:
             core.active.pop(slot, None)
             core.free.append(slot)
-        self._pool.release(st.pages or ())
-        st.pages = None
-        self._page_map[slot] = self._pool.trash
+        self._release_lanes(slot, st)
         self._report_pages()
 
     def _retire_why(self, st: Optional[_SlotState], req: _GenRequest,
@@ -653,35 +990,60 @@ class GenerationEngine:
             stream._finish(None)
 
     def _report_pages(self) -> None:
+        """Page occupancy, and the bytes the reserved pages cost: each lane
+        priced at its own model's per-page cost."""
         self.metrics.set_pages(self._pool.in_use, self._pool.num_pages)
-        self.metrics.set_kv_cache(self._pool.in_use * self._kv_page_bytes,
-                                  self.cache_dtype_name)
+        in_bytes = self._pool.in_use_by("target") * self._kv_page_bytes
+        if self.speculative:
+            in_bytes += self._pool.in_use_by("draft") * self._kv_dpage_bytes
+        self.metrics.set_kv_cache(in_bytes, self.cache_dtype_name)
 
     # -------------------------------------------------------- lifecycle ----
 
     def warmup(self) -> None:
-        """Run the decode step, the chunk step (when prompts can be
-        chunked) and every prompt bucket once, before traffic. Every write
-        goes to the trash page. Must run before the first submit."""
+        """Run every kernel shape once before traffic: the decode step (or
+        the draft and verify steps) greedy and sampled, the chunk step
+        (when prompts can be chunked), every prompt bucket, and a sampled
+        first token. On a card the kernels load on their first launch, the
+        sampler's included, so traffic pays none of it. Every write goes
+        to the trash page. Must run before the first submit."""
         core = self._core
         with core.lock:
             if core.pending or core.active:
                 raise RuntimeError("warmup() must run before traffic")
-        trash_row = np.full((self._pool.pages_per_slot,), self._pool.trash,
-                            np.int32)
+        trash = self._pool.trash
+        trash_row = np.full((self._pool.pages_per_slot,), trash, np.int32)
         zeros = np.zeros((self.max_slots,), np.int32)
-        _, self._cache = self.kernels.decode(self._cache, zeros, zeros,
-                                             self._page_map)
-        if self.max_prompt_len > self.prefill_chunk:
-            self._cache = self.kernels.chunk(
-                self._cache, trash_row,
-                np.full((self.prefill_chunk,), self.pad_id, np.int32), 0,
-                self.prefill_chunk, self._pool.trash)
-        for bucket in self.prompt_buckets:
-            _, self._cache = self.kernels.prefill(
-                self._cache, trash_row,
-                np.full((bucket,), self.pad_id, np.int32), 0, bucket,
-                self._pool.trash)
+        ones = np.ones((self.max_slots,), np.float32)
+        kernels = self.kernels
+        for temps in (self._temps, ones):       # greedy, then sampled
+            sampling = (temps, self._top_ks, self._top_ps, self._keys)
+            if self.speculative:
+                tok, dist, self._dcache = kernels.draft(
+                    self._dcache, zeros, zeros, self._dpage_map, *sampling,
+                    zeros)
+                _, _, self._cache = kernels.verify(
+                    self._cache, zeros, [tok] * self.spec_k, zeros,
+                    self._page_map, trash, *sampling, zeros,
+                    [dist] * self.spec_k)
+            else:
+                _, _, self._cache = kernels.decode(
+                    self._cache, zeros, zeros, self._page_map, *sampling)
+        chunks = [(self.prefill_chunk, 0.0, False)] \
+            if self.max_prompt_len > self.prefill_chunk else []
+        finals = [(b, 0.0, True) for b in self.prompt_buckets]
+        for width, temperature, final in chunks + finals + [
+                (self.prompt_buckets[0], 1.0, True)]:
+            pad = np.full((width,), self.pad_id, np.int32)
+            if final:
+                self._cache = kernels.prefill(self._cache, trash_row, pad, 0,
+                                              width, trash, temperature)[-1]
+            else:
+                self._cache = kernels.chunk(self._cache, trash_row, pad, 0,
+                                            width, trash)
+            if self.speculative:
+                self._dcache = kernels.draft_write(
+                    self._dcache, trash_row, pad, 0, width, trash)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -718,102 +1080,278 @@ class GenerationEngine:
         return self._pool.free_pages
 
 
+def _speculate_knob(speculate) -> Tuple[object, int]:
+    """``(draft_model, k)`` from the ``speculate`` knob, or ``(None, 0)``."""
+    if speculate is None:
+        return None, 0
+    try:
+        draft_model, k = speculate
+    except (TypeError, ValueError):
+        raise ValueError("speculate must be a (draft_model, k) pair")
+    if int(k) < 1:
+        raise ValueError("speculate k must be >= 1")
+    return draft_model, int(k)
+
+
+def _lane_page_bytes(model, page_size: int, cache_dtype) -> int:
+    """What one page of ``model``'s lane costs across all its layers."""
+    return model.num_hidden_layers * page_bytes(
+        page_size, model.num_heads, model.hidden_size // model.num_heads,
+        cache_dtype)
+
+
 def static_generate(model, requests, *, max_slots: int, max_len: int,
                     device: DeviceLike = None, eos_id: Optional[int] = None,
                     pad_id: int = 0, cache_dtype: torch.dtype = torch.float32,
-                    kernels: Optional[PagedDecodeKernels] = None,
+                    kernels=None,
                     prompt_buckets: Optional[Sequence[int]] = None,
                     page_size: int = 16, num_pages: Optional[int] = None,
                     prefill_chunk: Optional[int] = None,
-                    quantize: Optional[str] = None):
+                    quantize: Optional[str] = None, seed: int = 0,
+                    sampling: Optional[Sequence[dict]] = None,
+                    speculate: Optional[tuple] = None):
     """Run-to-completion static batching over the same paged kernels the
     engine uses: admit ``max_slots`` requests, decode until every one of
     them finishes, only then admit the next group. ``requests`` is a
     sequence of ``(prompt, max_new_tokens)``; returns ``(token lists,
-    decode steps executed)``. ``quantize`` and ``cache_dtype`` are the
-    engine's knobs (the transform is deterministic, so an int8 engine and
-    an int8 static run emit the same tokens)."""
+    decode steps (or verify rounds) executed)``. ``quantize``,
+    ``cache_dtype``, ``seed`` and ``speculate`` are the engine's knobs;
+    ``sampling`` is an optional per-request list of dicts
+    (``temperature`` / ``top_k`` / ``top_p`` / ``seed``). Seeds derive as
+    the engine's do, so the engine and a static run emit the same
+    streams, greedy or sampled, plain or speculative."""
     _model_device(model, device)
+    draft_model, spec_k = _speculate_knob(speculate)
+    if kernels is not None and hasattr(kernels, "verify") != (
+            speculate is not None):
+        raise ValueError(
+            "speculate=(draft_model, k) and SpeculativeKernels go "
+            "together: pass both or neither")
     model = _serving_model(model, quantize, kernels)
+    if speculate is not None:
+        _model_device(draft_model, device)
+        draft_model = _serving_model(draft_model, quantize, kernels)
+        kernels = kernels or SpeculativeKernels(model, draft_model)
     kernels = kernels or PagedDecodeKernels(model)
     requests = [([int(t) for t in p], int(m)) for p, m in requests]
-    return _static_generate_paged(
-        model, requests, kernels, max_slots=max_slots, max_len=max_len,
-        eos_id=eos_id, pad_id=pad_id, cache_dtype=cache_dtype,
-        prompt_buckets=prompt_buckets, page_size=page_size,
-        num_pages=num_pages, prefill_chunk=prefill_chunk)
+    run = _static_generate_spec if speculate is not None \
+        else _static_generate_paged
+    return run(model, requests, kernels, max_slots=max_slots,
+               max_len=max_len, eos_id=eos_id, pad_id=pad_id,
+               cache_dtype=cache_dtype, prompt_buckets=prompt_buckets,
+               page_size=page_size, num_pages=num_pages,
+               prefill_chunk=prefill_chunk, seed=seed, sampling=sampling,
+               draft_model=draft_model, spec_k=spec_k)
+
+
+class _StaticGroup:
+    """The page pool, maps and per-slot sampling rows of a static run, and
+    the admission of one group's prompts into them."""
+
+    def __init__(self, model, kernels, *, max_slots, max_len, pad_id,
+                 cache_dtype, prompt_buckets, page_size, num_pages,
+                 prefill_chunk, seed, sampling, draft_model, requests):
+        self.lanes = 1 if draft_model is None else 2
+        self.kernels, self.pad_id, self.max_len = kernels, pad_id, max_len
+        self.seed, self.sampling = seed, sampling
+        self.chunk = int(prefill_chunk or min(64, max_len - 1))
+        longest = max(len(p) for p, _ in requests)
+        self.buckets = list(prompt_buckets
+                            or bucket_sizes_for(min(longest, self.chunk)))
+        self.num_pages = int(num_pages or max_slots * self.lanes
+                             * pages_per_lane(max_len, page_size))
+        self.pool = PagePool(self.num_pages, page_size, max_len)
+        self.cache = model.init_paged_cache(self.num_pages + 1, page_size,
+                                            cache_dtype)
+        self.dcache = None if draft_model is None else \
+            draft_model.init_paged_cache(self.num_pages + 1, page_size,
+                                         cache_dtype)
+        shape = (max_slots, self.pool.pages_per_slot)
+        self.page_map = np.full(shape, self.pool.trash, np.int32)
+        self.dpage_map = np.full(shape, self.pool.trash, np.int32)
+        self.temps = np.zeros((max_slots,), np.float32)
+        self.top_ks = np.zeros((max_slots,), np.int32)
+        self.top_ps = np.ones((max_slots,), np.float32)
+        self.keys = np.zeros((max_slots, 2), np.uint32)
+
+    def params(self):
+        return self.temps, self.top_ks, self.top_ps, self.keys
+
+    def admit(self, slot: int, index: int, prompt: List[int], target: int):
+        """Reserve the lanes of request ``index`` in ``slot``, arm its
+        sampling row and run its prompt. -> (first token, pages)."""
+        n = len(prompt)
+        spec = dict(self.sampling[index] or {}) if self.sampling else {}
+        req_seed = spec.get("seed")
+        if req_seed is None:
+            req_seed = request_seed(
+                self.seed, np.asarray(prompt, np.int32).tobytes(), n)
+        self.temps[slot] = float(spec.get("temperature", 0.0))
+        self.top_ks[slot] = int(spec.get("top_k", 0))
+        self.top_ps[slot] = float(spec.get("top_p", 1.0))
+        key = threefry_key_data(req_seed)
+        need = self.pool.pages_for(min(n + target - 1, self.max_len))
+        if not self.pool.can_reserve(self.lanes * need):
+            raise ValueError(
+                f"num_pages={self.num_pages} cannot hold a static group "
+                f"(needs {self.lanes * need} more pages) — grow the pool "
+                f"or shrink max_slots")
+        pages = []
+        for owner, pmap in (("target", self.page_map),
+                            ("draft", self.dpage_map))[:self.lanes]:
+            pages += self.pool.alloc(need, owner=owner)
+            pmap[slot, :] = self.pool.trash
+            pmap[slot, :need] = pages[-need:]
+        kernels, trash = self.kernels, self.pool.trash
+        start = 0
+        while True:
+            final = n - start <= self.chunk
+            width = next(b for b in self.buckets if b >= n - start) \
+                if final else self.chunk
+            piece = np.full((width,), self.pad_id, np.int32)
+            real = min(width, n - start)
+            piece[:real] = prompt[start:start + real]
+            if not final:
+                self.cache = kernels.chunk(self.cache, self.page_map[slot],
+                                           piece, start, width, trash)
+            elif self.dcache is None:
+                tok, new_key, self.cache = kernels.prefill(
+                    self.cache, self.page_map[slot], piece, start, real,
+                    trash, self.temps[slot], self.top_ks[slot],
+                    self.top_ps[slot], key)
+                key = new_key[0]
+            else:
+                tok, self.cache = kernels.prefill(
+                    self.cache, self.page_map[slot], piece, start, real,
+                    trash, self.temps[slot], self.top_ks[slot],
+                    self.top_ps[slot], key)
+            if self.dcache is not None:
+                self.dcache = kernels.draft_write(
+                    self.dcache, self.dpage_map[slot], piece, start, real,
+                    trash)
+            if final:
+                break
+            start += width
+        self.keys[slot] = key
+        return int(tok.item()), pages
+
+    def release(self, pages) -> None:
+        self.pool.release(pages)
+        for a in (self.page_map, self.dpage_map):
+            a[:] = self.pool.trash
+        self.temps[:] = 0.0
+        self.top_ks[:] = 0
+        self.top_ps[:] = 1.0
+        self.keys[:] = 0
+
+
+def _static_groups(model, requests, kernels, *, max_slots, max_len, eos_id,
+                   draft_model, **knobs):
+    """Group-at-a-time admission for the static bodies: yields ``(group
+    state, per-slot dicts)`` for each group of ``max_slots`` requests,
+    with every prompt run and its first token drawn; fills ``outputs`` and
+    releases the group's pages once the caller has run it to
+    completion."""
+    g = _StaticGroup(model, kernels, max_slots=max_slots, max_len=max_len,
+                     draft_model=draft_model, requests=requests, **knobs)
+    for base in range(0, len(requests), max_slots):
+        states = []
+        for slot, (prompt, mnt) in enumerate(
+                requests[base:base + max_slots]):
+            target = min(mnt, max_len - len(prompt))
+            tok, pages = g.admit(slot, base + slot, prompt, target)
+            states.append({
+                "index": base + slot, "tokens": [tok], "last": tok,
+                "pos": len(prompt), "target": target, "pages": pages,
+                "done": (eos_id is not None and tok == eos_id)
+                or target <= 1})
+        yield g, states
+        g.release([p for s in states for p in s["pages"]])
+
+
+def _finished(s, eos_id, max_len) -> bool:
+    return ((eos_id is not None and s["last"] == eos_id)
+            or len(s["tokens"]) >= s["target"] or s["pos"] >= max_len)
 
 
 def _static_generate_paged(model, requests, kernels, *, max_slots, max_len,
-                           eos_id, pad_id, cache_dtype, prompt_buckets,
-                           page_size, num_pages, prefill_chunk):
-    chunk = int(prefill_chunk or min(64, max_len - 1))
-    longest = max(len(p) for p, _ in requests)
-    buckets = list(prompt_buckets or bucket_sizes_for(min(longest, chunk)))
-    num_pages = int(num_pages or max_slots * pages_per_lane(max_len,
-                                                            page_size))
-    pool = PagePool(num_pages, page_size, max_len)
-    cache = model.init_paged_cache(num_pages + 1, page_size, cache_dtype)
-    page_map = np.full((max_slots, pool.pages_per_slot), pool.trash,
-                       np.int32)
+                           eos_id, spec_k, **knobs):
     outputs: List[Optional[List[int]]] = [None] * len(requests)
     total_steps = 0
-    for base in range(0, len(requests), max_slots):
-        group = requests[base:base + max_slots]
-        states = []
-        for slot, (prompt, mnt) in enumerate(group):
-            n = len(prompt)
-            target = min(mnt, max_len - n)
-            need = pool.pages_for(min(n + target - 1, max_len))
-            if not pool.can_reserve(need):
-                raise ValueError(
-                    f"num_pages={num_pages} cannot hold a static group "
-                    f"(needs {need} more pages) — grow the pool or shrink "
-                    f"max_slots")
-            pages = pool.alloc(need)
-            page_map[slot, :] = pool.trash
-            page_map[slot, :len(pages)] = pages
-            start = 0
-            while n - start > chunk:
-                cache = kernels.chunk(cache, page_map[slot],
-                                      prompt[start:start + chunk], start,
-                                      chunk, pool.trash)
-                start += chunk
-            remaining = n - start
-            bucket = next(b for b in buckets if b >= remaining)
-            padded = np.full((bucket,), pad_id, np.int32)
-            padded[:remaining] = prompt[start:]
-            tok_dev, cache = kernels.prefill(cache, page_map[slot], padded,
-                                             start, remaining, pool.trash)
-            tok = int(tok_dev.item())
-            states.append({
-                "tokens": [tok], "last": tok, "pos": n, "target": target,
-                "pages": pages,
-                "done": (eos_id is not None and tok == eos_id) or target <= 1,
-            })
+    for g, states in _static_groups(model, requests, kernels,
+                                    max_slots=max_slots, max_len=max_len,
+                                    eos_id=eos_id, **knobs):
         while not all(s["done"] for s in states):
             tokens = np.zeros((max_slots,), np.int32)
             positions = np.zeros((max_slots,), np.int32)
             for slot, s in enumerate(states):
                 tokens[slot] = s["last"]
                 positions[slot] = s["pos"]
-            toks_dev, cache = kernels.decode(cache, tokens, positions,
-                                             page_map)
+            toks_dev, g.keys, g.cache = kernels.decode(
+                g.cache, tokens, positions, g.page_map, *g.params())
             toks = toks_dev.cpu().numpy()
             total_steps += 1
             for slot, s in enumerate(states):
                 if s["done"]:
                     continue
-                tok = int(toks[slot])
-                s["tokens"].append(tok)
-                s["last"] = tok
+                s["last"] = int(toks[slot])
+                s["tokens"].append(s["last"])
                 s["pos"] += 1
-                if ((eos_id is not None and tok == eos_id)
-                        or len(s["tokens"]) >= s["target"]
-                        or s["pos"] >= max_len):
-                    s["done"] = True
-        for i, s in enumerate(states):
-            outputs[base + i] = s["tokens"]
-            pool.release(s["pages"])
-        page_map[:] = pool.trash
+                s["done"] = _finished(s, eos_id, max_len)
+        for s in states:
+            outputs[s["index"]] = s["tokens"]
     return outputs, total_steps
+
+
+def _static_generate_spec(model, requests, kernels, *, max_slots, max_len,
+                          eos_id, spec_k, **knobs):
+    """Speculative body of :func:`static_generate`: the engine's draft and
+    verify rounds, group at a time. Draws are keyed by (request, output
+    position), so the streams equal the engine's under any grouping.
+    Returns ``(token lists, verify rounds executed)``."""
+    outputs: List[Optional[List[int]]] = [None] * len(requests)
+    total_rounds = 0
+    for g, states in _static_groups(model, requests, kernels,
+                                    max_slots=max_slots, max_len=max_len,
+                                    eos_id=eos_id, **knobs):
+        while not all(s["done"] for s in states):
+            tokens, positions, out_base = (
+                np.zeros((max_slots,), np.int32) for _ in range(3))
+            for slot, s in enumerate(states):
+                tokens[slot] = s["last"]
+                positions[slot] = s["pos"]
+                out_base[slot] = len(s["tokens"])
+            d_tokens, d_dists = [], []
+            cur = tokens
+            for i in range(spec_k + 1):
+                pos_i = np.minimum(positions + i, max_len - 1)
+                cur, dist, g.dcache = kernels.draft(
+                    g.dcache, cur, pos_i, g.dpage_map, *g.params(),
+                    out_base + i)
+                if i < spec_k:
+                    d_tokens.append(cur)
+                    d_dists.append(dist)
+            n_dev, out_dev, g.cache = kernels.verify(
+                g.cache, tokens, d_tokens, positions, g.page_map,
+                g.pool.trash, *g.params(), out_base, d_dists)
+            n_acc = n_dev.cpu().numpy()
+            outs = out_dev.cpu().numpy()
+            total_rounds += 1
+            for slot, s in enumerate(states):
+                if s["done"]:
+                    continue
+                room = min(s["target"] - len(s["tokens"]),
+                           max_len - s["pos"])
+                pushed = 0
+                for j in range(min(int(n_acc[slot]) + 1, room)):
+                    tok = int(outs[slot, j])
+                    s["tokens"].append(tok)
+                    pushed += 1
+                    if eos_id is not None and tok == eos_id:
+                        break
+                s["last"] = int(outs[slot, pushed - 1])
+                s["pos"] += pushed
+                s["done"] = _finished(s, eos_id, max_len)
+        for s in states:
+            outputs[s["index"]] = s["tokens"]
+    return outputs, total_rounds

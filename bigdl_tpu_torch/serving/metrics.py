@@ -1,9 +1,11 @@
 """Serving metrics for the generation engine (a subset of
 ``bigdl_tpu/serving/metrics.py``): request outcomes, prefills and prompt
 chunks, decode steps, tokens out, time to first token (p50/p95/p99 over a
-bounded reservoir), page occupancy, and the quantized-serving gauges (KV
-bytes in use, KV cache dtype, int8 GEMMs). Lock-protected; the snapshot
-keys keep the JAX package's names.
+bounded reservoir), page occupancy, the quantized-serving gauges (KV
+bytes in use, KV cache dtype, int8 GEMMs), the tokens sampled at a
+temperature above 0, and the speculative tier's verify rounds (draft
+tokens proposed, accepted, their rate). Lock-protected; the snapshot keys
+keep the JAX package's names, each block after the ones before it.
 """
 
 from __future__ import annotations
@@ -71,6 +73,10 @@ class ServingMetrics:
         self.kv_bytes_in_use = 0     # reserved KV bytes, scale pools incl.
         self.kv_cache_dtype = ""     # "" until a paged engine reports one
         self.quantized_gemms = 0     # int8 GEMMs in the serving model
+        self.sampled_tokens = 0      # tokens from temperature > 0 slots
+        self.draft_tokens = 0        # candidates the draft proposed
+        self.accepted_tokens = 0     # candidates accepted and emitted
+        self.verify_steps = 0        # target verify forwards
         self._ttft = _Reservoir(reservoir_size)      # submit -> 1st token
 
     def record_served(self) -> None:
@@ -102,6 +108,25 @@ class ServingMetrics:
         with self._lock:
             self.decode_steps += 1
             self.tokens_out += n_active
+
+    def record_sampled(self, n: int) -> None:
+        """``n`` tokens of this step came from temperature-sampled slots
+        (the rest of ``tokens_out`` is greedy)."""
+        with self._lock:
+            self.sampled_tokens += int(n)
+
+    def record_verify_step(self, n_draft: int, n_accepted: int,
+                           n_extra_tokens: int = 0) -> None:
+        """One speculative round's verify forward: the draft proposed
+        ``n_draft`` candidates across the batch and ``n_accepted`` of them
+        were accepted and emitted; ``n_extra_tokens`` are the round's
+        tokens beyond the one per active slot that
+        :meth:`record_decode_step` counted, folded into ``tokens_out``."""
+        with self._lock:
+            self.verify_steps += 1
+            self.draft_tokens += int(n_draft)
+            self.accepted_tokens += int(n_accepted)
+            self.tokens_out += int(n_extra_tokens)
 
     def set_pages(self, in_use: int, total: int) -> None:
         with self._lock:
@@ -141,4 +166,10 @@ class ServingMetrics:
                 "kv_bytes_in_use": self.kv_bytes_in_use,
                 "kv_cache_dtype": self.kv_cache_dtype,
                 "quantized_gemms": self.quantized_gemms,
+                "sampled_tokens": self.sampled_tokens,
+                "draft_tokens": self.draft_tokens,
+                "accepted_tokens": self.accepted_tokens,
+                "acceptance_rate": (self.accepted_tokens / self.draft_tokens
+                                    if self.draft_tokens else 0.0),
+                "verify_steps": self.verify_steps,
             }

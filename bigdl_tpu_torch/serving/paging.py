@@ -16,14 +16,17 @@ the host, between decode steps:
   never in the free list: padding writes and idle slots' map rows point
   there, so garbage never lands in a page another sequence owns.
 - **no double release** — releasing a page that is not reserved raises.
-  Reference-counted sharing, export and adoption (prefix cache,
-  disaggregation) come with later slices of the port.
+- **owner tags** — an allocation may name its owner (a speculative
+  engine's ``"target"`` and ``"draft"`` lanes sit side by side in one
+  pool); release looks the tag up by page id, and ``in_use_by(owner)`` is
+  the per-lane drain gauge. Reference-counted sharing, export and adoption
+  (prefix cache, disaggregation) come with later slices of the port.
 """
 
 from __future__ import annotations
 
 import heapq
-from typing import List, Sequence, Set
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -63,7 +66,9 @@ class PagePool:
         self._free: List[int] = list(range(self.num_pages))
         heapq.heapify(self._free)
         self.in_use = 0
-        self._reserved: Set[int] = set()
+        # owner tag per reserved page id ("" for an untagged alloc)
+        self._owner: Dict[int, str] = {}
+        self._owner_counts: Dict[str, int] = {}
 
     def pages_for(self, n_tokens: int) -> int:
         """Pages needed to hold ``n_tokens`` KV rows (>= 1)."""
@@ -72,30 +77,39 @@ class PagePool:
     def can_reserve(self, n: int) -> bool:
         return len(self._free) >= n
 
-    def alloc(self, n: int) -> List[int]:
-        """Reserve ``n`` pages, smallest ids first. Raises if the pool cannot
-        satisfy it — callers gate on :meth:`can_reserve`, so this firing is
-        an accounting bug."""
+    def alloc(self, n: int, owner: Optional[str] = None) -> List[int]:
+        """Reserve ``n`` pages, smallest ids first, optionally tagged with
+        an ``owner`` label. Raises if the pool cannot satisfy it — callers
+        gate on :meth:`can_reserve`, so this firing is an accounting bug."""
         if n > len(self._free):
             raise RuntimeError(
                 f"page pool exhausted: want {n}, have {len(self._free)} "
                 f"of {self.num_pages}")
         pages = [heapq.heappop(self._free) for _ in range(n)]
         self.in_use += n
-        self._reserved.update(pages)
+        tag = owner or ""
+        for p in pages:
+            self._owner[p] = tag
+        self._owner_counts[tag] = self._owner_counts.get(tag, 0) + n
         return pages
 
     def release(self, pages: Sequence[int]) -> None:
-        """Return reserved pages to the free heap."""
+        """Return reserved pages to the free heap (and their owner's
+        gauge)."""
         for p in pages:
             p = int(p)
-            if p not in self._reserved:
+            tag = self._owner.pop(p, None)
+            if tag is None:
                 raise RuntimeError(
                     f"page {p} released while not reserved (double "
                     f"release, or a page id that never came from alloc)")
-            self._reserved.remove(p)
+            self._owner_counts[tag] -= 1
             heapq.heappush(self._free, p)
             self.in_use -= 1
+
+    def in_use_by(self, owner: str) -> int:
+        """Reserved pages tagged ``owner`` (0 for an unknown owner)."""
+        return self._owner_counts.get(owner, 0) if owner else 0
 
     @property
     def free_pages(self) -> int:

@@ -61,13 +61,42 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              contract), and ``[trace]`` windows over 8 prompt calls and 20
              decode steps of each engine (with B2's own device time in a
              prompt call: its forward and merge kernels).
-8. B1      — the residual-add kernel against its plain version at the
+8. engine-sample — the same 32 requests with temperature 0.8, top-k 50,
+             top-p 0.95 on the odd ones (four with their own seed) and
+             greedy on the even ones: every stream finishes, the engine ==
+             ``static_generate(sampling=...)``, a reversed submission order
+             gives every request the same stream, the greedy streams are
+             the greedy engine's; the sampler on the card against the
+             sampler on the CPU over 64 decode steps of the model's own
+             logits (keys and uniforms bitwise, against the card's
+             threefry too; tokens equal except on draws the boundary rule
+             flags, counted). Tokens/s, TTFT p50 and decode-step ms beside
+             the greedy engine's, a ``[trace]`` of 20 sampled decode steps
+             and the sampler's share of their device time.
+9. engine-spec — speculative serving, k = 4, with the target as its own
+             draft and with a narrow draft (1 layer, hidden 256, 4 heads,
+             filter 1024, seed 1): ``decode_verify_paged`` against a chain
+             of decode steps on the card and against the CPU; B2 at the
+             verify shape (q (8, 8, 5, 64) against 256-key lanes, the
+             (8, 1, 5, 256) bias) against its plain version, with kernel,
+             SDPA and bound times; per draft, greedy streams == the plain
+             engine's (a difference accepted only at a near-tie below the
+             measured verify-vs-decode difference), sampled streams ==
+             ``static_generate(speculate=..., sampling=...)``, and B2 on
+             every verify round, B3 only on the draft's steps. Tokens/s,
+             rounds, accepted per slot-round, standalone draft-step and
+             verify ms, and a ``[trace]`` of 10 rounds.
+10. engine-spec-int8 — the narrow draft under ``quantize="int8"`` and
+             ``cache_dtype=torch.int8``: greedy streams == the int8 plain
+             engine's under the same gap rule, engine == static, B3-int8
+             (not B3) on the draft's steps.
+11. B1     — the residual-add kernel against its plain version at the
              four residual-add shapes of ResNet-50 at batch 128, bf16 and
              fp32: bitwise equal; the dispatch cases that take the plain
              add (small, mixed dtype, broadcast, CPU tensors); kernel and
              ``torch.add`` times at the layer1 bf16 shape in alternating
              pairs with their median ratio, plain time and the bound.
-9. train   — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
+12. train  — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
              NCHW) at batch 128 under the bf16 mixed policy, SGD lr 0.1 /
              momentum 0.9, through ``optimizer(...).optimize()`` on 4 x 128
              samples from numpy seed 0; two legs from the same seeded
@@ -78,7 +107,7 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              memory; then one fp32 step of ``build_cifar(8)`` at batch 8 on
              the card against the CPU, and (``[trace]``) a torch.profiler
              window over 3 training steps of the second leg.
-10. train-lm — a Transformer language model at the width of the JAX
+13. train-lm — a Transformer language model at the width of the JAX
              package's ``bench.py --mode lm`` (vocab 8192, hidden 512, 8
              heads, filter 2048, 4 layers), batch 8 x 128 tokens, fp32,
              embedding/residual and FFN dropout 0.1 (threefry-keyed),
@@ -101,9 +130,10 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              a stated tolerance; a full-width mask card vs CPU, bitwise;
              and B2 at the training shape (8, 8, 128, 64), causal, fp32
              and bf16 x bf16: error, kernel, plain, SDPA and bound times.
-11. a ``{"kernels": [...]}`` line (B2's row counts its launches on both
-    paths and carries its training-shape times), the card's name and
-    power limit, and the last line ``{"ok": true, "device": {...}}``.
+14. a ``{"kernels": [...]}`` line (each row counts its launches on every
+    path, by path; B2's carries its training-shape and verify-shape
+    times), the card's name and power limit, and the last line
+    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time per launch: the launches are captured
 back-to-back in one CUDA graph and the graph is replayed between CUDA
@@ -128,6 +158,7 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.core import DtypePolicy, EngineConfig, RandomGenerator
 from bigdl_tpu_torch.core import threefry
+from bigdl_tpu_torch.core.rng import split_keys, threefry_key_data, uniform_keys
 from bigdl_tpu_torch.dataset import DataSet
 from bigdl_tpu_torch.models.resnet import build_cifar, build_imagenet
 from bigdl_tpu_torch.nn import (
@@ -141,10 +172,12 @@ from bigdl_tpu_torch.nn.quantized import quantize_for_serving
 from bigdl_tpu_torch.ops import cuda_lib
 from bigdl_tpu_torch.ops import flash_attention as fa
 from bigdl_tpu_torch.ops import residual_add as ra
+from bigdl_tpu_torch.ops import sampling
 from bigdl_tpu_torch.optim import SGD, Trigger, optimizer
 from bigdl_tpu_torch.serving import (
     GenerationEngine,
     PagedDecodeKernels,
+    SpeculativeKernels,
     static_generate,
 )
 
@@ -200,6 +233,23 @@ INT8_TOL = 1e-4
 # down, lm head; M is the decode step's 8 rows or a 16-row prompt chunk
 INT8_GEMMS = ((HIDDEN, HIDDEN), (HIDDEN, FILTER), (FILTER, HIDDEN),
               (HIDDEN, VOCAB))
+
+# the sampled and speculative serving runs, over the same requests: the
+# odd ones sampled (four of them with their own seed), the even ones greedy
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+SEEDED = (1, 7, 13, 25)
+SAMPLE_SEED = 5                # the engine's base seed
+SAMPLER_STEPS = 64             # decode steps of the card-vs-CPU sampler check
+SAMPLE_ULPS = 4                # the boundary rule (tests/port/_sampling.py)
+SPEC_K = 4
+# the narrow draft: vocab, hidden, heads, filter, layers (seed 1)
+NARROW_DRAFT = (VOCAB, 256, 4, 1024, 1)
+# the verify step's logits (k+1 rows per slot) against a chain of decode
+# steps on the card, fp32 with TF32 off: B2 over the lane against B3, and
+# cuBLAS at 40 rows against 8, sum in other orders through 4 layers; the
+# card against the CPU differs by ~4e-6 at this width (PR 5's [engine]
+# reading), the JAX package's own test holds 1e-5 at its toy width
+VERIFY_TOL = 1e-4
 
 # the training run: ResNet-50 as the JAX package's bench trains it
 # (bench.py run_bench: batch 128, SGD lr 0.1 / momentum 0.9)
@@ -669,18 +719,26 @@ def bench_requests():
 
 
 def time_calls(kernels):
-    """Wrap an engine's ``prefill``, ``chunk`` and ``decode`` calls to add
-    up their host time, each ending in a device sync (the engine syncs
-    right after each of them anyway, reading its tokens back):
-    ``{call: [ms, calls]}``."""
+    """Wrap an engine's kernel calls (``prefill``, ``chunk``, ``decode``;
+    a speculative engine's ``draft_write``, ``draft`` and ``verify`` too)
+    to add up their host time: ``{call: [ms, calls]}``. Each ends in a
+    device sync where the engine reads its tokens right after it anyway;
+    the draft steps (fed to the next one on the device) and the draft's
+    prompt writes do not, so their device time lands in the next synced
+    call."""
     spent = {}
-    for name in ("prefill", "chunk", "decode"):
+    for name in ("prefill", "chunk", "decode", "draft_write", "draft",
+                 "verify"):
+        if not hasattr(kernels, name):
+            continue
         acc = spent[name] = [0.0, 0]
 
-        def timed(*args, _fn=getattr(kernels, name), _acc=acc):
+        def timed(*args, _fn=getattr(kernels, name), _acc=acc,
+                  _sync=name not in ("draft", "draft_write")):
             t0 = time.monotonic()
             out = _fn(*args)
-            torch.cuda.synchronize()
+            if _sync:
+                torch.cuda.synchronize()
             _acc[0] += (time.monotonic() - t0) * 1e3
             _acc[1] += 1
             return out
@@ -689,15 +747,20 @@ def time_calls(kernels):
     return spent
 
 
-def serve(model, requests, **knobs):
+def serve(model, requests, sampling=None, order=None, **knobs):
     """The 32 requests through a ``GenerationEngine`` over ``model`` with
-    the engine ``knobs``, the launch counts zeroed just before the traffic
-    and read just after it. Checks that every stream finished and that B2
-    ran on every layer of every prompt call and the paged kernel of the
-    cache's dtype (B3 or B3-int8) on every layer of every decode step,
-    the other never. ``own_peak`` is the engine's own peak memory: the
-    peak over what was allocated before the engine was built, plus the
-    caller's weights when the engine serves them."""
+    the engine ``knobs`` (submitted in ``order``, each with its
+    ``sampling`` knobs), the launch counts zeroed just before the traffic
+    and read just after it. Checks that every stream finished and that the
+    kernels ran exactly where the path runs them: B2 on every layer of
+    every prompt call, and the paged kernel of the cache's dtype (B3 or
+    B3-int8) on every layer of every decode step, the other never. A
+    speculative engine runs B2 on the draft's layers of every prompt call
+    too and on the target's layers of every verify round, and the paged
+    kernel only on the draft's layers of its k+1 steps a round: the target
+    runs no paged attention. ``own_peak`` is the engine's own peak memory:
+    the peak over what was allocated before the engine was built, plus
+    the caller's weights when the engine serves them."""
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -706,13 +769,17 @@ def serve(model, requests, **knobs):
                               page_size=PAGE, **knobs)
     engine.warmup()
     spent = time_calls(engine.kernels)
+    sampling = sampling or [{}] * len(requests)
+    order = range(len(requests)) if order is None else order
     torch.cuda.reset_peak_memory_stats()
     # the main path, with every launch count zeroed just before it
     fa.flash_attention.launches = 0
     fa.paged_flash_attention.launches = 0
     fa.paged_flash_attention.int8_launches = 0
     t0 = time.monotonic()
-    streams = [engine.submit(p, max_new_tokens=m) for p, m in requests]
+    streams = {i: engine.submit(requests[i][0], max_new_tokens=requests[i][1],
+                                **sampling[i]) for i in order}
+    streams = [streams[i] for i in range(len(requests))]
     outs = [s.result(600) for s in streams]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -730,14 +797,23 @@ def serve(model, requests, **knobs):
     assert [len(o) for o in outs] == [m for _, m in requests], \
         "a stream ended early"
     prompt_calls = snap["prefills"] + snap["prefill_chunks"]
-    assert launches["flash_attention"] == prompt_calls * LAYERS > 0, \
-        (launches, snap)
+    paged_layers, b2_per_prompt, b2_per_step = LAYERS, LAYERS, 0
+    if engine.speculative:
+        dl = engine.draft_model.num_hidden_layers
+        paged_layers = (engine.spec_k + 1) * dl
+        b2_per_prompt, b2_per_step = LAYERS + dl, LAYERS
+        assert snap["verify_steps"] == snap["decode_steps"], snap
+    assert launches["flash_attention"] == prompt_calls * b2_per_prompt \
+        + snap["decode_steps"] * b2_per_step > 0, (launches, snap)
     paged, other = (("paged_attention_int8", "paged_attention")
                     if knobs.get("cache_dtype") == torch.int8
                     else ("paged_attention", "paged_attention_int8"))
-    assert launches[paged] == snap["decode_steps"] * LAYERS > 0, \
+    assert launches[paged] == snap["decode_steps"] * paged_layers > 0, \
         (launches, snap)
     assert launches[other] == 0, (launches, snap)
+    assert snap["sampled_tokens"] == sum(
+        len(o) for o, kw in zip(outs, sampling)
+        if kw.get("temperature", 0) > 0), snap
     return dict(engine=engine, outs=outs, wall=wall, peak=peak, base=base,
                 own_peak=own_peak, spent=spent, snap=snap, launches=launches,
                 prompt_calls=prompt_calls, tokens=sum(len(o) for o in outs))
@@ -746,16 +822,22 @@ def serve(model, requests, **knobs):
 def run_line(r) -> str:
     """A serving run's end-to-end numbers and where its wall time went."""
     sp = r["spent"]
-    prompt_ms = sp["prefill"][0] + sp["chunk"][0]
-    decode_ms, steps = sp["decode"]
+    prompt_ms = sp["prefill"][0] + sp["chunk"][0] + sp.get(
+        "draft_write", [0.0])[0]
+    if "verify" in sp:      # a round: k+1 draft steps and the verify
+        decode_ms = sp["draft"][0] + sp["verify"][0]
+        steps, what, step = sp["verify"][1], "speculative rounds", "round"
+    else:
+        (decode_ms, steps), what = sp["decode"], "decode steps"
+        step = "decode_step"
     wall_ms = r["wall"] * 1e3
     return (f"tokens/s={r['tokens'] / r['wall']:.1f} ({r['tokens']} tokens "
             f"in {r['wall']:.3f} s: prompt calls {prompt_ms:.1f} ms = "
             f"{r['prompt_calls']} x {prompt_ms / r['prompt_calls']:.3f}, "
-            f"decode steps {decode_ms:.1f} ms = {steps} x "
+            f"{what} {decode_ms:.1f} ms = {steps} x "
             f"{decode_ms / steps:.3f}, rest {wall_ms - prompt_ms - decode_ms:.1f}"
             f" ms) ttft_p50_ms={r['snap']['ttft_ms']['p50']} "
-            f"decode_step_ms={r['step_ms']:.3f} "
+            f"{step}_ms={r['step_ms']:.3f} "
             f"peak_mem_MiB={r['peak'] / 2**20:.1f} (allocated before the "
             f"engine {r['base'] / 2**20:.1f}; the engine's own "
             f"{r['own_peak'] / 2**20:.1f})")
@@ -770,7 +852,8 @@ def check_static(model, requests, run, tag, **knobs):
     mismatches = sum(a != b for a, b in zip(static, run["outs"]))
     assert mismatches == 0, f"{mismatches} streams differ from static_generate"
     print(f"[{tag}] engine streams == static_generate streams "
-          f"({N_REQUESTS}/{N_REQUESTS}; static ran {steps} decode steps)")
+          f"({N_REQUESTS}/{N_REQUESTS}; static ran {steps} "
+          f"{'rounds' if 'speculate' in knobs else 'decode steps'})")
 
 
 def phase_engine(card):
@@ -828,7 +911,442 @@ def phase_engine_int8(card, model, requests, float_run):
           f"token {first}/{N_REQUESTS}")
     trace_prompt_calls(qmodel, card, run, torch.int8)
     trace_decode_steps(qmodel, card, step_ms, torch.int8)
-    return launches
+    return run
+
+
+# ------------------------------------------- sampled and speculative ----
+
+
+def sampled_requests():
+    """Per-request knobs of the sampled runs: ``SAMPLED`` on the odd
+    requests, greedy on the even ones, an explicit seed on four."""
+    out = []
+    for i in range(N_REQUESTS):
+        knobs = dict(SAMPLED) if i % 2 else {}
+        if i in SEEDED:
+            knobs["seed"] = 1000 + i
+        out.append(knobs)
+    return out
+
+
+# -- the boundary rule, as tests/port/_sampling.py states it: a draw is
+# flagged when t = u * total lies within SAMPLE_ULPS ulps (of t) of a kept
+# cumulative weight, or a top-p keep decision csum - p < top_p within
+# SAMPLE_ULPS ulps of top_p (numpy fp32 values); only flagged draws may
+# pick differently on two devices, which round the softmax and the
+# cumulative sums in other orders
+
+
+def _near(values, target, scale) -> bool:
+    values = np.asarray(values, np.float64).reshape(-1)
+    room = SAMPLE_ULPS * float(np.spacing(np.float32(abs(scale))))
+    return bool(np.any(np.abs(values - float(target)) <= room))
+
+
+def sample_flagged(logits, temperature, top_k, top_p, u) -> bool:
+    if temperature <= 0:
+        return False
+    scaled = (np.asarray(logits, np.float32)
+              / np.float32(temperature)).astype(np.float32)
+    e = np.exp((scaled[np.argsort(-scaled, kind="stable")]
+                - scaled.max()).astype(np.float32))
+    probs = (e / e.sum()).astype(np.float32)
+    vocab = probs.shape[-1]
+    csum = np.cumsum(probs, dtype=np.float32)
+    ranks = np.arange(vocab)
+    k_eff = vocab if top_k <= 0 else min(max(int(top_k), 1), vocab)
+    p_eff = (np.float32(1.0) if (top_p <= 0.0 or top_p >= 1.0)
+             else np.float32(top_p))
+    keep = (ranks < k_eff) & (((csum - probs) < p_eff) | (ranks == 0))
+    if p_eff < 1 and _near((csum - probs)[1:k_eff], p_eff, p_eff):
+        return True
+    c = np.cumsum(np.where(keep, probs, np.float32(0.0)), dtype=np.float32)
+    t = np.float32(u) * c[-1]
+    return _near(c[keep], t, t)
+
+
+def device_split(keys: np.ndarray):
+    """One split of each key and the uniform of its second half, computed
+    on the card by the port's counter-mode threefry (int64 tensor ops):
+    the device-side twin of ``split_keys`` / ``uniform_keys``."""
+    words = torch.as_tensor(keys.astype(np.int64), device="cuda")
+    k = threefry.Key(words[:, 0], words[:, 1])
+    zero = torch.zeros_like(words[:, 0])
+    new = torch.stack(threefry.threefry2x32(k, 0, zero), 1)
+    draw = threefry.Key(*threefry.threefry2x32(k, 0, zero + 1))
+    y0, y1 = threefry.threefry2x32(draw, 0, zero)
+    bits = ((y0 ^ y1) >> 9) | 0x3F800000
+    return (new.cpu().numpy().astype(np.uint32),
+            (bits.to(torch.int32).view(torch.float32) - 1.0).cpu().numpy())
+
+
+def sampler_card_vs_cpu(model):
+    """``SAMPLER_STEPS`` decode steps of the model on the card (8 slots,
+    fragmented pages), each step's logits sampled on the card and on the
+    CPU with the same keys: the keys and uniforms bitwise (host against
+    the card's threefry), greedy rows bitwise, sampled tokens equal except
+    on flagged draws; the card's tokens feed the next step."""
+    ppn = MAX_LEN // PAGE
+    rs = np.random.RandomState(4)
+    page_map = rs.permutation(SLOTS * ppn).reshape(SLOTS, ppn).astype(np.int32)
+    cache = model.init_paged_cache(SLOTS * ppn + 1, PAGE)
+    tokens = rs.randint(1, VOCAB, (SLOTS,)).astype(np.int32)
+    # greedy, SAMPLED and other filters, one row per slot
+    temps, top_ks, top_ps = (np.resize(np.asarray(a, dt), SLOTS) for a, dt in (
+        ([0.0, 0.8, 0.8, 0.8, 1.2, 0.0, 0.7, 0.8], np.float32),
+        ([0, 50, 50, 0, 5, 0, 0, 50], np.int32),
+        ([1.0, 0.95, 0.95, 0.9, 1.0, 1.0, 0.5, 1.0], np.float32)))
+    keys = np.stack([threefry_key_data(100 + s) for s in range(SLOTS)])
+    flagged = draws = 0
+    with torch.inference_mode():
+        for i in range(SAMPLER_STEPS):
+            logits, cache = model.decode_step_paged(
+                cache, tokens, np.full((SLOTS,), 20 + i, np.int32), page_map)
+            tok, new_keys = sampling.sample_tokens(logits, temps, top_ks,
+                                                   top_ps, keys)
+            host = logits.cpu()
+            tok_cpu, keys_cpu = sampling.sample_tokens(host, temps, top_ks,
+                                                       top_ps, keys)
+            dev_keys, dev_u = device_split(keys)
+            u = uniform_keys(split_keys(keys)[:, 1])
+            assert np.array_equal(new_keys, keys_cpu)
+            assert np.array_equal(dev_keys, new_keys), i
+            assert np.array_equal(dev_u.view(np.uint32), u.view(np.uint32))
+            tok = tok.cpu()
+            for s in range(SLOTS):
+                if temps[s] <= 0:
+                    assert int(tok[s]) == int(tok_cpu[s]) == int(
+                        host[s].argmax()), (i, s)
+                    continue
+                draws += 1
+                if sample_flagged(host[s].numpy(), temps[s], top_ks[s],
+                                  top_ps[s], u[s]):
+                    flagged += 1
+                    continue
+                assert int(tok[s]) == int(tok_cpu[s]), (i, s)
+            tokens, keys = tok.numpy().astype(np.int32), new_keys
+    print(f"[engine-sample] sampler card vs CPU, {SAMPLER_STEPS} decode "
+          f"steps x {SLOTS} slots on the same logits and keys: keys and "
+          f"uniforms bitwise (host and the card's threefry), greedy rows "
+          f"bitwise, {draws} sampled draws equal except {flagged} flagged "
+          f"by the boundary rule ({SAMPLE_ULPS} ulps)")
+    return flagged
+
+
+def sampler_device_ms(calls=20):
+    """The sampler alone on one decode step's logits over 8 slots, every
+    slot sampled with ``SAMPLED``: device ms per call from a profiler
+    window (its filter arguments reach the card by a copy from pageable
+    host memory, which a CUDA graph cannot capture)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    logits = torch.randn(SLOTS, VOCAB, generator=g, device="cuda") * 3
+    temps, top_ks, top_ps, keys = slot_sampling(SAMPLED)
+    for _ in range(3):
+        sampling.sample_tokens(logits, temps, top_ks, top_ps, keys)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            sampling.sample_tokens(logits, temps, top_ks, top_ps, keys)
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events() if ev.device_type.name == "CUDA"]
+    return sum(ev.device_time for ev in evs) / 1e3 / calls, len(evs) / calls
+
+
+def key_split_ms(iters=2000):
+    """Host ms of one decode step's key work over 8 slots (one split of
+    each key and the uniform of its second half): the lane-packed
+    threefry of ``core.rng`` that the engine runs, and the per-key Python
+    version of ``core.threefry`` it replaces."""
+    keys = np.stack([threefry_key_data(1 + s) for s in range(SLOTS)])
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pairs = split_keys(keys)
+        uniform_keys(pairs[:, 1])
+    packed = (time.perf_counter() - t0) / iters * 1e3
+    per_key = [threefry.Key(int(a), int(b)) for a, b in keys]
+    t0 = time.perf_counter()
+    for _ in range(iters // 10):
+        for k in per_key:
+            _, draw = threefry.split(k)
+            threefry.threefry2x32(draw, 0, 0)
+    return packed, (time.perf_counter() - t0) / (iters // 10) * 1e3
+
+
+def phase_engine_sample(card, model, requests, float_run):
+    """The 32 requests with ``SAMPLED`` on the odd ones (four with their
+    own seed) and greedy on the even ones."""
+    knobs = sampled_requests()
+    run = serve(model, requests, sampling=knobs, seed=SAMPLE_SEED)
+    snap = run["snap"]
+    print(f"[engine-sample] {N_REQUESTS} streams done, {snap['sampled_tokens']}"
+          f" sampled tokens: {run['prompt_calls']} prompt calls x {LAYERS} "
+          f"layers = {run['launches']['flash_attention']} B2 launches; "
+          f"{snap['decode_steps']} decode steps x {LAYERS} layers = "
+          f"{run['launches']['paged_attention']} B3 launches")
+    check_static(model, requests, run, "engine-sample", sampling=knobs,
+                 seed=SAMPLE_SEED)
+    rev = serve(model, requests, sampling=knobs, seed=SAMPLE_SEED,
+                order=reversed(range(N_REQUESTS)))
+    assert rev["outs"] == run["outs"]
+    greedy = [i for i in range(N_REQUESTS) if not knobs[i]]
+    assert [run["outs"][i] for i in greedy] == \
+        [float_run["outs"][i] for i in greedy]
+    assert any(run["outs"][i] != float_run["outs"][i]
+               for i in range(N_REQUESTS) if knobs[i])
+    print(f"[engine-sample] reversed submission order: the same {N_REQUESTS} "
+          f"streams; the {len(greedy)} greedy streams == the greedy "
+          f"engine's")
+    sampler_card_vs_cpu(model)
+    run["step_ms"] = step_ms = decode_step_ms(model, knobs=SAMPLED)
+    for label, r in (("sampled", run), ("greedy", float_run)):
+        print(f"[engine-sample] {label:7s}: {run_line(r)} on {card}")
+    step_dev = trace_decode_steps(model, card, step_ms, knobs=SAMPLED)
+    packed_ms, per_key_ms = key_split_ms()
+    print(f"[engine-sample] host key work of one step, {SLOTS} slots (split "
+          f"and uniform), paid by greedy steps too: {packed_ms:.4f} ms "
+          f"lane-packed (the engine's), {per_key_ms:.4f} ms key by key")
+    sampler_ms, sampler_kernels = sampler_device_ms()
+    print(f"[trace]   the sampler alone (8 x {VOCAB} logits, all slots "
+          f"sampled): {sampler_ms:.4f} ms device time in "
+          f"{sampler_kernels:.0f} kernels = {sampler_ms / step_dev:.1%} of "
+          f"the sampled step's device time on {card}")
+    return run["launches"]
+
+
+def verify_vs_decode(models, cache_dtype=torch.float32):
+    """Prefill 8 prompts, then score k+1 positions of every slot two ways
+    on the card: a chain of ``decode_step_paged`` calls (each fed the
+    previous argmax) and one ``decode_verify_paged`` call over the same
+    tokens. Returns (max |verify - chain| on the card, max |verify card -
+    verify on the CPU's plain path|), ``models`` = [card, cpu]."""
+    rs = np.random.RandomState(7)
+    ppn = MAX_LEN // PAGE
+    page_map = rs.permutation(SLOTS * ppn).reshape(SLOTS, ppn).astype(np.int32)
+    trash = SLOTS * ppn
+    starts = rs.randint(3, MAX_PROMPT + 1, (SLOTS,)).astype(np.int32)
+    prompts = [rs.randint(1, VOCAB, (MAX_PROMPT,)).astype(np.int32)
+               for _ in range(SLOTS)]
+
+    def prefilled(m):
+        cache = m.init_paged_cache(trash + 1, PAGE, cache_dtype)
+        first = []
+        for s in range(SLOTS):
+            logits, cache = m.prefill_paged(cache, page_map[s], prompts[s],
+                                            0, int(starts[s]), trash)
+            first.append(int(logits.argmax()))
+        return np.asarray(first, np.int32), cache
+
+    card, cpu = models
+    with torch.inference_mode():
+        first, cache = prefilled(card)
+        chain, feed = [], first
+        for i in range(SPEC_K + 1):
+            logits, cache = card.decode_step_paged(cache, feed, starts + i,
+                                                   page_map)
+            chain.append(logits)
+            feed = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        tokens = np.stack([first] + [c.argmax(-1).cpu().numpy()
+                                     for c in chain[:SPEC_K]], 1)
+        _, cache = prefilled(card)
+        verify, _ = card.decode_verify_paged(cache, tokens, starts, page_map,
+                                             trash)
+        _, cache = prefilled(cpu)
+        verify_cpu, _ = cpu.decode_verify_paged(cache, tokens, starts,
+                                                page_map, trash)
+    return (max_err(verify, torch.stack(chain, 1)),
+            max_err(verify.cpu(), verify_cpu))
+
+
+def greedy_gap(model, prompt, tokens, cache_dtype):
+    """The top-2 logit gap of the plain engine's step that chose
+    ``tokens[-1]``: prefill ``prompt``, decode ``tokens[:-1]``."""
+    ppn = MAX_LEN // PAGE
+    row = np.arange(ppn, dtype=np.int32)
+    cache = model.init_paged_cache(ppn + 1, PAGE, cache_dtype)
+    with torch.inference_mode():
+        logits, cache = model.prefill_paged(cache, row, prompt, 0,
+                                            len(prompt), ppn)
+        for i, tok in enumerate(tokens[:-1]):
+            logits, cache = model.decode_step_paged(
+                cache, [tok], [len(prompt) + i], row[None])
+            logits = logits[0]
+    top2 = logits.float().topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+def check_greedy_identity(tag, run, plain_outs, model, requests, tol,
+                          cache_dtype=torch.float32):
+    """Speculative greedy streams == the plain engine's. A stream that
+    differs is accepted only where the plain step's top-2 logit gap at
+    the first differing token is below ``tol``, the verify-vs-decode
+    logit difference measured on the card: a near-tie the two paths'
+    summation orders may break either way."""
+    differ = 0
+    for i, (got, want) in enumerate(zip(run["outs"], plain_outs)):
+        if got == want:
+            continue
+        j = next(n for n, (a, b) in enumerate(zip(got, want)) if a != b)
+        gap = greedy_gap(model, requests[i][0], want[:j + 1], cache_dtype)
+        print(f"[{tag}] stream {i} differs from the plain engine at token "
+              f"{j}: top-2 gap {gap:.3e} (accepted below {tol:.3e})")
+        assert gap < tol, (i, j, gap, tol)
+        differ += 1
+    print(f"[{tag}] greedy streams == the plain engine's: "
+          f"{N_REQUESTS - differ}/{N_REQUESTS} ({differ} near-ties)")
+
+
+def spec_rounds(kernels, cache_dtype, rounds):
+    """``rounds`` standalone speculative rounds over 8 slots at position
+    ~100 (fragmented pages, greedy): host-clock ms of the k+1 draft steps
+    (synchronised after the last) and of the verify (ending in the read of
+    its accepted counts)."""
+    ppn = MAX_LEN // PAGE
+    rs = np.random.RandomState(8)
+    page_map = rs.permutation(SLOTS * ppn).reshape(SLOTS, ppn).astype(np.int32)
+    dpage_map = rs.permutation(SLOTS * ppn).reshape(SLOTS, ppn).astype(
+        np.int32)
+    cache = kernels.model.init_paged_cache(SLOTS * ppn + 1, PAGE, cache_dtype)
+    dcache = kernels.draft_model.init_paged_cache(SLOTS * ppn + 1, PAGE,
+                                                  cache_dtype)
+    tokens = rs.randint(1, VOCAB, (SLOTS,)).astype(np.int32)
+    positions = np.full((SLOTS,), TRACE_POSITION, np.int32)
+    out_base = np.zeros((SLOTS,), np.int32)
+    sampling = slot_sampling()
+    draft_ms = verify_ms = 0.0
+    for _ in range(rounds):
+        t0 = time.monotonic()
+        cur, d_toks, d_dists = tokens, [], []
+        for i in range(SPEC_K + 1):
+            cur, dist, dcache = kernels.draft(dcache, cur, positions + i,
+                                              dpage_map, *sampling,
+                                              out_base + i)
+            if i < SPEC_K:
+                d_toks.append(cur)
+                d_dists.append(dist)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        n, _, cache = kernels.verify(cache, tokens, d_toks, positions,
+                                     page_map, SLOTS * ppn, *sampling,
+                                     out_base, d_dists)
+        n.cpu()
+        draft_ms += (t1 - t0) * 1e3
+        verify_ms += (time.monotonic() - t1) * 1e3
+    return draft_ms / rounds / (SPEC_K + 1), verify_ms / rounds
+
+
+def report_spec(tag, label, run, card, cache_dtype=torch.float32):
+    """A speculative run's numbers, standalone round times (a kernel set of
+    its own over the engine's models) and a trace of 10 rounds."""
+    snap, engine = run["snap"], run["engine"]
+    slot_rounds = snap["draft_tokens"] / SPEC_K
+    kernels = SpeculativeKernels(engine.model, engine.draft_model)
+    spec_rounds(kernels, cache_dtype, 3)
+    draft_ms, verify_ms = spec_rounds(kernels, cache_dtype, 20)
+    run["step_ms"] = round_ms = (SPEC_K + 1) * draft_ms + verify_ms
+    print(f"[{tag}] {label}: {run_line(run)} rounds={snap['verify_steps']} "
+          f"acceptance_rate={snap['acceptance_rate']:.3f} accepted per "
+          f"slot-round={snap['accepted_tokens'] / slot_rounds:.3f} (of "
+          f"{SPEC_K}); standalone round (round_ms above) at position "
+          f"{TRACE_POSITION}: draft_step_ms={draft_ms:.3f} verify_ms="
+          f"{verify_ms:.3f} on {card}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        spec_rounds(kernels, cache_dtype, 10)
+    report_trace(prof, 10, round_ms, card, f"speculative round, {label}, "
+                 f"k={SPEC_K}", watch=("flash_", "paged_attention_kernel"))
+
+
+def b2_verify_shape(card):
+    """B2 at the verify step's shape: q (8, 8, k+1, 64) against every
+    slot's 256-key lane under the (8, 1, k+1, 256) validity bias, fp32;
+    error, kernel, plain, SDPA (the bias as a float ``attn_mask``) and
+    bound times."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn(SLOTS, HEADS, SPEC_K + 1, HEAD_DIM, generator=g,
+                    device="cuda")
+    k, v = (torch.randn(SLOTS, HEADS, MAX_LEN, HEAD_DIM, generator=g,
+                        device="cuda") for _ in range(2))
+    pos = torch.randint(0, MAX_LEN - SPEC_K, (SLOTS,), generator=g,
+                        device="cuda")
+    rows = pos[:, None] + torch.arange(SPEC_K + 1, device="cuda")[None, :]
+    cols = torch.arange(MAX_LEN, device="cuda")
+    bias = torch.where(cols[None, None, :] <= rows[:, :, None], 0.0,
+                       -1e9)[:, None]
+    err = max_err(fa.flash_attention(q, k, v, bias),
+                  fa.plain_attention(q, k, v, bias))
+    assert err <= TOL[torch.float32], err
+    row = time_b2(q, k, v, bias, False)
+    print(f"[engine-spec] B2 at the verify shape q {tuple(q.shape)} K/V "
+          f"{tuple(k.shape)} bias {tuple(bias.shape)} fp32: max_abs_err="
+          f"{err:.3e} kernel_ms={row['ms']:.5f} eager_ms={row['eager_ms']:.5f}"
+          f" plain_ms={row['plain_ms']:.5f} library_ms(sdpa)="
+          f"{row['library_ms']:.5f} bound_ms={row['bound_ms']:.6f} "
+          f"({row['bound_by']}) kernel/sdpa="
+          f"{row['ms'] / row['library_ms']:.3f} on {card}")
+    return dict(row, max_abs_err=err)
+
+
+def phase_engine_spec(card, model, requests, float_run):
+    """Speculative serving at k = SPEC_K with two drafts, the target as
+    its own draft and a narrow one; greedy and sampled."""
+    narrow = Transformer(*NARROW_DRAFT, device="cuda",
+                         generator=torch.Generator().manual_seed(1))
+    diff, vs_cpu = verify_vs_decode(reference_models(model))
+    print(f"[engine-spec] decode_verify_paged ({SPEC_K + 1} rows per slot, "
+          f"{SLOTS} slots) against a chain of decode_step_paged on the card: "
+          f"max_abs_err={diff:.3e} (tol {VERIFY_TOL:g}); against the plain "
+          f"path on the CPU: max_abs_err={vs_cpu:.3e} (tol {LOGITS_TOL:g})")
+    assert diff <= VERIFY_TOL and vs_cpu <= LOGITS_TOL, (diff, vs_cpu)
+    launches = {"flash_attention": 0, "paged_attention": 0}
+    knobs = sampled_requests()
+    for label, draft in (("self-draft", model), ("narrow draft", narrow)):
+        spec = dict(speculate=(draft, SPEC_K))
+        run = serve(model, requests, **spec)
+        check_greedy_identity("engine-spec", run, float_run["outs"], model,
+                              requests, diff)
+        sampled = serve(model, requests, sampling=knobs, seed=SAMPLE_SEED,
+                        **spec)
+        check_static(model, requests, sampled, "engine-spec", sampling=knobs,
+                     seed=SAMPLE_SEED, **spec)
+        for r in (run, sampled):
+            for name in launches:
+                launches[name] += r["launches"][name]
+        snap = run["snap"]
+        print(f"[engine-spec] {label}: {snap['verify_steps']} rounds: "
+              f"{snap['verify_steps'] * LAYERS} B2 verify launches, "
+              f"{run['launches']['paged_attention']} B3 launches (the "
+              f"draft's {draft.num_hidden_layers} layer(s) x {SPEC_K + 1} "
+              f"steps a round; the target none)")
+        report_spec("engine-spec", label, run, card)
+    return narrow, launches
+
+
+def phase_engine_spec_int8(card, model, narrow, requests, int8_run):
+    """The narrow draft at int8 (``quantize="int8"``,
+    ``cache_dtype=torch.int8``): greedy streams against the plain int8
+    engine's under the gap rule, engine == static; B3-int8, not B3."""
+    knobs = dict(quantize="int8", cache_dtype=torch.int8)
+    diff, vs_cpu = verify_vs_decode(reference_models(model, quantize=True),
+                                    torch.int8)
+    print(f"[engine-spec-int8] int8 decode_verify_paged against a chain of "
+          f"int8 decode_step_paged on the card: max_abs_err={diff:.3e}; "
+          f"against the CPU's int8 plain path: max_abs_err={vs_cpu:.3e}")
+    run = serve(model, requests, speculate=(narrow, SPEC_K), **knobs)
+    check_greedy_identity("engine-spec-int8", run, int8_run["outs"],
+                          run["engine"].model, requests, diff, torch.int8)
+    check_static(model, requests, run, "engine-spec-int8",
+                 speculate=(narrow, SPEC_K), **knobs)
+    print(f"[engine-spec-int8] {run['snap']['verify_steps']} rounds: "
+          f"{run['launches']['paged_attention_int8']} B3-int8 launches, "
+          f"{run['launches']['paged_attention']} B3")
+    report_spec("engine-spec-int8", "narrow draft int8", run, card,
+                torch.int8)
+    return run["launches"]
 
 
 def check_int8_logits(model, requests):
@@ -976,9 +1494,20 @@ def nudged_copy(model, seed):
     return model
 
 
-def _decode_inputs(model, cache_dtype):
-    """Kernels, a fresh cache, tokens and a fragmented page map for the
-    timed decode steps (8 slots, position ~100)."""
+def slot_sampling(knobs=None):
+    """The decode step's per-slot sampling inputs: every slot with the
+    ``knobs`` (greedy by default) and a distinct key."""
+    knobs = knobs or {}
+    return [np.full((SLOTS,), knobs.get("temperature", 0.0), np.float32),
+            np.full((SLOTS,), knobs.get("top_k", 0), np.int32),
+            np.full((SLOTS,), knobs.get("top_p", 1.0), np.float32),
+            np.stack([threefry_key_data(1 + s) for s in range(SLOTS)])]
+
+
+def _decode_inputs(model, cache_dtype, knobs=None):
+    """Kernels, a fresh cache, tokens, a fragmented page map and the
+    per-slot sampling inputs for the timed decode steps (8 slots, position
+    ~100)."""
     kernels = PagedDecodeKernels(model)
     ppn = MAX_LEN // PAGE
     rs = np.random.RandomState(2)
@@ -986,21 +1515,26 @@ def _decode_inputs(model, cache_dtype):
     cache = model.init_paged_cache(SLOTS * ppn + 1, PAGE, cache_dtype)
     tokens = rs.randint(1, VOCAB, (SLOTS,)).astype(np.int32)
     positions = np.full((SLOTS,), TRACE_POSITION, np.int32)
+    sampling = slot_sampling(knobs)
     for _ in range(5):
-        toks, cache = kernels.decode(cache, tokens, positions, page_map)
+        toks, sampling[3], cache = kernels.decode(cache, tokens, positions,
+                                                  page_map, *sampling)
         toks.cpu()
-    return kernels, cache, tokens, positions, page_map
+    return kernels, cache, tokens, positions, page_map, sampling
 
 
-def decode_step_ms(model, cache_dtype=torch.float32, steps=50) -> float:
+def decode_step_ms(model, cache_dtype=torch.float32, steps=50,
+                   knobs=None) -> float:
     """Host-clock time of one eager decode step over all 8 slots (position
-    ~100, fragmented pages), each step ending in the token copy to the
-    host that the engine does."""
-    kernels, cache, tokens, positions, page_map = _decode_inputs(
-        model, cache_dtype)
+    ~100, fragmented pages, every slot sampled with ``knobs``, greedy by
+    default), each step ending in the token copy to the host that the
+    engine does."""
+    kernels, cache, tokens, positions, page_map, sampling = _decode_inputs(
+        model, cache_dtype, knobs)
     t0 = time.monotonic()
     for i in range(steps):
-        toks, cache = kernels.decode(cache, tokens, positions + i, page_map)
+        toks, sampling[3], cache = kernels.decode(
+            cache, tokens, positions + i, page_map, *sampling)
         toks.cpu()
     return (time.monotonic() - t0) / steps * 1e3
 
@@ -1021,8 +1555,8 @@ def trace_prompt_calls(model, card, run, cache_dtype=torch.float32,
     prompt = rs.randint(1, VOCAB, (MAX_PROMPT,)).astype(np.int32)
 
     def call():
-        tok, new_cache = kernels.prefill(cache, pages, prompt, 0, MAX_PROMPT,
-                                         SLOTS * ppn)
+        tok, _, new_cache = kernels.prefill(cache, pages, prompt, 0,
+                                            MAX_PROMPT, SLOTS * ppn)
         tok.item()
         return new_cache
 
@@ -1040,25 +1574,25 @@ def trace_prompt_calls(model, card, run, cache_dtype=torch.float32,
 
 
 def trace_decode_steps(model, card, step_ms: float,
-                       cache_dtype=torch.float32, steps=20):
+                       cache_dtype=torch.float32, steps=20, knobs=None):
     """torch.profiler over ``steps`` eager decode steps (8 slots, position
-    ~100): device time per step, kernels per step, the device's busy share
-    of an unprofiled step (``step_ms``), and the kernels that take most of
-    the device time."""
+    ~100, sampled with ``knobs``): device time per step, kernels per step,
+    the device's busy share of an unprofiled step (``step_ms``), and the
+    kernels that take most of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    kernels, cache, tokens, positions, page_map = _decode_inputs(
-        model, cache_dtype)
+    kernels, cache, tokens, positions, page_map, sampling = _decode_inputs(
+        model, cache_dtype, knobs)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(steps):
-            toks, cache = kernels.decode(cache, tokens, positions + i,
-                                         page_map)
+            toks, sampling[3], cache = kernels.decode(
+                cache, tokens, positions + i, page_map, *sampling)
             toks.cpu()
     label = "eager decode step" + (" (int8)" if cache_dtype == torch.int8
-                                   else "")
-    report_trace(prof, steps, step_ms, card, label,
-                 watch=("paged_attention_kernel",))
+                                   else "") + (" (sampled)" if knobs else "")
+    return report_trace(prof, steps, step_ms, card, label,
+                        watch=("paged_attention_kernel",))
 
 
 def report_trace(prof, steps, step_ms, card, label, top_n=5, watch=()):
@@ -1593,16 +2127,27 @@ def main() -> int:
     b3 = phase_b3(card)
     b3_int8 = phase_b3_int8(card)
     model, requests, float_run = phase_engine(card)
-    launches = dict(float_run["launches"])
-    launches["paged_attention_int8"] = phase_engine_int8(
-        card, model, requests, float_run)["paged_attention_int8"]
-    del model, float_run
+    int8_run = phase_engine_int8(card, model, requests, float_run)
+    paths = {"engine": float_run["launches"],
+             "engine_int8": int8_run["launches"],
+             "engine_sample": phase_engine_sample(card, model, requests,
+                                                  float_run)}
+    b2["verify_shape"] = b2_verify_shape(card)
+    narrow, paths["engine_spec"] = phase_engine_spec(card, model, requests,
+                                                     float_run)
+    paths["engine_spec_int8"] = phase_engine_spec_int8(
+        card, model, narrow, requests, int8_run)
+    del model, narrow, float_run, int8_run
     b1 = phase_b1(card)
-    launches["residual_add"] = phase_train(card)
+    residual_launches = phase_train(card)
     lm_launches, lm_b2_rows = phase_train_lm(card)
-    b2_paths = {"engine": launches["flash_attention"],
-                "train_lm": lm_launches}
-    launches["flash_attention"] = sum(b2_paths.values())
+    paths["train_lm"] = {"flash_attention": lm_launches}
+    by_path = {name: {path: counts[name] for path, counts in paths.items()
+                      if counts.get(name)}
+               for name in ("flash_attention", "paged_attention",
+                            "paged_attention_int8")}
+    launches = {name: sum(p.values()) for name, p in by_path.items()}
+    launches["residual_add"] = residual_launches
     rows = []
     for name, src, replaces, res in (
             ("residual_add", "bigdl_tpu_torch/csrc/residual_add.cu",
@@ -1623,10 +2168,13 @@ def main() -> int:
                      "eager_ms": res["eager_ms"]})
         if "max_abs_err_bf16" in res:
             rows[-1]["max_abs_err_bf16"] = res["max_abs_err_bf16"]
+        if name in by_path:
+            rows[-1]["launches_by_path"] = by_path[name]
         if name == "flash_attention":
-            rows[-1]["launches_by_path"] = b2_paths
-            for dt, row in lm_b2_rows.items():
-                rows[-1][f"train_lm_{str(dt)[6:]}"] = {
+            timed = dict(lm_b2_rows, verify=b2["verify_shape"])
+            for label, row in timed.items():
+                rows[-1][label if label == "verify"
+                         else f"train_lm_{str(label)[6:]}"] = {
                     key: row[key] for key in (
                         "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms", "max_abs_err")}

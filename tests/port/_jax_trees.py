@@ -85,3 +85,32 @@ def compile_fast(fn, *args):
 def run_fast(fn, *args):
     """``jax.jit(fn)(*args)``, compiled with ``FAST_COMPILE``, as numpy."""
     return jax.device_get(compile_fast(fn, *args)(*args))
+
+
+def fast_kernels(kernels):
+    """A JAX engine's kernel set (``PagedDecodeKernels`` or
+    ``SpeculativeKernels``) whose jitted steps compile with
+    ``FAST_COMPILE``: each step lowers on its first call at a signature
+    and keeps the executable for later calls at the same one. The same
+    functions, arguments and donation; only LLVM's passes are off."""
+    for name in ("_prefill", "_chunk", "_decode", "_draft_write", "_draft",
+                 "_verify"):
+        jitted = getattr(kernels, name, None)
+        if jitted is not None:
+            setattr(kernels, name, _FastJit(jitted))
+    return kernels
+
+
+class _FastJit:
+    def __init__(self, jitted):
+        self._jit = jax.jit(jitted.__wrapped__, donate_argnums=(1,))
+        self._compiled = {}
+
+    def __call__(self, *args):
+        leaves, tree = jax.tree_util.tree_flatten(args)
+        sig = (tree, tuple((np.shape(x), np.result_type(x)) for x in leaves))
+        fn = self._compiled.get(sig)
+        if fn is None:
+            fn = self._compiled[sig] = self._jit.lower(*args).compile(
+                FAST_COMPILE)
+        return fn(*args)

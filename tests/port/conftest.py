@@ -30,7 +30,14 @@ def jax_lm():
 def _collect_module_garbage():
     """Collect each module's garbage (models, engines, autograd graphs)
     when it is done, so the tests after it start from a heap that holds
-    none of it."""
+    none of it. What is alive when a module starts (the imported
+    packages, JAX's executables, the session fixtures) is frozen out of
+    the collector's sight (``gc.freeze``), so each collection walks only
+    what the modules since allocated: a full collection over JAX's kept
+    executables took ~0.3-0.5 s a module. The last port test unfreezes
+    it (``pytest_runtest_teardown``)."""
+    gc.collect()
+    gc.freeze()
     yield
     gc.collect()
 
@@ -60,5 +67,6 @@ def pytest_runtest_teardown(item, nextitem):
         import jax
 
         torch.set_num_threads(TORCH_THREADS)
+        gc.unfreeze()
         jax.clear_caches()
         gc.collect()

@@ -6,7 +6,14 @@
   ``test_torch_transformer.py``); the test asserts that every emitted
   token won its argmax by a top-2 gap far above that, so a summation-order
   difference cannot flip a token.
-- Inside the port, the engine's streams equal ``static_generate``'s.
+- Sampled streams (top-k requests) are the JAX engine's on the same
+  seeds, up to each stream's first draw within ``MARGIN`` of a cumulative
+  boundary (the keys and uniforms are bitwise JAX's; a 2e-5 logit moves a
+  cumulative probability by far less than ``MARGIN``), and most tokens are
+  compared.
+- Inside the port, the engine's streams equal ``static_generate``'s,
+  greedy and sampled, and sampled streams are the same in any admission
+  order.
 - Lifecycle: EOS / max-tokens / deadline / cancel retirement, queue
   bound, step failure, close and collection of the loop thread, pages
   drained, the chunking slot's decode map row parked on the trash page.
@@ -20,9 +27,13 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_trees import fast_kernels
 from bigdl_tpu.serving import GenerationEngine as JaxEngine
+from bigdl_tpu.serving import PagedDecodeKernels as JaxPagedDecodeKernels
+from bigdl_tpu_torch.core.rng import request_seed, threefry_key_data
 from bigdl_tpu_torch.interop import load_jax_params
 from bigdl_tpu_torch.nn import Transformer
+from bigdl_tpu_torch.ops.sampling import split_key_data
 from bigdl_tpu_torch.serving import (
     DeadlineExceeded,
     GenerationEngine,
@@ -37,6 +48,13 @@ GAP_MIN = 1e-3      # 50x the 2e-5 logits tolerance
 CFG = dict(max_slots=4, max_len=32, max_prompt_len=8, page_size=4,
            prefill_chunk=4)
 RESULT_TIMEOUT = 60
+# the top-k requests, and the sampling knobs of the engine == static runs
+TOP_K = dict(temperature=0.8, top_k=8)
+MIXED = dict(temperature=0.9, top_k=20, top_p=0.9)
+# a draw whose u * total sits this close to a kept cumulative weight (in
+# probability) could flip under the port's 2e-5 logit differences (at most
+# ~2.5e-5 of a cumulative weight at temperature 0.8)
+MARGIN = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -50,9 +68,10 @@ def lm(jax_lm):
     return jm, params, tm, requests
 
 
-def _run(engine, requests):
+def _run(engine, requests, **knobs):
     engine.warmup()
-    streams = [engine.submit(p, max_new_tokens=m) for p, m in requests]
+    streams = [engine.submit(p, max_new_tokens=m, **knobs)
+               for p, m in requests]
     outs = [s.result(RESULT_TIMEOUT) for s in streams]
     engine.close()
     return outs
@@ -66,12 +85,28 @@ def port_streams(lm):
     return outs, engine
 
 
-def test_greedy_streams_match_jax_engine(lm, port_streams):
-    jm, params, tm, requests = lm
-    jax_outs = _run(JaxEngine(jm, params, **CFG), requests)
+@pytest.fixture(scope="module")
+def jax_streams(lm):
+    """The JAX engine's streams of the requests, greedy and then with the
+    top-k knobs, from one engine (one set of executables)."""
+    jm, params, _, requests = lm
+    engine = JaxEngine(jm, params, kernels=fast_kernels(
+        JaxPagedDecodeKernels(jm)), **CFG)
+    engine.warmup()
+    outs = [[engine.submit(p, max_new_tokens=m, **knobs)
+             for p, m in requests] for knobs in ({}, TOP_K)]
+    outs = [[s.result(RESULT_TIMEOUT) for s in streams] for streams in outs]
+    engine.close()
+    del engine
     # the JAX engine's finalizer takes a lock: collect the engine here,
     # on this thread, and not wherever the collector next runs
     gc.collect()
+    return outs
+
+
+def test_greedy_streams_match_jax_engine(lm, port_streams, jax_streams):
+    jm, params, tm, requests = lm
+    jax_outs = jax_streams[0]
     outs, _ = port_streams
     assert outs == jax_outs
     # every token won its argmax by a margin no summation order can undo
@@ -92,6 +127,86 @@ def test_engine_equals_static_generate(lm, port_streams):
         prefill_chunk=4, prompt_buckets=engine.prompt_buckets)
     assert static == outs
     assert steps >= max(len(o) for o in outs) - 1
+
+
+def _draw_margins(tm, prompt, out, key, temperature, top_k):
+    """Each sampled token's distance (in probability) from the nearest
+    kept cumulative weight: the port's teacher-forced logits, the uniform
+    each step drew from the request key's split chain."""
+    with torch.no_grad():
+        logits = tm(torch.tensor([prompt + out[:-1]]))[0, len(prompt) - 1:]
+    margins = []
+    for row in logits.numpy():
+        key, u = split_key_data(key)
+        scaled = (row / np.float32(temperature)).astype(np.float32)
+        probs = np.sort(np.exp(scaled - scaled.max()))[::-1]
+        probs = (probs / probs.sum())[:top_k]
+        c = np.cumsum(probs, dtype=np.float32)
+        margins.append(float(np.abs(c - np.float32(u) * c[-1]).min()))
+    return margins
+
+
+def test_sampled_streams_match_jax_engine(lm, jax_streams):
+    """The top-k requests through the port's engine and the JAX one, on
+    the same weights and engine seed: stream for stream, up to each
+    stream's first draw within MARGIN of a boundary."""
+    _, _, tm, requests = lm
+    engine = _engine(tm)
+    outs = _run(engine, requests, **TOP_K)
+    assert engine.metrics.snapshot()["sampled_tokens"] == sum(
+        len(o) for o in outs)
+    compared = 0
+    for (prompt, _), out, ref in zip(requests, outs, jax_streams[1]):
+        key = threefry_key_data(request_seed(
+            0, np.asarray(prompt, np.int32).tobytes(), len(prompt)))
+        margins = _draw_margins(tm, prompt, out, key, **TOP_K)
+        safe = [m > MARGIN for m in margins] + [False]
+        n = safe.index(False)   # tokens before the first near-boundary draw
+        assert out[:n] == ref[:n]
+        compared += n
+    assert compared >= 0.8 * sum(len(o) for o in outs), compared
+    assert outs != jax_streams[0]    # the knobs changed the streams
+
+
+def test_sampled_engine_equals_static_generate(lm, port_streams):
+    """Greedy and sampled requests mixed, some with explicit seeds: the
+    engine's streams are ``static_generate``'s, and its greedy ones the
+    greedy engine's."""
+    _, _, tm, requests = lm
+    outs, engine = port_streams
+    sampling = [dict(MIXED, seed=i) if i % 4 == 1 else MIXED if i % 2
+                else {} for i in range(len(requests))]
+    sampled_engine = _engine(tm, seed=11)
+    streams = [sampled_engine.submit(p, max_new_tokens=m, **knobs)
+               for (p, m), knobs in zip(requests, sampling)]
+    got = [s.result(RESULT_TIMEOUT) for s in streams]
+    sampled_engine.close()
+    static, _ = static_generate(
+        tm, requests, max_slots=4, max_len=32, device="cpu", page_size=4,
+        prefill_chunk=4, prompt_buckets=engine.prompt_buckets, seed=11,
+        sampling=sampling)
+    assert static == got
+    assert [out for out, knobs in zip(got, sampling) if not knobs] == \
+        [out for out, knobs in zip(outs, sampling) if not knobs]
+    assert [out for out, knobs in zip(got, sampling) if knobs] != \
+        [out for out, knobs in zip(outs, sampling) if knobs]
+
+
+def test_sampled_streams_are_the_same_in_any_admission_order(lm):
+    _, _, tm, requests = lm
+    first = _run(_engine(tm), requests, **MIXED)
+    engine = _engine(tm)
+    streams = {i: engine.submit(requests[i][0],
+                                max_new_tokens=requests[i][1], **MIXED)
+               for i in reversed(range(len(requests)))}
+    assert [streams[i].result(RESULT_TIMEOUT)
+            for i in range(len(requests))] == first
+    a = engine.generate([5, 6, 7], max_new_tokens=12, seed=1,
+                        timeout=RESULT_TIMEOUT, **MIXED)
+    b = engine.generate([5, 6, 7], max_new_tokens=12, seed=2,
+                        timeout=RESULT_TIMEOUT, **MIXED)
+    engine.close()
+    assert a != b
 
 
 def test_bf16_kv_cache_engine_equals_static(lm):
@@ -143,13 +258,13 @@ class _GatedKernels(PagedDecodeKernels):
         self.log.append(("prefill", np.array(pages)))
         return super().prefill(cache, pages, *a)
 
-    def decode(self, cache, tokens, positions, page_map):
+    def decode(self, cache, tokens, positions, page_map, *sampling):
         self.log.append(("decode", np.array(page_map)))
         self.entered.set()
         assert self.gate.wait(RESULT_TIMEOUT)
         if self.fail is not None:
             raise self.fail
-        return super().decode(cache, tokens, positions, page_map)
+        return super().decode(cache, tokens, positions, page_map, *sampling)
 
 
 def _engine(tm, kernels=None, **kw):
@@ -325,8 +440,11 @@ def test_collection_wakes_the_loop_without_a_lock(lm):
 def test_submit_validation(lm):
     _, _, tm, _ = lm
     engine = _engine(tm, num_pages=2)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        engine.submit([1, 2], temperature=0.7)
+    # sampling is served (it raised NotImplementedError before the port's
+    # sampler came)
+    sampled = engine.submit([1, 2], max_new_tokens=4, temperature=0.7,
+                            top_k=5, top_p=0.9, seed=3)
+    assert len(sampled.result(RESULT_TIMEOUT)) == 4
     with pytest.raises(ValueError, match="temperature"):
         engine.submit([1, 2], temperature=-1.0)
     with pytest.raises(ValueError, match="empty"):

@@ -28,6 +28,10 @@ the fp32 one differs by 40-45, which the test checks it would catch.
 Threefry draws and dropout masks: bitwise equal to the CPU's (exact
 integer ops). A small translation Transformer's training step, card vs
 CPU: 1e-4 relative to each tensor's largest entry, as the ResNet step.
+The sampler on the card against the CPU on the same logits and keys:
+keys bitwise, tokens equal except on draws the boundary rule flags
+(``_sampling.py``: the two sides round the softmax and the cumulative sums
+in other orders).
 """
 
 import math
@@ -873,3 +877,95 @@ def test_cifar_sgd_step_card_matches_cpu(cuda, policy):
     assert max((card[k] - v).abs().max().item() / _bf16_spacing(v)
                for k, v in fp32.items() if k.startswith("grad")) \
         > BF16_STEP_ULPS
+
+
+# ---------------------------------------------- sampling, speculative ----
+
+
+@pytest.mark.gpu
+def test_flash_kernel_at_the_verify_shape(cuda):
+    """B2 as the speculative verify step drives it: q (8, 8, 5, 64) (k =
+    4 candidates and the last token per slot) against every slot's
+    256-key lane under the (8, 1, 5, 256) validity bias; fp32."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(8, 8, 5, 64, generator=g, device=cuda)
+    k, v = (torch.randn(8, 8, 256, 64, generator=g, device=cuda)
+            for _ in range(2))
+    pos = torch.randint(0, 251, (8,), generator=g, device=cuda)
+    rows = pos[:, None] + torch.arange(5, device=cuda)[None, :]
+    cols = torch.arange(256, device=cuda)
+    bias = torch.where(cols[None, None, :] <= rows[:, :, None], 0.0,
+                       -1e9)[:, None]
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v, bias)
+    assert tfa.flash_attention.launches == before + 1
+    ref = tfa.plain_attention(q, k, v, bias)
+    assert (out - ref).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.gpu
+def test_sampler_on_card_equals_cpu(cuda):
+    """The sampler over the same logits and keys on the card and on the
+    CPU: keys bitwise (host-side), greedy rows bitwise, sampled tokens
+    equal except on draws the boundary rule flags."""
+    from _sampling import sample_flagged
+    from bigdl_tpu_torch.ops import sampling
+
+    rs = np.random.RandomState(0)
+    temps = np.asarray([0.0, 0.8, 0.8, 1.2, 0.0, 0.7, 1.0, 0.8], np.float32)
+    top_ks = np.asarray([0, 50, 0, 5, 0, 0, 50, 1], np.int32)
+    top_ps = np.asarray([1.0, 0.95, 0.9, 1.0, 1.0, 0.5, 1.0, 1.0],
+                        np.float32)
+    keys = rs.randint(0, 2 ** 32, (8, 2), dtype=np.uint64).astype(np.uint32)
+    flagged = 0
+    for _ in range(32):
+        logits = torch.from_numpy((rs.randn(8, 8192) * 3).astype(np.float32))
+        tok_card, keys_card = sampling.sample_tokens(
+            logits.to(cuda), temps, top_ks, top_ps, keys)
+        tok_cpu, keys_cpu = sampling.sample_tokens(logits, temps, top_ks,
+                                                   top_ps, keys)
+        assert np.array_equal(keys_card, keys_cpu)
+        for s in range(8):
+            _, u = sampling.split_key_data(keys[s])
+            if sample_flagged(logits[s].numpy(), temps[s], top_ks[s],
+                              top_ps[s], u):
+                flagged += 1
+                continue
+            assert int(tok_card[s]) == int(tok_cpu[s]), s
+        keys = keys_card
+    assert flagged <= 2, flagged
+
+
+@pytest.mark.gpu
+def test_speculative_engine_on_card(cuda):
+    """A speculative engine on the card: greedy streams equal the plain
+    engine's, sampled ones equal ``static_generate(speculate=...)``'s; B2
+    runs the verify step and B3 only the draft's steps."""
+    gen = torch.Generator().manual_seed(0)
+    model = Transformer(128, 64, 4, 128, 2, device=cuda, generator=gen)
+    draft = Transformer(128, 32, 2, 64, 1, device=cuda, generator=gen)
+    rs = np.random.RandomState(1)
+    requests = [(rs.randint(1, 128, (rs.randint(2, 9),)).tolist(),
+                 int(rs.choice([4, 20]))) for _ in range(8)]
+    cfg = dict(max_slots=4, max_len=48, max_prompt_len=8, page_size=8)
+
+    def run(knobs, **engine_kw):
+        engine = GenerationEngine(model, **cfg, **engine_kw)
+        engine.warmup()
+        tfa.paged_flash_attention.launches = 0
+        outs = [s.result(120) for s in [engine.submit(
+            p, max_new_tokens=m, **knobs) for p, m in requests]]
+        engine.close()
+        return outs, engine.metrics.snapshot(), \
+            tfa.paged_flash_attention.launches
+
+    plain, _, _ = run({})
+    spec, snap, b3 = run({}, speculate=(draft, 3))
+    assert spec == plain
+    assert b3 == 4 * 1 * snap["verify_steps"] > 0   # (k+1) x draft layers
+    knobs = dict(temperature=0.9, top_k=20)
+    sampled, _, _ = run(knobs, speculate=(draft, 3), seed=4)
+    static, _ = static_generate(model, requests, max_slots=4, max_len=48,
+                                page_size=8, speculate=(draft, 3), seed=4,
+                                sampling=[knobs] * len(requests))
+    assert sampled == static

@@ -8,7 +8,8 @@
   from one quantization step), so a token whose top-2 gap exceeds twice
   that cannot flip; the test compares every token before the first one
   that does not, and asserts that this covers most tokens.
-- Inside the port: engine == ``static_generate`` at int8.
+- Inside the port: engine == ``static_generate`` at int8, greedy and
+  sampled (in either admission order).
 - The JAX accuracy contract against the port's float engine: first token
   exact, mean token agreement >= 75% (``tests/test_int8_serving.py``).
 - The gauges: ``quantized_gemms`` (13 at 2 layers), ``kv_cache_dtype``,
@@ -24,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_trees import fast_kernels
 from bigdl_tpu.serving import GenerationEngine as JaxEngine
+from bigdl_tpu.serving import PagedDecodeKernels as JaxPagedDecodeKernels
 from bigdl_tpu_torch.interop import export_params, load_jax_params
 from bigdl_tpu_torch.nn import Transformer
 from bigdl_tpu_torch.nn.module import flatten_tree
@@ -74,6 +77,7 @@ def int8_streams(lm):
 def jax_int8_streams(lm):
     jm, params, _, requests = lm
     outs = _run(JaxEngine(jm, params, quantize="int8", cache_dtype="int8",
+                          kernels=fast_kernels(JaxPagedDecodeKernels(jm)),
                           **CFG), requests)
     # the JAX engine's finalizer takes a lock: collect the engine here,
     # on this thread, and not wherever the collector next runs
@@ -122,6 +126,33 @@ def test_int8_engine_equals_static_generate(lm, int8_streams):
         prefill_chunk=4, prompt_buckets=engine.prompt_buckets, **INT8)
     assert static == outs
     assert [len(o) for o in outs] == [m for _, m in requests]
+
+
+def test_sampled_int8_engine_equals_static_generate(lm, int8_streams):
+    """Sampled requests at int8, some with explicit seeds: the engine's
+    streams are ``static_generate``'s, in either admission order, and the
+    sampled tokens are counted."""
+    _, _, tm, requests = lm
+    greedy, engine = int8_streams
+    sampling = [dict(temperature=0.9, top_k=20, top_p=0.9,
+                     seed=i if i % 3 == 0 else None)
+                for i in range(len(requests))]
+    static, _ = static_generate(
+        tm, requests, max_slots=4, max_len=32, device="cpu", page_size=4,
+        prefill_chunk=4, prompt_buckets=engine.prompt_buckets, seed=3,
+        sampling=sampling, **INT8)
+    for order in (range(len(requests)), reversed(range(len(requests)))):
+        sampled = GenerationEngine(tm, device="cpu", seed=3, **CFG, **INT8)
+        streams = {i: sampled.submit(requests[i][0],
+                                     max_new_tokens=requests[i][1],
+                                     **sampling[i]) for i in order}
+        outs = [streams[i].result(RESULT_TIMEOUT)
+                for i in range(len(requests))]
+        sampled.close()
+        assert outs == static
+    assert outs != greedy
+    assert sampled.metrics.snapshot()["sampled_tokens"] == sum(
+        len(o) for o in outs)
 
 
 def test_int8_tracks_the_float_engine_within_the_jax_contract(

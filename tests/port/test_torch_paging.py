@@ -135,8 +135,15 @@ def test_metrics_quantized_serving_gauges():
     snap = m.snapshot()
     assert (snap["kv_bytes_in_use"], snap["kv_cache_dtype"],
             snap["quantized_gemms"]) == (4096, "int8", 25)
-    assert list(snap)[-3:] == ["kv_bytes_in_use", "kv_cache_dtype",
+    # the quantized block follows the page gauges; the sampled and
+    # speculative rows of later slices append after it
+    keys = list(snap)
+    at = keys.index("pages_peak") + 1
+    assert keys[at:at + 3] == ["kv_bytes_in_use", "kv_cache_dtype",
                                "quantized_gemms"]
+    assert keys[at + 3:] == ["sampled_tokens", "draft_tokens",
+                             "accepted_tokens", "acceptance_rate",
+                             "verify_steps"]
 
 
 def test_metrics_reservoir_is_bounded_and_replays():

@@ -93,6 +93,26 @@ def test_threefry_key_data_and_request_seed_match_jax():
         5, zlib.crc32(b"ab"))
 
 
+@pytest.mark.parametrize("n", [1, 3, 40])
+def test_lane_packed_cipher_equals_the_per_key_cipher(n):
+    """``threefry2x32_words`` (every row's cipher in one big integer, the
+    sampler's host-side key work) against ``threefry2x32`` row by row,
+    with counters at 0 and at 2**32 - 1, and one counter for every row;
+    ``fold_in_keys`` rejects data outside 32 bits as ``fold_in`` does."""
+    rs = np.random.RandomState(n)
+    keys = rs.randint(0, 2 ** 32, (n, 2), dtype=np.uint64).astype(np.uint32)
+    x1 = rs.randint(0, 2 ** 32, (n,), dtype=np.uint64)
+    x1[0] = 2 ** 32 - 1
+    for counters in (x1, 0, 2 ** 32 - 1):
+        got = tf.threefry2x32_words(keys, counters)
+        for i, (k0, k1) in enumerate(keys):
+            c = counters if np.ndim(counters) == 0 else counters[i]
+            want = tf.threefry2x32(tf.Key(int(k0), int(k1)), 0, int(c))
+            assert tuple(got[i]) == want, (i, c)
+    with pytest.raises(ValueError, match="32"):
+        trng.fold_in_keys(keys, 2 ** 32)
+
+
 def test_fold_in_rejects_data_outside_32_bits():
     with pytest.raises(ValueError, match="outside"):
         tf.fold_in(tf.key(0), -1)
