@@ -1,7 +1,8 @@
 """Serving tier: paged continuous-batching generation, greedy or sampled,
-plain or speculative."""
+plain or speculative, with a prefix cache and a host KV tier."""
 
 from bigdl_tpu_torch.serving.batcher import bucket_sizes_for
+from bigdl_tpu_torch.serving.disagg import PageBlockMover
 from bigdl_tpu_torch.serving.engine import (
     GenerationEngine,
     GenerationStream,
@@ -15,11 +16,14 @@ from bigdl_tpu_torch.serving.errors import (
     ServingError,
     StreamCancelled,
 )
+from bigdl_tpu_torch.serving.kv_tiers import HostCopier, HostPageStore
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
 from bigdl_tpu_torch.serving.paging import PagePool, page_bytes, pages_per_lane
+from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
 
 __all__ = ["DeadlineExceeded", "GenerationEngine", "GenerationStream",
-           "Overloaded", "PagePool", "PagedDecodeKernels", "ServingError",
+           "HostCopier", "HostPageStore", "Overloaded", "PageBlockMover",
+           "PagePool", "PagedDecodeKernels", "PrefixCache", "ServingError",
            "ServingMetrics", "SpeculativeKernels", "StreamCancelled",
            "bucket_sizes_for", "page_bytes", "pages_per_lane",
            "static_generate"]

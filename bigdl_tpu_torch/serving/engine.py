@@ -48,8 +48,28 @@ candidates; the two models' lanes sit side by side in the one page pool,
 tagged ``"target"`` and ``"draft"``. Greedy speculative output is the
 plain engine's token for token.
 
-Prefix caching, KV tiers, disaggregation, grammar masks, async
-scheduling, tensor parallelism, faults and tracing come with later slices.
+Prefix caching: ``prefix_cache=True`` publishes every retiring
+sequence's full prompt pages to a radix index
+(:class:`~bigdl_tpu_torch.serving.prefix_cache.PrefixCache`); an admission
+whose prompt starts with a cached page-aligned prefix attaches those pages
+by reference and prefills only its tail, so the prompt calls the prefix
+covered never run. Cached pages hold the bits a fresh prefill writes:
+output with the cache on is the output with it off. Under page pressure
+the admission evicts unreferenced cached pages (LRU leaves) before it
+waits; ``cache_aware_admission=True`` lets a later request that fits pass
+a page-blocked head, at most four times in a row.
+
+KV tiers: ``host_pages=N`` (with the prefix cache, without speculation)
+puts a host-memory store of N pages under the device pool
+(:class:`~bigdl_tpu_torch.serving.kv_tiers.HostPageStore`): evicted prefix
+pages are copied to pinned host memory without blocking, filed once a
+CUDA event says the copy landed, and copied back when a later prompt
+needs them. ``submit(priority=)``: a page-blocked head may swap out active
+streams of strictly lower priority through the same tier; they resume
+where they stopped, bit for bit.
+
+Disaggregation, grammar masks, async scheduling, tensor parallelism,
+faults and tracing come with later slices.
 """
 
 from __future__ import annotations
@@ -60,7 +80,7 @@ import threading
 import time
 import weakref
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,17 +101,20 @@ from bigdl_tpu_torch.ops.sampling import (
     speculative_sample,
 )
 from bigdl_tpu_torch.serving.batcher import bucket_sizes_for
+from bigdl_tpu_torch.serving.disagg import PageBlockMover
 from bigdl_tpu_torch.serving.errors import (
     DeadlineExceeded,
     Overloaded,
     StreamCancelled,
 )
+from bigdl_tpu_torch.serving.kv_tiers import HostCopier, HostPageStore
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
 from bigdl_tpu_torch.serving.paging import (
     PagePool,
     page_bytes,
     pages_per_lane,
 )
+from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
 
 log = logging.getLogger("bigdl_tpu_torch.serving")
 
@@ -370,12 +393,15 @@ class GenerationStream:
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new_tokens", "deadline", "stream",
-                 "temperature", "top_k", "top_p", "seed")
+                 "temperature", "top_k", "top_p", "seed", "tag", "handoff",
+                 "priority")
 
     def __init__(self, prompt: List[int], max_new_tokens: int,
                  deadline: Optional[float], stream: GenerationStream,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 1.0, seed: Optional[int] = None):
+                 top_p: float = 1.0, seed: Optional[int] = None,
+                 tag: Any = None, handoff: Optional[dict] = None,
+                 priority: int = 0):
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
         self.deadline = deadline
@@ -384,6 +410,9 @@ class _GenRequest:
         self.top_k = top_k
         self.top_p = top_p
         self.seed = seed
+        self.tag = tag            # opaque caller context, rides a swap
+        self.handoff = handoff    # swap-in payload (a parked stream)
+        self.priority = int(priority)
 
     @property
     def sampled(self) -> bool:
@@ -396,7 +425,7 @@ class _SlotState:
 
     __slots__ = ("req", "last_token", "position", "generated", "phase",
                  "pages", "page_row", "prefill_pos", "draft_pages",
-                 "dpage_row")
+                 "dpage_row", "cache_version", "t_last")
 
     def __init__(self, req: _GenRequest, pages: List[int], page_row,
                  pad_id: int, draft_pages: Optional[List[int]] = None,
@@ -411,6 +440,8 @@ class _SlotState:
         self.prefill_pos = 0       # next prompt index to prefill
         self.draft_pages = draft_pages   # the draft's lane (speculative)
         self.dpage_row = dpage_row
+        self.cache_version = 0     # prefix-index version at admission
+        self.t_last = 0.0          # when its last token was pushed
 
 
 class _Core:
@@ -440,8 +471,9 @@ class _Core:
 def _fail_streams(core: _Core, error: BaseException,
                   engine: "Optional[GenerationEngine]" = None) -> None:
     """Fail every pending/active stream; with the engine still alive,
-    return the active slots' pages to the pool. Called only from the loop
-    thread or after it has exited."""
+    return the active slots' pages to the pool and drain the prefix index
+    and the host tier, so every gauge reaches zero. Called only from the
+    loop thread or after it has exited."""
     with core.lock:
         reqs = list(core.pending) + [s.req for s in core.active.values()]
         states = list(core.active.items())
@@ -451,6 +483,14 @@ def _fail_streams(core: _Core, error: BaseException,
     if engine is not None:
         for slot, st in states:
             engine._release_lanes(slot, st)
+        for cache in (engine._prefix, engine._dprefix):
+            if cache is not None:
+                cache.clear()
+        if engine._host is not None:
+            # copies in flight drop (their pages were evicted cleanly)
+            engine._pending_offloads.clear()
+            engine._copier.reset()
+            engine._host.clear()
         engine._report_pages()
     for r in reqs:
         r.stream._finish(error)
@@ -514,7 +554,14 @@ class GenerationEngine:
     per-token fp32 scales. ``seed`` is the engine's base seed for the
     requests that name none. ``speculate=(draft_model, k)`` serves
     draft-verified: k candidates per round from ``draft_model``, one
-    verify forward of ``model``.
+    verify forward of ``model``. ``prefix_cache=True`` shares full prompt
+    pages across requests through a radix index, and
+    ``cache_aware_admission=True`` lets a later request that fits pass a
+    page-blocked head (at most 4 times in a row). ``host_pages=N`` backs
+    the device pool with N pages of host memory (needs the prefix cache;
+    excludes speculation): evicted prefix pages offload there and come
+    back on a later hit, and a page-blocked request may swap out active
+    streams of strictly lower ``priority``.
     """
 
     def __init__(self, model, *, device: DeviceLike = None,
@@ -527,7 +574,10 @@ class GenerationEngine:
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  quantize: Optional[str] = None, seed: int = 0,
-                 speculate: Optional[tuple] = None):
+                 speculate: Optional[tuple] = None,
+                 prefix_cache: bool = False,
+                 cache_aware_admission: bool = False,
+                 host_pages: Optional[int] = None):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if max_len < 2:
@@ -535,6 +585,18 @@ class GenerationEngine:
         self.device = _model_device(model, device)
         self.speculative = speculate is not None
         self.draft_model, self.spec_k = _speculate_knob(speculate)
+        self.prefix_caching = bool(prefix_cache)
+        self.cache_aware_admission = bool(cache_aware_admission)
+        if host_pages is not None:
+            if self.speculative:
+                raise ValueError(
+                    "host_pages excludes speculative decoding (draft-"
+                    "lane pages do not offload yet)")
+            if not self.prefix_caching:
+                raise ValueError(
+                    "host_pages needs prefix_cache=True — the host tier "
+                    "is indexed by the same (version, prefix) radix keys "
+                    "the device prefix index files pages under")
         if kernels is not None and hasattr(kernels, "verify") \
                 != self.speculative:
             # half of either is a silent wrong-mode engine
@@ -600,6 +662,38 @@ class GenerationEngine:
                                       self._pool.trash, np.int32)
             self._kv_dpage_bytes = _lane_page_bytes(
                 self.draft_model, self.page_size, cache_dtype)
+        # the prefix index, one per lane: the draft's pages hold other K/V
+        # for the same tokens and are never shared across lanes
+        self._prefix: Optional[PrefixCache] = None
+        self._dprefix: Optional[PrefixCache] = None
+        if self.prefix_caching:
+            self._prefix = PrefixCache(self._pool, name="target")
+            if self.speculative:
+                self._dprefix = PrefixCache(self._pool, name="draft")
+        # True after an eviction scan freed nothing; cleared whenever pages
+        # release or publish, so a page-blocked head does not re-walk the
+        # index every iteration
+        self._evict_stale = False
+        self._bypass_limit = 4
+        self._head_bypasses = 0      # consecutive bypasses of the head
+        self.admission_bypasses = 0
+        # the host tier: device -> host copies in flight (at most
+        # _offload_inflight_cap prefix pages; the staging ring holds that
+        # many blocks), polled at the top of every iteration
+        self._host: Optional[HostPageStore] = None
+        self._mover: Optional[PageBlockMover] = None
+        self._copier: Optional[HostCopier] = None
+        self._pending_offloads: List[dict] = []
+        self._offload_inflight_cap = 2
+        self._swap_seq = 0
+        self.handoff_source = f"engine-{id(self):x}"
+        if host_pages is not None:
+            self._host = HostPageStore(int(host_pages),
+                                       page_bytes=self._kv_page_bytes)
+            self._mover = PageBlockMover()
+            self._copier = HostCopier(self._cache,
+                                      slots=self._offload_inflight_cap,
+                                      slot_pages=ppn)
         self._report_pages()
         self._failed: Optional[BaseException] = None
         self._core = _Core(self.max_slots)
@@ -616,11 +710,17 @@ class GenerationEngine:
                deadline: Optional[float] = None,
                temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0,
-               seed: Optional[int] = None) -> GenerationStream:
+               seed: Optional[int] = None,
+               tag: Any = None,
+               priority: int = 0) -> GenerationStream:
         """Enqueue one prompt (token ids). ``max_new_tokens`` caps the
         generation (default: whatever fits in ``max_len``); ``deadline``
         is seconds from now. Raises :class:`Overloaded` when the pending
-        queue is full.
+        queue is full. ``tag`` is opaque caller context that rides the
+        request (a swap's payload included). ``priority`` matters on a
+        host-tier engine only: a page-blocked head may swap out active
+        streams of strictly lower priority; equal priorities never
+        displace each other.
 
         ``temperature > 0`` samples inside the step, optionally filtered
         by ``top_k`` / nucleus ``top_p``; ``temperature=0`` (default) is
@@ -656,7 +756,8 @@ class GenerationEngine:
                           else stream.t_submit + float(deadline), stream,
                           temperature=temperature, top_k=int(top_k),
                           top_p=float(top_p),
-                          seed=None if seed is None else int(seed))
+                          seed=None if seed is None else int(seed),
+                          tag=tag, priority=int(priority))
         core = self._core
         with core.lock:
             if self._failed is not None:
@@ -682,11 +783,16 @@ class GenerationEngine:
     # the caller runs before traffic).
 
     def _step(self) -> None:
-        """One scheduler iteration: admit pending prompts into free slots
-        (FIFO, while the pool covers the head's full reservation), advance
-        one chunk per prefilling slot, then one decode step (or one
+        """One scheduler iteration: reap the host copies that have landed,
+        admit pending prompts into free slots (evicting cached prefixes,
+        then bypassing or swapping, before the FIFO wait), advance one
+        chunk per prefilling slot, then one decode step (or one
         speculative round) over every decoding slot."""
         core = self._core
+        if self._pending_offloads:
+            # a non-blocking poll: a copy still in flight waits for the
+            # next iteration, never a decode step
+            self._drain_offloads()
         self._admit_and_prefill()
         with core.lock:
             active = sorted((s, st) for s, st in core.active.items()
@@ -704,21 +810,364 @@ class GenerationEngine:
             min(len(req.prompt) + req.max_new_tokens - 1, self.max_len))
 
     def _admit_and_prefill(self) -> None:
+        """Admission, then one chunk per prefilling slot. A head the pool
+        cannot cover first evicts unreferenced cached pages; failing that,
+        a later request that fits may pass it (cache-aware admission, at
+        most ``_bypass_limit`` times in a row), or a host-tier engine swaps
+        out active streams of lower priority; only then does the head
+        wait (a delay, never a reorder)."""
         core = self._core
         while True:
+            swap_head = None
+            swap_need = 0
             with core.lock:
                 if not core.pending or not core.free:
                     break
-                if not self._pool.can_reserve(
-                        self._lanes * self._pages_needed(core.pending[0])):
-                    break   # page pressure delays the FIFO head, never reorders
-                req = core.pending.popleft()
-            self._admit_paged(req)
+                take = 0
+                need_alloc, probes = self._admit_need(core.pending[0])
+                if not self._pool.can_reserve(need_alloc) and \
+                        not self._evict_for(need_alloc, probes):
+                    bypass = self._pick_bypass()
+                    if bypass is None:
+                        swap_head = core.pending[0]
+                        swap_need = need_alloc
+                    else:
+                        take = bypass
+                if swap_head is None:
+                    if take == 0:
+                        self._head_bypasses = 0
+                        req = core.pending.popleft()
+                    else:
+                        self._head_bypasses += 1
+                        self.admission_bypasses += 1
+                        req = core.pending[take]
+                        del core.pending[take]
+            if swap_head is not None:
+                if self._swap_out_for(swap_head, swap_need):
+                    continue
+                break
+            if req.handoff is not None:
+                self._admit_prefilled(req)
+            else:
+                self._admit_paged(req)
         with core.lock:
             prefilling = sorted((s, st) for s, st in core.active.items()
                                 if st.phase == "prefill")
         for slot, st in prefilling:
             self._prefill_chunk_once(slot, st)
+
+    # ----------------------------------------------------- prefix cache ----
+
+    def _prefix_probe(self, req: _GenRequest):
+        """``(cached token count, [(pages, nodes) per lane])`` for
+        ``req``'s prompt. A speculative engine clamps to the depth both
+        lanes hit: the chunk skip is shared."""
+        n_tok, pages, nodes = self._prefix.lookup(req.prompt)
+        if self._dprefix is None:
+            return n_tok, [(pages, nodes)]
+        dn_tok, dpages, dnodes = self._dprefix.lookup(req.prompt)
+        k = min(n_tok, dn_tok) // self.page_size
+        return k * self.page_size, [(pages[:k], nodes[:k]),
+                                    (dpages[:k], dnodes[:k])]
+
+    def _admit_need(self, req: _GenRequest):
+        """Pages the pool must allocate to admit ``req`` (attached cached
+        pages are shared, not allocated), and the probe whose chains the
+        eviction must not touch."""
+        need = self._lanes * self._pages_needed(req)
+        if self._prefix is None or req.handoff is not None:
+            return need, None
+        cached_len, probes = self._prefix_probe(req)
+        return need - self._lanes * (cached_len // self.page_size), probes
+
+    def _evict_for(self, need_alloc: int, probes) -> bool:
+        """Evict LRU unreferenced cached pages, lane by lane, never the
+        chains the admission matched, until the pool covers
+        ``need_alloc``. True when it now does."""
+        if self._prefix is None or self._evict_stale:
+            return False
+        protect = set()
+        for pr in probes or ():
+            protect.update(pr[1])
+        shortfall = need_alloc - self._pool.free_pages
+        freed = 0
+        # target-lane victims offload to the host tier (the hook gathers
+        # each page before evict() releases it)
+        on_evict = self._offload_page if self._host is not None else None
+        for cache in (self._prefix, self._dprefix):
+            if cache is None or shortfall <= freed:
+                break
+            freed += cache.evict(shortfall - freed, frozenset(protect),
+                                 on_evict=on_evict)
+            on_evict = None
+        if freed == 0:
+            self._evict_stale = True
+        return self._pool.can_reserve(need_alloc)
+
+    def _pick_bypass(self) -> Optional[int]:
+        """The index into ``pending`` of a later request to admit while
+        the page-blocked head waits, or None. A candidate must fit as the
+        pool stands; the longest cached prefix wins, then FIFO order. At
+        most ``_bypass_limit`` bypasses in a row. Caller holds the core
+        lock."""
+        if (not self.cache_aware_admission
+                or self._head_bypasses >= self._bypass_limit):
+            return None
+        best: Optional[Tuple[int, int]] = None   # (cached_len, index)
+        pending = self._core.pending
+        for j in range(1, len(pending)):
+            need, _ = self._admit_need(pending[j])
+            if not self._pool.can_reserve(need):
+                continue
+            cached = 0
+            if self._prefix is not None:
+                cached, _ = self._prefix_probe(pending[j])
+            if best is None or cached > best[0]:
+                best = (cached, j)
+        return None if best is None else best[1]
+
+    def _chunk_invocations(self, n_tokens: int) -> int:
+        """Prompt calls (non-final chunks and the final prefill) a prompt
+        tail of ``n_tokens`` costs."""
+        if n_tokens <= 0:
+            return 0
+        return (n_tokens - 1) // self.prefill_chunk + 1
+
+    # -------------------------------------------------------- host tier ----
+
+    def _queue_copy(self, entry: dict) -> None:
+        """Append a device -> host copy and start every queued copy the
+        staging ring has room for, in order."""
+        self._pending_offloads.append(entry)
+        self._start_copies()
+
+    def _start_copies(self) -> None:
+        for entry in self._pending_offloads:
+            if entry["copy"] is not None:
+                continue
+            block = (entry["block"] if entry["kind"] == "prefix"
+                     else entry["payload"]["block"])
+            entry["copy"] = self._copier.start(block)
+            if entry["copy"] is None:
+                return          # the ring is full: later copies wait too
+
+    def _offload_page(self, prefix: Tuple[int, ...], page: int) -> None:
+        """Prefix-eviction hook: gather the victim page and start its copy
+        to host memory, before evict() releases it, so the gather reads
+        the page before its next owner writes it (one stream). At most
+        ``_offload_inflight_cap`` copies are in flight; past the cap the
+        page just evicts, counted as a drop."""
+        if len(self._pending_offloads) >= self._offload_inflight_cap:
+            self._drain_offloads()   # non-blocking: reap what landed
+        if len(self._pending_offloads) >= self._offload_inflight_cap:
+            self._host.record_drop()
+            self.metrics.record_offload_dropped()
+            return
+        self._queue_copy({
+            "kind": "prefix", "key": tuple(prefix),
+            "version": self._prefix.version, "copy": None,
+            "block": self._mover.gather(self._cache, [page])})
+
+    def _drain_offloads(self, wait: bool = False) -> None:
+        """File the device -> host copies that have landed, in order: a
+        prefix page into the host store, a swapped-out stream's block into
+        its payload. Non-blocking unless ``wait`` (tests and drains):
+        nothing is taken before its CUDA event has completed."""
+        drained = False
+        while self._pending_offloads:
+            entry = self._pending_offloads[0]
+            if entry["copy"] is None:
+                self._start_copies()
+            if not wait and not self._copier.ready(entry["copy"]):
+                break
+            self._pending_offloads.pop(0)
+            rows = self._copier.take(entry["copy"], wait=wait)
+            drained = True
+            if entry["kind"] == "prefix":
+                self._host.put_prefix(
+                    entry["version"], entry["key"],
+                    {name: tuple(t[0] for t in leaves)
+                     for name, leaves in rows.items()})
+                self.metrics.record_offload(1)
+            else:
+                entry["payload"]["block"] = rows
+            self._start_copies()
+        if drained:
+            self._report_pages()
+
+    def _restore_prefix(self, req: _GenRequest, cached_len: int
+                        ) -> Tuple[List[int], int]:
+        """Extend a device prefix hit from the host tier: the consecutive
+        page-aligned chunks past it whose pages were offloaded come back
+        into fresh pages (one batched copy and scatter) and republish, so
+        the attach sees them as never evicted. Returns ``(restored pages,
+        new cached_len)``; the restored pages replace tail allocations one
+        for one."""
+        host = self._host
+        ps = self.page_size
+        prompt = req.prompt
+        version = self._prefix.version
+        start_k = cached_len // ps
+        hits: List[Tuple[int, ...]] = []
+        for k in range(start_k, (len(prompt) - 1) // ps):
+            key = tuple(prompt[:(k + 1) * ps])
+            if not host.has_prefix(version, key):
+                break
+            hits.append(key)
+        if not hits:
+            return [], cached_len
+        pages = self._pool.alloc(len(hits), owner="target")
+        rows = [host.take_prefix(version, key) for key in hits]
+        block = {name: tuple(torch.stack([r[name][j] for r in rows])
+                             for j in range(len(leaves)))
+                 for name, leaves in rows[0].items()}
+        self._mover.scatter(self._cache, self._copier.upload(block), pages)
+        end = (start_k + len(hits)) * ps
+        pub_row = np.full((self._pool.pages_per_slot,), self._pool.trash,
+                          np.int32)
+        pub_row[start_k:start_k + len(pages)] = pages
+        self._prefix.publish(prompt[:end], pub_row)
+        self._evict_stale = False
+        self.metrics.record_restore(len(pages))
+        self._report_pages()
+        return pages, end
+
+    def _swap_out_for(self, head: _GenRequest, need_alloc: int) -> bool:
+        """The head is page-blocked and neither eviction nor a bypass
+        helped: swap out the lowest-priority, longest-idle active decode
+        streams of strictly lower priority until its reservation fits.
+        False leaves the FIFO wait in place."""
+        if self._host is None:
+            return False
+        core = self._core
+        swapped = False
+        while not self._pool.can_reserve(need_alloc):
+            with core.lock:
+                victims = [
+                    (st.req.priority, st.t_last, slot, st)
+                    for slot, st in core.active.items()
+                    if st.phase == "decode" and st.pages
+                    and st.req.priority < head.priority
+                    and st.generated < st.req.max_new_tokens
+                    and st.position < self.max_len]
+            if not victims:
+                return swapped and self._pool.can_reserve(need_alloc)
+            victims.sort(key=lambda v: (v[0], v[1]))
+            _, _, slot, st = victims[0]
+            self._swap_out_slot(slot, st)
+            swapped = True
+        return True
+
+    def _swap_out_slot(self, slot: int, st: _SlotState) -> None:
+        """Park one active decode stream in the host tier: gather its
+        pages, queue their copy to host memory, export the pages, free the
+        slot and re-queue a resume request whose payload carries the
+        pages' rows, the key, the position and the generated count."""
+        req = st.req
+        self._swap_seq += 1
+        swap_id = self._swap_seq
+        ps = self.page_size
+        plen = len(req.prompt)
+        meta = [(int(p), self._pool.generation(p), int((i + 1) * ps <= plen))
+                for i, p in enumerate(st.pages)]
+        payload = {
+            "first_token": int(st.last_token),
+            "key": self._keys[slot].copy(),
+            "page_meta": meta,
+            "source": self.handoff_source,
+            "block": self._mover.gather(self._cache, st.pages),
+            "swap_id": swap_id,
+            "position": int(st.position),
+            "generated": int(st.generated),
+        }
+        self._queue_copy({"kind": "swap", "payload": payload, "copy": None})
+        core = self._core
+        with core.lock:
+            core.active.pop(slot, None)
+            core.free.append(slot)
+        # the gather above read the rows; the pages free for the head. No
+        # publish: nothing enters the index off a parked stream
+        self._pool.export_pages(st.pages or ())
+        st.pages = None
+        self._page_map[slot] = self._pool.trash
+        self._temps[slot] = 0.0
+        self._top_ks[slot] = 0
+        self._top_ps[slot] = 1.0
+        self._keys[slot] = 0
+        self._evict_stale = False
+        self._host.park_stream(swap_id, len(meta))
+        self.metrics.record_swap_out()
+        resume = _GenRequest(req.prompt, req.max_new_tokens, req.deadline,
+                             req.stream, temperature=req.temperature,
+                             top_k=req.top_k, top_p=req.top_p,
+                             seed=req.seed, tag=req.tag, handoff=payload,
+                             priority=req.priority)
+        with core.lock:
+            # the FIFO tail: the resumed stream waits its turn like any
+            # arrival
+            core.pending.append(resume)
+        self._report_pages()
+
+    def _admit_prefilled(self, req: _GenRequest) -> None:
+        """Resume a parked stream: adopt fresh pages for its rows, copy
+        them back and scatter them in, and arm the slot with the parked
+        key, position and generated count; it decodes on from there and
+        pushes nothing now (its consumer holds every token already). A
+        failure between adopt and scatter fails this stream only."""
+        payload = req.handoff
+        self._host.unpark_stream(int(payload["swap_id"]))
+        self.metrics.record_swap_in()
+        self._report_pages()
+        now = time.monotonic()
+        why = self._retire_why(None, req, now)
+        if why is not None:
+            self._finish_request(req, why)
+            return
+        core = self._core
+        with core.lock:
+            core.free.sort()
+            slot = core.free.pop(0)
+        meta = payload["page_meta"]
+        need = self._pages_needed(req)
+        k_p = len(meta)
+        pages: List[int] = []
+        try:
+            pages = self._pool.adopt_pages(
+                [(int(m[0]), int(m[1]), bool(m[2])) for m in meta],
+                source=str(payload["source"]), owner="target")
+            pages = pages + self._pool.alloc(need - k_p, owner="target")
+            row = np.full((self._pool.pages_per_slot,), self._pool.trash,
+                          np.int32)
+            row[:len(pages)] = pages
+            self._mover.scatter(self._cache,
+                                self._copier.upload(payload["block"]),
+                                pages[:k_p])
+        except Exception as e:
+            self._pool.release(pages)
+            with core.lock:
+                core.free.append(slot)
+            self._report_pages()
+            req.stream._finish(e)
+            return
+        self._temps[slot] = req.temperature
+        self._top_ks[slot] = req.top_k
+        self._top_ps[slot] = req.top_p
+        self._keys[slot] = np.asarray(payload["key"], np.uint32)
+        self._page_map[slot] = row
+        st = _SlotState(req, pages, row, self.pad_id)
+        st.phase = "decode"
+        st.last_token = int(payload["first_token"])
+        st.position = int(payload["position"])
+        st.generated = int(payload["generated"])
+        st.prefill_pos = len(req.prompt)
+        st.t_last = now
+        with core.lock:
+            core.active[slot] = st
+        self._report_pages()
+        why = self._retire_why(st, req, now)
+        if why is not None:
+            self._release_slot(slot, st)
+            self._finish_request(req, why)
 
     def _request_key(self, req: _GenRequest) -> np.ndarray:
         seed = req.seed
@@ -729,12 +1178,17 @@ class GenerationEngine:
         return threefry_key_data(seed)
 
     def _admit_paged(self, req: _GenRequest) -> None:
-        """Reserve a slot and the request's full page budget (both lanes
-        of a speculative slot). The slot's decode page-map row and its
-        sampling parameters and key stay parked (trash page, greedy, zero
-        key) until its final prompt chunk has run: interleaved decode
-        steps write a pad row for every slot, prefilling ones included,
-        and split every slot's key."""
+        """Reserve a slot and the request's page budget (both lanes of a
+        speculative slot). With the prefix cache the cached prefix's pages
+        come first in the row, attached by reference (and, with the host
+        tier, restored ones right after them); only the rest is allocated
+        and the prompt prefills from ``cached_len``. Every write the
+        request makes lands past the attached prefix, in its own pages:
+        hits are page-aligned and leave a tail. The slot's decode page-map
+        row and its sampling parameters and key stay parked (trash page,
+        greedy, zero key) until its final prompt chunk has run:
+        interleaved decode steps write a pad row for every slot,
+        prefilling ones included, and split every slot's key."""
         now = time.monotonic()
         why = self._retire_why(None, req, now)
         if why is not None:
@@ -745,18 +1199,49 @@ class GenerationEngine:
             core.free.sort()
             slot = core.free.pop(0)
         need = self._pages_needed(req)
+        cached_len = hit_k = 0
+        shared: List[int] = []
+        dshared: List[int] = []
+        restored: List[int] = []
+        if self._prefix is not None:
+            cached_len, probes = self._prefix_probe(req)
+            assert cached_len % self.page_size == 0 \
+                and cached_len < len(req.prompt), \
+                "prefix attach must be page-aligned with a live tail"
+            hit_k = cached_len // self.page_size
+            if hit_k:
+                shared = list(probes[0][0])
+                self._pool.share(shared)
+                if self._dprefix is not None:
+                    dshared = list(probes[1][0])
+                    self._pool.share(dshared)
+            if self._host is not None:
+                restored, cached_len = self._restore_prefix(req, cached_len)
+                hit_k = cached_len // self.page_size
+            skipped = (self._chunk_invocations(len(req.prompt))
+                       - self._chunk_invocations(len(req.prompt)
+                                                 - cached_len))
+            for cache in (self._prefix, self._dprefix):
+                if cache is not None:
+                    cache.record_probe(hit_k > 0, cached_len)
+            self.metrics.record_prefix_probe(hit_k > 0,
+                                             skipped * self._lanes)
 
-        def lane(owner):
-            pages = self._pool.alloc(need, owner=owner)
+        def lane(owner, attached):
+            pages = attached + self._pool.alloc(need - hit_k, owner=owner)
             row = np.full((self._pool.pages_per_slot,), self._pool.trash,
                           np.int32)
             row[:len(pages)] = pages
             return pages, row
 
-        pages, row = lane("target")
-        draft_pages, drow = lane("draft") if self.speculative else (None,
-                                                                    None)
+        pages, row = lane("target", shared + restored)
+        draft_pages, drow = lane("draft", dshared) if self.speculative \
+            else (None, None)
         st = _SlotState(req, pages, row, self.pad_id, draft_pages, drow)
+        st.prefill_pos = st.position = cached_len
+        if self._prefix is not None:
+            # the index version the prompt is prefilled under
+            st.cache_version = self._prefix.version
         with core.lock:
             core.active[slot] = st
         self._report_pages()
@@ -827,6 +1312,7 @@ class GenerationEngine:
         st.last_token = tok
         st.position = len(prompt)
         st.generated = 1
+        st.t_last = now
         why = self._retire_why(st, req, now)
         if why is not None:
             self._release_slot(slot, st)
@@ -858,6 +1344,7 @@ class GenerationEngine:
             st.last_token = tok
             st.position += 1
             st.generated += 1
+            st.t_last = now
             sampled += st.req.sampled
             st.req.stream._push(tok)
             why = self._retire_why(st, st.req, now)
@@ -947,15 +1434,72 @@ class GenerationEngine:
         self._top_ks[slot] = 0
         self._top_ps[slot] = 1.0
         self._keys[slot] = 0
+        self._evict_stale = False   # released pages: a re-scan is live
 
     def _release_slot(self, slot: int, st: _SlotState) -> None:
-        """Free the slot and its lanes."""
+        """Free the slot and its lanes. With the prefix cache, a sequence
+        whose whole prompt is written first publishes its full prompt
+        pages: the index takes its references before the request drops
+        its own, so the pages never reach the free heap in between."""
         core = self._core
         with core.lock:
             core.active.pop(slot, None)
             core.free.append(slot)
+        if (self._prefix is not None and st.pages
+                and st.phase == "decode"
+                and st.cache_version == self._prefix.version):
+            self._prefix.publish(st.req.prompt, st.page_row)
+            if self._dprefix is not None:
+                self._dprefix.publish(st.req.prompt, st.dpage_row)
+            self._dedup_after_publish()
         self._release_lanes(slot, st)
         self._report_pages()
+
+    def _dedup_after_publish(self) -> None:
+        """Repoint every decoding slot whose full prompt pages now have
+        cached twins (concurrent same-prefix requests that all missed and
+        wrote their own copies) at the cached pages, and release its
+        duplicates. A full prompt page is a pure function of its
+        page-aligned prefix, and a decoding slot writes only past its
+        prompt, so its tokens do not change."""
+        core = self._core
+        with core.lock:
+            slots = [(s, st) for s, st in core.active.items()
+                     if st.phase == "decode" and st.pages]
+        for slot, st in slots:
+            if st.cache_version != self._prefix.version:
+                continue
+            n_full = len(st.req.prompt) // self.page_size
+            if not n_full:
+                continue
+            canon = self._prefix.match_pages(st.req.prompt, n_full)
+            self._dedup_row(self._prefix, st.pages, st.page_row,
+                            self._page_map[slot], canon)
+            if self._dprefix is not None and st.draft_pages:
+                dcanon = self._dprefix.match_pages(st.req.prompt, n_full)
+                self._dedup_row(self._dprefix, st.draft_pages,
+                                st.dpage_row, self._dpage_map[slot],
+                                dcanon)
+
+    def _dedup_row(self, cache: PrefixCache, pages: List[int], row,
+                   map_row, canon: List[int]) -> None:
+        swapped = 0
+        for i, page in enumerate(canon):
+            if i >= len(pages) or pages[i] == page:
+                continue
+            # the cached page's reference before the duplicate's release;
+            # both the slot's row (read at publish) and the live page-map
+            # row (read by the decode kernel) repoint, or the step would
+            # read a released duplicate its next owner overwrites
+            self._pool.share([page])
+            self._pool.release([pages[i]])
+            pages[i] = page
+            row[i] = page
+            map_row[i] = page
+            swapped += 1
+        if swapped:
+            cache.deduped_pages += swapped
+            self._evict_stale = False
 
     def _retire_why(self, st: Optional[_SlotState], req: _GenRequest,
                     now: float) -> Optional[str]:
@@ -990,9 +1534,15 @@ class GenerationEngine:
             stream._finish(None)
 
     def _report_pages(self) -> None:
-        """Page occupancy, and the bytes the reserved pages cost: each lane
-        priced at its own model's per-page cost."""
+        """Page occupancy, the prefix index's and the host tier's pages,
+        and the bytes the reserved pages cost: each lane priced at its own
+        model's per-page cost."""
         self.metrics.set_pages(self._pool.in_use, self._pool.num_pages)
+        if self._prefix is not None:
+            self.metrics.set_shared_pages(self.shared_pages)
+        if self._host is not None:
+            self.metrics.set_host_pages(self._host.pages,
+                                        self._host.bytes_used)
         in_bytes = self._pool.in_use_by("target") * self._kv_page_bytes
         if self.speculative:
             in_bytes += self._pool.in_use_by("draft") * self._kv_dpage_bytes
@@ -1003,10 +1553,11 @@ class GenerationEngine:
     def warmup(self) -> None:
         """Run every kernel shape once before traffic: the decode step (or
         the draft and verify steps) greedy and sampled, the chunk step
-        (when prompts can be chunked), every prompt bucket, and a sampled
-        first token. On a card the kernels load on their first launch, the
-        sampler's included, so traffic pays none of it. Every write goes
-        to the trash page. Must run before the first submit."""
+        (when prompts can be chunked), every prompt bucket, a sampled
+        first token, and the host tier's page copies both ways. On a card
+        the kernels load on their first launch, the sampler's included,
+        so traffic pays none of it. Every write goes to the trash page.
+        Must run before the first submit."""
         core = self._core
         with core.lock:
             if core.pending or core.active:
@@ -1044,6 +1595,14 @@ class GenerationEngine:
             if self.speculative:
                 self._dcache = kernels.draft_write(
                     self._dcache, trash_row, pad, 0, width, trash)
+        if self._host is not None:
+            # the host tier's gather, copies and scatter, trash page to
+            # trash page
+            ticket = self._copier.start(self._mover.gather(self._cache,
+                                                           [trash]))
+            rows = self._copier.take(ticket, wait=True)
+            self._mover.scatter(self._cache, self._copier.upload(rows),
+                                [trash])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1078,6 +1637,29 @@ class GenerationEngine:
     @property
     def free_pages(self) -> int:
         return self._pool.free_pages
+
+    @property
+    def active_slots(self) -> int:
+        with self._core.lock:
+            return len(self._core.active)
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages the prefix index(es) hold references for (0 without
+        the prefix cache)."""
+        return sum(c.pages for c in (self._prefix, self._dprefix)
+                   if c is not None)
+
+    @property
+    def host_pages_in_use(self) -> int:
+        """Pages resident in the host tier: offloaded prefix pages and
+        parked streams' pages (0 without ``host_pages``)."""
+        return self._host.pages if self._host is not None else 0
+
+    @property
+    def host_store(self) -> Optional[HostPageStore]:
+        """The host tier (None without ``host_pages``)."""
+        return self._host
 
 
 def _speculate_knob(speculate) -> Tuple[object, int]:

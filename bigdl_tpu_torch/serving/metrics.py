@@ -3,9 +3,12 @@
 chunks, decode steps, tokens out, time to first token (p50/p95/p99 over a
 bounded reservoir), page occupancy, the quantized-serving gauges (KV
 bytes in use, KV cache dtype, int8 GEMMs), the tokens sampled at a
-temperature above 0, and the speculative tier's verify rounds (draft
-tokens proposed, accepted, their rate). Lock-protected; the snapshot keys
-keep the JAX package's names, each block after the ones before it.
+temperature above 0, the speculative tier's verify rounds (draft
+tokens proposed, accepted, their rate), the prefix cache's probes (hits,
+misses, prompt calls skipped, pages the index holds) and the KV tiers'
+page moves (offloaded, restored, dropped, streams swapped out and in,
+host pages resident). Lock-protected; the snapshot keys keep the JAX
+package's names, each block after the ones before it.
 """
 
 from __future__ import annotations
@@ -77,6 +80,18 @@ class ServingMetrics:
         self.draft_tokens = 0        # candidates the draft proposed
         self.accepted_tokens = 0     # candidates accepted and emitted
         self.verify_steps = 0        # target verify forwards
+        self.prefix_hits = 0         # admissions that attached cached pages
+        self.prefix_misses = 0       # admissions with no cached prefix
+        self.shared_pages = 0        # pages the prefix index holds (gauge)
+        self.prefill_chunks_skipped = 0  # prompt calls not executed
+        self.kv_offload_pages = 0    # device->host prefix copies landed
+        self.kv_restore_pages = 0    # host->device prefix copies
+        self.kv_offload_dropped = 0  # offload candidates abandoned
+        self.kv_swaps_out = 0        # streams parked under priority pressure
+        self.kv_swaps_in = 0         # parked streams resumed
+        self.host_pages = 0          # host-tier resident pages (gauge)
+        self.host_bytes = 0          # host-tier resident bytes (gauge)
+        self.host_pages_peak = 0
         self._ttft = _Reservoir(reservoir_size)      # submit -> 1st token
 
     def record_served(self) -> None:
@@ -128,6 +143,57 @@ class ServingMetrics:
             self.accepted_tokens += int(n_accepted)
             self.tokens_out += int(n_extra_tokens)
 
+    def record_prefix_probe(self, hit: bool,
+                            chunks_skipped: int = 0) -> None:
+        """One admission's prefix-cache probe: ``hit`` when cached pages
+        were attached, ``chunks_skipped`` the prompt calls (chunks and the
+        final prefill) the attach made unnecessary."""
+        with self._lock:
+            if hit:
+                self.prefix_hits += 1
+            else:
+                self.prefix_misses += 1
+            self.prefill_chunks_skipped += int(chunks_skipped)
+
+    def set_shared_pages(self, n: int) -> None:
+        """Pages the prefix index currently holds references for."""
+        with self._lock:
+            self.shared_pages = int(n)
+
+    def record_offload(self, n_pages: int) -> None:
+        """``n_pages`` prefix pages crossed device->host (the copy landed
+        and the host store filed them)."""
+        with self._lock:
+            self.kv_offload_pages += int(n_pages)
+
+    def record_restore(self, n_pages: int) -> None:
+        """``n_pages`` prefix pages crossed host->device."""
+        with self._lock:
+            self.kv_restore_pages += int(n_pages)
+
+    def record_offload_dropped(self, n_pages: int = 1) -> None:
+        """``n_pages`` offload candidates evicted without a copy (the
+        in-flight copy cap)."""
+        with self._lock:
+            self.kv_offload_dropped += int(n_pages)
+
+    def record_swap_out(self) -> None:
+        """One active stream exported its pages and parked."""
+        with self._lock:
+            self.kv_swaps_out += 1
+
+    def record_swap_in(self) -> None:
+        """One parked stream re-adopted its pages and resumed."""
+        with self._lock:
+            self.kv_swaps_in += 1
+
+    def set_host_pages(self, pages: int, bytes_used: int) -> None:
+        """Host-tier residency (prefix entries and parked streams)."""
+        with self._lock:
+            self.host_pages = int(pages)
+            self.host_bytes = int(bytes_used)
+            self.host_pages_peak = max(self.host_pages_peak, int(pages))
+
     def set_pages(self, in_use: int, total: int) -> None:
         with self._lock:
             self.pages_in_use = in_use
@@ -172,4 +238,20 @@ class ServingMetrics:
                 "acceptance_rate": (self.accepted_tokens / self.draft_tokens
                                     if self.draft_tokens else 0.0),
                 "verify_steps": self.verify_steps,
+                "prefix_hits": self.prefix_hits,
+                "prefix_misses": self.prefix_misses,
+                "prefix_hit_rate": (
+                    self.prefix_hits
+                    / (self.prefix_hits + self.prefix_misses)
+                    if self.prefix_hits + self.prefix_misses else 0.0),
+                "shared_pages": self.shared_pages,
+                "prefill_chunks_skipped": self.prefill_chunks_skipped,
+                "kv_offload_pages": self.kv_offload_pages,
+                "kv_restore_pages": self.kv_restore_pages,
+                "kv_offload_dropped": self.kv_offload_dropped,
+                "kv_swaps_out": self.kv_swaps_out,
+                "kv_swaps_in": self.kv_swaps_in,
+                "host_pages": self.host_pages,
+                "host_bytes": self.host_bytes,
+                "host_pages_peak": self.host_pages_peak,
             }

@@ -19,14 +19,25 @@ the host, between decode steps:
 - **owner tags** — an allocation may name its owner (a speculative
   engine's ``"target"`` and ``"draft"`` lanes sit side by side in one
   pool); release looks the tag up by page id, and ``in_use_by(owner)`` is
-  the per-lane drain gauge. Reference-counted sharing, export and adoption
-  (prefix cache, disaggregation) come with later slices of the port.
+  the per-lane drain gauge.
+- **reference counts** — ``alloc`` starts a page at one reference,
+  :meth:`PagePool.share` adds one (the prefix cache publishing a page, a
+  request attaching a cached one), ``release`` drops one and frees the
+  page only at zero. ``in_use`` and the per-owner gauges count distinct
+  pages: a shared page stays charged once, to its first owner.
+- **handoff accounting** — every ``alloc`` bumps the page's write
+  ``generation``, so ``(source, page id, generation)`` names a page's
+  content. :meth:`PagePool.export_pages` drops the exporting request's
+  references; :meth:`PagePool.adopt_pages` allocates a local page per
+  source page, or shares the live local page a repeat of the same
+  identity already adopted. The import index unwinds when the local
+  page's last reference goes.
 """
 
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -66,9 +77,19 @@ class PagePool:
         self._free: List[int] = list(range(self.num_pages))
         heapq.heapify(self._free)
         self.in_use = 0
-        # owner tag per reserved page id ("" for an untagged alloc)
-        self._owner: Dict[int, str] = {}
+        # owner tag per reserved page id (tagged allocs only)
+        self._page_owner: Dict[int, str] = {}
         self._owner_counts: Dict[str, int] = {}
+        # references per reserved page (absent = free)
+        self._refs: Dict[int, int] = {}
+        # write generation per page id, bumped on every alloc
+        self._generation: Dict[int, int] = {}
+        # (source, source page, source generation) -> local page, and back
+        self._imports: Dict[Tuple[str, int, int], int] = {}
+        self._import_by_dst: Dict[int, Tuple[str, int, int]] = {}
+        self.pages_exported = 0      # pages handed to another pool
+        self.pages_adopted = 0       # fresh local pages from adoption
+        self.pages_adopt_shared = 0  # adoptions served by a live import
 
     def pages_for(self, n_tokens: int) -> int:
         """Pages needed to hold ``n_tokens`` KV rows (>= 1)."""
@@ -78,38 +99,121 @@ class PagePool:
         return len(self._free) >= n
 
     def alloc(self, n: int, owner: Optional[str] = None) -> List[int]:
-        """Reserve ``n`` pages, smallest ids first, optionally tagged with
-        an ``owner`` label. Raises if the pool cannot satisfy it — callers
-        gate on :meth:`can_reserve`, so this firing is an accounting bug."""
+        """Reserve ``n`` pages, smallest ids first, each at one reference,
+        optionally tagged with an ``owner`` label. Raises if the pool
+        cannot satisfy it — callers gate on :meth:`can_reserve`, so this
+        firing is an accounting bug."""
         if n > len(self._free):
             raise RuntimeError(
                 f"page pool exhausted: want {n}, have {len(self._free)} "
                 f"of {self.num_pages}")
         pages = [heapq.heappop(self._free) for _ in range(n)]
         self.in_use += n
-        tag = owner or ""
         for p in pages:
-            self._owner[p] = tag
-        self._owner_counts[tag] = self._owner_counts.get(tag, 0) + n
+            self._refs[p] = 1
+            self._generation[p] = self._generation.get(p, 0) + 1
+        if owner is not None:
+            for p in pages:
+                self._page_owner[p] = owner
+            self._owner_counts[owner] = self._owner_counts.get(owner, 0) + n
         return pages
 
-    def release(self, pages: Sequence[int]) -> None:
-        """Return reserved pages to the free heap (and their owner's
-        gauge)."""
+    def share(self, pages: Sequence[int]) -> None:
+        """Add one reference to each reserved page. The page keeps its
+        owner tag and stays charged once. Raises on a free page."""
         for p in pages:
             p = int(p)
-            tag = self._owner.pop(p, None)
-            if tag is None:
+            refs = self._refs.get(p, 0)
+            if refs < 1:
+                raise RuntimeError(
+                    f"page {p} is not reserved; share() can only add "
+                    f"references to live pages")
+            self._refs[p] = refs + 1
+
+    def release(self, pages: Sequence[int]) -> None:
+        """Drop one reference per page; a page returns to the free heap
+        (and leaves its owner's gauge) only when its last reference
+        goes."""
+        for p in pages:
+            p = int(p)
+            refs = self._refs.get(p)
+            if refs is None:
                 raise RuntimeError(
                     f"page {p} released while not reserved (double "
                     f"release, or a page id that never came from alloc)")
-            self._owner_counts[tag] -= 1
+            if refs > 1:
+                self._refs[p] = refs - 1
+                continue
+            del self._refs[p]
             heapq.heappush(self._free, p)
             self.in_use -= 1
+            owner = self._page_owner.pop(p, None)
+            if owner is not None:
+                self._owner_counts[owner] -= 1
+            key = self._import_by_dst.pop(p, None)
+            if key is not None:
+                del self._imports[key]
+
+    def generation(self, page: int) -> int:
+        """Write generation of ``page`` (0 = never allocated)."""
+        return self._generation.get(int(page), 0)
+
+    def export_pages(self, pages: Sequence[int]) -> None:
+        """Hand ``pages`` to another pool (or to the host tier): drop the
+        exporting request's references, as :meth:`release` does, and
+        count them."""
+        self.pages_exported += len(pages)
+        self.release(pages)
+
+    def adopt_pages(self, meta: Sequence[Tuple[int, int, int]], *,
+                    source: str, owner: Optional[str] = None) -> List[int]:
+        """The local page for each ``(source page id, source write
+        generation, shareable)`` row, in order. A shareable row whose
+        identity is live in the import index shares that local page;
+        every other row allocates a fresh one for the caller to scatter
+        its rows into. Callers gate on :meth:`can_reserve` for the full
+        count."""
+        out: List[int] = []
+        for src_page, src_gen, shareable in meta:
+            key = (str(source), int(src_page), int(src_gen))
+            dst = self._imports.get(key) if shareable else None
+            if dst is not None:
+                self.share([dst])
+                self.pages_adopt_shared += 1
+            else:
+                dst = self.alloc(1, owner=owner)[0]
+                self.pages_adopted += 1
+                if shareable:
+                    self._imports[key] = dst
+                    self._import_by_dst[dst] = key
+            out.append(dst)
+        return out
+
+    def refcount(self, page: int) -> int:
+        """Live references on ``page`` (0 = free)."""
+        return self._refs.get(int(page), 0)
 
     def in_use_by(self, owner: str) -> int:
         """Reserved pages tagged ``owner`` (0 for an unknown owner)."""
-        return self._owner_counts.get(owner, 0) if owner else 0
+        return self._owner_counts.get(owner, 0)
+
+    def snapshot(self) -> dict:
+        """Occupancy, per-owner and handoff gauges (the JAX pool's keys,
+        in its order)."""
+        return {
+            "pages_total": self.num_pages,
+            "pages_in_use": self.in_use,
+            "pages_free": len(self._free),
+            "page_size": self.page_size,
+            "pages_per_slot": self.pages_per_slot,
+            "by_owner": {k: v for k, v in sorted(self._owner_counts.items())
+                         if v},
+            "pages_shared": sum(1 for r in self._refs.values() if r >= 2),
+            "pages_exported": self.pages_exported,
+            "pages_adopted": self.pages_adopted,
+            "pages_adopt_shared": self.pages_adopt_shared,
+            "tier": "hbm",
+        }
 
     @property
     def free_pages(self) -> int:

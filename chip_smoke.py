@@ -90,13 +90,39 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              ``cache_dtype=torch.int8``: greedy streams == the int8 plain
              engine's under the same gap rule, engine == static, B3-int8
              (not B3) on the draft's steps.
-11. B1     — the residual-add kernel against its plain version at the
+11. engine-prefix — the prefix cache over the JAX bench's system-prompt
+             workload (``bench.py --prefix-cache``, no modeled prompt
+             cost): one 48-token (3-page) system prompt plus a unique
+             3-token tail per request, 32 requests one after another, 10
+             new tokens each, ``prefill_chunk=16``, greedy; cache off,
+             then on. Checks 0 mismatched streams, prompt calls on at most
+             half of off, B2 on every layer of every prompt call and B3 on
+             every layer of every decode step; prints the hit rate, TTFT
+             p50 off and on, tokens/s, the peak of ``shared_pages`` and
+             B2's launches. Then the same two legs, 12 requests, with int8
+             weights and pools (B3-int8) and with the narrow speculative
+             draft (two lane indexes): 0 mismatches each.
+12. engine-tiers — the host KV tier over the JAX bench's host-tier
+             workload (``bench.py --host-pages``): 20 families of 32
+             tokens (two pages) plus 3-token tails, two rounds, one slot,
+             a 4-page device pool, 10 new tokens; ``host_pages`` off, then
+             64. Checks 0 mismatches, pages offloaded and restored, both
+             tiers drained at close; prints the hit rates and the revisit
+             round's TTFT p50 off and on, and the device ms of one page's
+             gather plus copy to pinned host memory and of one restore
+             copy plus scatter, against bytes over the host link's rate.
+             Then a swap: a priority-0 stream of 96 new tokens holds 7 of
+             an 8-page pool, a priority-1 arrival swaps it out; its tokens
+             equal its run with no swap, greedy and sampled (temperature
+             0.8, top-k 50, top-p 0.95, seed 7). Prints the swap-out and
+             swap-in counts and the swapped stream's wall.
+13. B1     — the residual-add kernel against its plain version at the
              four residual-add shapes of ResNet-50 at batch 128, bf16 and
              fp32: bitwise equal; the dispatch cases that take the plain
              add (small, mixed dtype, broadcast, CPU tensors); kernel and
              ``torch.add`` times at the layer1 bf16 shape in alternating
              pairs with their median ratio, plain time and the bound.
-12. train  — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
+14. train  — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
              NCHW) at batch 128 under the bf16 mixed policy, SGD lr 0.1 /
              momentum 0.9, through ``optimizer(...).optimize()`` on 4 x 128
              samples from numpy seed 0; two legs from the same seeded
@@ -107,7 +133,7 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              memory; then one fp32 step of ``build_cifar(8)`` at batch 8 on
              the card against the CPU, and (``[trace]``) a torch.profiler
              window over 3 training steps of the second leg.
-13. train-lm — a Transformer language model at the width of the JAX
+15. train-lm — a Transformer language model at the width of the JAX
              package's ``bench.py --mode lm`` (vocab 8192, hidden 512, 8
              heads, filter 2048, 4 layers), batch 8 x 128 tokens, fp32,
              embedding/residual and FFN dropout 0.1 (threefry-keyed),
@@ -130,7 +156,7 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              a stated tolerance; a full-width mask card vs CPU, bitwise;
              and B2 at the training shape (8, 8, 128, 64), causal, fp32
              and bf16 x bf16: error, kernel, plain, SDPA and bound times.
-14. a ``{"kernels": [...]}`` line (each row counts its launches on every
+16. a ``{"kernels": [...]}`` line (each row counts its launches on every
     path, by path; B2's carries its training-shape and verify-shape
     times), the card's name and power limit, and the last line
     ``{"ok": true, "device": {...}}``.
@@ -176,6 +202,8 @@ from bigdl_tpu_torch.ops import sampling
 from bigdl_tpu_torch.optim import SGD, Trigger, optimizer
 from bigdl_tpu_torch.serving import (
     GenerationEngine,
+    HostCopier,
+    PageBlockMover,
     PagedDecodeKernels,
     SpeculativeKernels,
     static_generate,
@@ -183,6 +211,7 @@ from bigdl_tpu_torch.serving import (
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
+HOST_LINK_BYTES_PER_S = 64e9  # PCIe Gen5 x16, one direction
 FP32_FLOPS_PER_S = 67e12      # CUDA-core fp32 (B2 fp32, B3 use FMA units)
 BF16_FLOPS_PER_S = 989e12     # bf16 tensor cores, dense (B2 bf16 x bf16)
 INT8_OPS_PER_S = 1979e12      # int8 tensor cores, dense (the int8 GEMM)
@@ -250,6 +279,18 @@ NARROW_DRAFT = (VOCAB, 256, 4, 1024, 1)
 # card against the CPU differs by ~4e-6 at this width (PR 5's [engine]
 # reading), the JAX package's own test holds 1e-5 at its toy width
 VERIFY_TOL = 1e-4
+
+# the prefix-cache run (bench.py --prefix-cache on the serving width): a
+# 3-page system prompt plus a 3-token tail per request, one request after
+# another, 10 new tokens, prompt chunks of one page
+PFX_REQUESTS, PFX_SHORT, PFX_TAIL, PFX_NEW = 32, 12, 3, 10
+PFX_SYSTEM = 3 * PAGE
+# the host-tier run (bench.py --host-pages): 20 two-page families, two
+# rounds, one slot, a 4-page device pool, 64 host pages
+KV_FAMILIES, KV_FAMILY_PAGES, KV_DEVICE_PAGES, KV_HOST_PAGES = 20, 2, 4, 64
+# the swap case: a priority-0 stream of 96 new tokens in an 8-page pool
+SWAP_PAGES, SWAP_PROMPT, SWAP_NEW, SWAP_HIGH_NEW = 8, 16, 96, 16
+SWAP_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=7)
 
 # the training run: ResNet-50 as the JAX package's bench trains it
 # (bench.py run_bench: batch 128, SGD lr 0.1 / momentum 0.9)
@@ -1349,6 +1390,323 @@ def phase_engine_spec_int8(card, model, narrow, requests, int8_run):
     return run["launches"]
 
 
+# ------------------------------------------- prefix cache and KV tiers ----
+
+
+def zero_launches():
+    fa.flash_attention.launches = 0
+    fa.paged_flash_attention.launches = 0
+    fa.paged_flash_attention.int8_launches = 0
+
+
+def read_launches():
+    return {"flash_attention": fa.flash_attention.launches,
+            "paged_attention": fa.paged_flash_attention.launches,
+            "paged_attention_int8": fa.paged_flash_attention.int8_launches}
+
+
+def add_launches(total, launches):
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def check_launches(tag, engine, snap, launches):
+    """B2 on every layer of every prompt call (and, speculative, on the
+    draft's layers of it and the target's of every verify round); the
+    paged kernel of the pools' dtype on every layer of every decode step
+    (speculative: the draft's k+1 steps a round), the other never."""
+    prompt_calls = snap["prefills"] + snap["prefill_chunks"]
+    b2_prompt, b2_step, paged_layers = LAYERS, 0, LAYERS
+    if engine.speculative:
+        dl = engine.draft_model.num_hidden_layers
+        b2_prompt, b2_step = LAYERS + dl, LAYERS
+        paged_layers = (engine.spec_k + 1) * dl
+    assert launches["flash_attention"] == prompt_calls * b2_prompt \
+        + snap["decode_steps"] * b2_step > 0, (tag, launches, snap)
+    paged, other = (("paged_attention_int8", "paged_attention")
+                    if engine.cache_dtype_name == "int8"
+                    else ("paged_attention", "paged_attention_int8"))
+    assert launches[paged] == snap["decode_steps"] * paged_layers > 0, \
+        (tag, launches, snap)
+    assert launches[other] == 0, (tag, launches, snap)
+    return prompt_calls
+
+
+def time_methods(engine, names):
+    """Wrap the engine's own methods ``names`` to add up their host time:
+    ``{name: [ms, calls]}`` (no device sync added). A call made inside
+    another timed call counts in the outer one's time only."""
+    spent = {}
+    depth = [0]
+    for name in names:
+        acc = spent[name] = [0.0, 0]
+
+        def timed(*args, _fn=getattr(engine, name), _acc=acc, **kw):
+            t0 = time.monotonic()
+            depth[0] += 1
+            try:
+                out = _fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+            if not depth[0]:
+                _acc[0] += (time.monotonic() - t0) * 1e3
+                _acc[1] += 1
+            return out
+
+        setattr(engine, name, timed)
+    return spent
+
+
+def serve_in_turn(tag, model, prompts, new, **knobs):
+    """``prompts`` through a ``GenerationEngine`` one after another (each
+    submitted when the one before it has finished), the launch counts
+    zeroed just before the traffic and read just after it. Client-side
+    TTFT per request; the peak of ``shared_pages``; whether the device
+    pool, the prefix index and the host tier all drained at close; the
+    host ms of the prompt calls, the decode steps and the host tier's
+    offload, drain and restore."""
+    engine = GenerationEngine(model, device="cuda", page_size=PAGE, **knobs)
+    engine.warmup()
+    spent = time_calls(engine.kernels)
+    spent.update(time_methods(engine, ("_offload_page", "_drain_offloads",
+                                       "_restore_prefix")))
+    zero_launches()
+    outs, ttfts, peak_shared = [], [], 0
+    t0 = time.monotonic()
+    for prompt in prompts:
+        t = time.monotonic()
+        it = iter(engine.submit(prompt, max_new_tokens=new))
+        toks = [next(it)]
+        ttfts.append((time.monotonic() - t) * 1e3)
+        toks.extend(it)
+        outs.append(toks)
+        peak_shared = max(peak_shared, engine.shared_pages)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    snap = engine.metrics.snapshot()
+    engine.close()
+    drained = (engine.pages_in_use == 0 and engine.shared_pages == 0
+               and engine.host_pages_in_use == 0)
+    assert [len(o) for o in outs] == [new] * len(prompts), tag
+    prompt_calls = check_launches(tag, engine, snap, launches)
+    return dict(engine=engine, outs=outs, ttfts=ttfts, wall=wall,
+                launches=launches, snap=snap, peak_shared=peak_shared,
+                drained=drained, prompt_calls=prompt_calls, spent=spent,
+                tokens=sum(len(o) for o in outs))
+
+
+def host_split(run) -> str:
+    """Where a run's wall went, host ms: prompt calls, decode steps (or
+    rounds), the host tier's calls, and the rest."""
+    sp = run["spent"]
+    parts = {"prompt calls": ("prefill", "chunk", "draft_write"),
+             "steps": ("decode", "draft", "verify"),
+             "offload": ("_offload_page",), "drain": ("_drain_offloads",),
+             "restore": ("_restore_prefix",)}
+    out, total = [], 0.0
+    for label, names in parts.items():
+        ms = sum(sp[n][0] for n in names if n in sp)
+        calls = sum(sp[n][1] for n in names if n in sp)
+        total += ms
+        out.append(f"{label} {ms:.1f} ({calls})")
+    out.append(f"rest {run['wall'] * 1e3 - total:.1f}")
+    return ", ".join(out)
+
+
+def phase_engine_prefix(card, model, narrow):
+    """The prefix cache, cache off against on, over the system-prompt
+    workload: float at 32 requests, then int8 and the narrow speculative
+    draft at 12."""
+    rs = np.random.RandomState(2)
+    system = rs.randint(1, 8000, (PFX_SYSTEM,)).tolist()
+    prompts = [system + rs.randint(1, 8000, (PFX_TAIL,)).tolist()
+               for _ in range(PFX_REQUESTS)]
+    base = dict(max_slots=SLOTS, max_len=MAX_LEN,
+                max_prompt_len=PFX_SYSTEM + 8, prefill_chunk=PAGE)
+    path = {}
+    for label, n, knobs in (
+            ("float", PFX_REQUESTS, {}),
+            ("int8", PFX_SHORT, dict(quantize="int8",
+                                     cache_dtype=torch.int8)),
+            ("speculative", PFX_SHORT, dict(speculate=(narrow, SPEC_K)))):
+        tag = f"engine-prefix {label}"
+        off = serve_in_turn(tag, model, prompts[:n], PFX_NEW, **base,
+                            **knobs)
+        on = serve_in_turn(tag, model, prompts[:n], PFX_NEW,
+                           prefix_cache=True, **base, **knobs)
+        mismatches = sum(a != b for a, b in zip(off["outs"], on["outs"]))
+        snap = on["snap"]
+        paged, paged_id = (("paged_attention_int8", "B3-int8")
+                           if label == "int8" else ("paged_attention", "B3"))
+        print(f"[engine-prefix] {label}: {n} requests, mismatched streams "
+              f"{mismatches}; prompt calls off {off['prompt_calls']} on "
+              f"{on['prompt_calls']}; hit rate "
+              f"{snap['prefix_hit_rate']:.4f} ({snap['prefix_hits']} hits, "
+              f"{snap['prefill_chunks_skipped']} prompt calls skipped); "
+              f"TTFT p50 off {off['snap']['ttft_ms']['p50']} ms on "
+              f"{snap['ttft_ms']['p50']} ms; tokens/s off "
+              f"{off['tokens'] / off['wall']:.1f} on "
+              f"{on['tokens'] / on['wall']:.1f}; peak shared_pages "
+              f"{on['peak_shared']}; B2 launches off "
+              f"{off['launches']['flash_attention']} on "
+              f"{on['launches']['flash_attention']}; {paged_id} launches "
+              f"off {off['launches'][paged]} on {on['launches'][paged]} "
+              f"on {card}")
+        assert mismatches == 0, (label, mismatches)
+        assert 2 * on["prompt_calls"] <= off["prompt_calls"], label
+        assert snap["prefix_hits"] == n - 1, (label, snap)
+        assert on["drained"] and off["drained"], label
+        if label == "speculative":
+            engine = on["engine"]
+            assert engine._dprefix is not None
+            assert engine._dprefix.snapshot()["hits"] == n - 1
+        add_launches(path, off["launches"])
+        add_launches(path, on["launches"])
+    return path
+
+
+def copy_ms(model, reps=20):
+    """Device ms, between CUDA events, of one page's gather plus its copy
+    to pinned host memory, and of one page's copy back plus its scatter,
+    over the serving model's pools. A spin kernel queued ahead of the
+    first event keeps the card busy while the host queues the copies, so
+    the interval holds device time only."""
+    cache = model.init_paged_cache(KV_DEVICE_PAGES + 1, PAGE)
+    for leaves in cache.values():
+        for leaf in leaves:
+            leaf.normal_()
+    mover, copier = PageBlockMover(), HostCopier(cache, slots=2,
+                                                 slot_pages=1)
+    out_ms, in_ms = [], []
+    for i in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(2_000_000)
+        e0.record()
+        ticket = copier.start(mover.gather(cache, [1]))
+        e1.record()
+        rows = copier.take(ticket, wait=True)
+        out_ms.append(e0.elapsed_time(e1))
+        torch.cuda._sleep(2_000_000)
+        e0.record()
+        mover.scatter(cache, copier.upload(rows), [2])
+        e1.record()
+        torch.cuda.synchronize()
+        in_ms.append(e0.elapsed_time(e1))
+    for name, leaves in cache.items():
+        for leaf in leaves:
+            assert torch.equal(leaf[2], leaf[1]), name
+    page = sum(leaf[0].numel() * leaf.element_size()
+               for leaves in cache.values() for leaf in leaves)
+    return (statistics.median(out_ms), statistics.median(in_ms), page,
+            page / HOST_LINK_BYTES_PER_S * 1e3)
+
+
+def swap_case(model, card, path):
+    """A priority-0 stream of SWAP_NEW tokens holds 7 of an 8-page pool; a
+    priority-1 arrival needs 2 and can only come in by swapping it out.
+    Its tokens must equal its run with no swap, greedy and sampled."""
+    rs = np.random.RandomState(11)
+    low_p = rs.randint(1, 8000, (SWAP_PROMPT,)).tolist()
+    high_p = rs.randint(1, 8000, (SWAP_PROMPT,)).tolist()
+    for label, knobs in (("greedy", {}), ("sampled", SWAP_SAMPLED)):
+        ref = GenerationEngine(model, device="cuda", max_slots=2,
+                               max_len=MAX_LEN, page_size=PAGE)
+        ref.warmup()
+        t0 = time.monotonic()
+        want = ref.generate(low_p, max_new_tokens=SWAP_NEW, timeout=600,
+                            **knobs)
+        alone_s = time.monotonic() - t0
+        want_high = ref.generate(high_p, max_new_tokens=SWAP_HIGH_NEW,
+                                 timeout=600)
+        ref.close()
+        engine = GenerationEngine(model, device="cuda", max_slots=2,
+                                  max_len=MAX_LEN, page_size=PAGE,
+                                  num_pages=SWAP_PAGES, prefix_cache=True,
+                                  host_pages=KV_HOST_PAGES)
+        engine.warmup()
+        zero_launches()
+        t0 = time.monotonic()
+        low = engine.submit(low_p, max_new_tokens=SWAP_NEW, **knobs)
+        while len(low.tokens) < 8 and not low.done:
+            time.sleep(0.0005)
+        high = engine.submit(high_p, max_new_tokens=SWAP_HIGH_NEW,
+                             priority=1)
+        got_high = high.result(600)
+        got = low.result(600)
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = read_launches()
+        snap = engine.metrics.snapshot()
+        engine.close()
+        check_launches(f"engine-tiers swap {label}", engine, snap, launches)
+        add_launches(path, launches)
+        drained = engine.pages_in_use == 0 and engine.host_pages_in_use == 0
+        print(f"[engine-tiers] swap {label}: swaps out "
+              f"{snap['kv_swaps_out']} in {snap['kv_swaps_in']}; swapped "
+              f"stream == its run with no swap: {got == want}; the "
+              f"priority-1 stream == its own: {got_high == want_high}; "
+              f"swapped stream wall {wall:.3f} s (alone {alone_s:.3f} s); "
+              f"drained {drained} on {card}")
+        assert snap["kv_swaps_out"] >= 1, snap
+        assert snap["kv_swaps_in"] == snap["kv_swaps_out"], snap
+        assert got == want and got_high == want_high, label
+        assert drained
+
+
+def phase_engine_tiers(card, model):
+    """The host KV tier, off against on, over the two-round family
+    workload; the copies' device times; then the swap case."""
+    rs = np.random.RandomState(6)
+    fam_len = KV_FAMILY_PAGES * PAGE
+    families = [rs.randint(1, 8000, (fam_len,)).tolist()
+                for _ in range(KV_FAMILIES)]
+    rounds = [[f + rs.randint(1, 8000, (3,)).tolist() for f in families]
+              for _ in range(2)]
+    knobs = dict(max_slots=1, max_len=MAX_LEN, max_prompt_len=fam_len + 8,
+                 prefill_chunk=PAGE, prefix_cache=True,
+                 num_pages=KV_DEVICE_PAGES)
+    path = {}
+    legs = {}
+    for label, host_pages in (("off", None), ("on", KV_HOST_PAGES)):
+        legs[label] = run = serve_in_turn(
+            f"engine-tiers {label}", model, rounds[0] + rounds[1], PFX_NEW,
+            host_pages=host_pages, **knobs)
+        run["revisit_ttft"] = statistics.median(run["ttfts"][KV_FAMILIES:])
+        add_launches(path, run["launches"])
+    off, on = legs["off"], legs["on"]
+    snap = on["snap"]
+    mismatches = sum(a != b for a, b in zip(off["outs"], on["outs"]))
+    print(f"[engine-tiers] {2 * KV_FAMILIES} requests ({KV_FAMILIES} "
+          f"two-page families x 2 rounds, {KV_DEVICE_PAGES}-page device "
+          f"pool, {KV_HOST_PAGES} host pages): mismatched streams "
+          f"{mismatches}; pages offloaded {snap['kv_offload_pages']}, "
+          f"restored {snap['kv_restore_pages']}, dropped "
+          f"{snap['kv_offload_dropped']}; host pages peak "
+          f"{snap['host_pages_peak']}; hit rate off "
+          f"{off['snap']['prefix_hit_rate']:.4f} on "
+          f"{snap['prefix_hit_rate']:.4f}; revisit TTFT p50 off "
+          f"{off['revisit_ttft']:.3f} ms on {on['revisit_ttft']:.3f} ms; "
+          f"tokens/s off {off['tokens'] / off['wall']:.1f} on "
+          f"{on['tokens'] / on['wall']:.1f}; prompt calls off "
+          f"{off['prompt_calls']} on {on['prompt_calls']}; both tiers "
+          f"drained at close: {off['drained'] and on['drained']} on {card}")
+    for label, run in legs.items():
+        print(f"[engine-tiers] host ms, tier {label}: {host_split(run)}")
+    assert mismatches == 0, mismatches
+    assert snap["kv_offload_pages"] > 0 and snap["kv_restore_pages"] > 0
+    assert snap["prefix_hit_rate"] > off["snap"]["prefix_hit_rate"]
+    assert off["drained"] and on["drained"]
+    out_ms, in_ms, page, link_ms = copy_ms(model)
+    print(f"[engine-tiers] one page ({page} bytes, {2 * LAYERS} pool "
+          f"leaves): gather + copy to pinned host memory {out_ms:.5f} ms, "
+          f"copy back + scatter {in_ms:.5f} ms device time (events, median "
+          f"of 20); bytes over the host link's {HOST_LINK_BYTES_PER_S:.0e} "
+          f"B/s: {link_ms:.5f} ms each way")
+    swap_case(model, card, path)
+    return path, dict(copy_out_ms=out_ms, copy_in_ms=in_ms)
+
+
 def check_int8_logits(model, requests):
     """Card vs CPU teacher-forced logits of the int8 path, held under
     ``INT8_NOISE_FACTOR`` times the card's own noise reading (mean
@@ -2137,6 +2495,8 @@ def main() -> int:
                                                      float_run)
     paths["engine_spec_int8"] = phase_engine_spec_int8(
         card, model, narrow, requests, int8_run)
+    paths["engine_prefix"] = phase_engine_prefix(card, model, narrow)
+    paths["engine_tiers"], _ = phase_engine_tiers(card, model)
     del model, narrow, float_run, int8_run
     b1 = phase_b1(card)
     residual_launches = phase_train(card)

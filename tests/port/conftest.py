@@ -26,6 +26,18 @@ def jax_lm():
     return model, params
 
 
+@pytest.fixture(scope="session")
+def jax_paged_kernels(jax_lm):
+    """One JAX kernel set over ``jax_lm``, its steps compiled at XLA level
+    0 (``_jax_trees.fast_kernels``), shared by the JAX engines of the
+    engine, prefix-cache and host-tier tests: at one engine shape (4
+    slots, 32-token lanes, pages of 4) their steps compile once."""
+    from _jax_trees import fast_kernels
+    from bigdl_tpu.serving import PagedDecodeKernels
+
+    return fast_kernels(PagedDecodeKernels(jax_lm[0]))
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _collect_module_garbage():
     """Collect each module's garbage (models, engines, autograd graphs)

@@ -27,9 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from _jax_trees import fast_kernels
 from bigdl_tpu.serving import GenerationEngine as JaxEngine
-from bigdl_tpu.serving import PagedDecodeKernels as JaxPagedDecodeKernels
 from bigdl_tpu_torch.core.rng import request_seed, threefry_key_data
 from bigdl_tpu_torch.interop import load_jax_params
 from bigdl_tpu_torch.nn import Transformer
@@ -86,12 +84,12 @@ def port_streams(lm):
 
 
 @pytest.fixture(scope="module")
-def jax_streams(lm):
+def jax_streams(lm, jax_paged_kernels):
     """The JAX engine's streams of the requests, greedy and then with the
-    top-k knobs, from one engine (one set of executables)."""
+    top-k knobs, from one engine (one set of executables, shared with the
+    prefix-cache and host-tier tests' JAX engines)."""
     jm, params, _, requests = lm
-    engine = JaxEngine(jm, params, kernels=fast_kernels(
-        JaxPagedDecodeKernels(jm)), **CFG)
+    engine = JaxEngine(jm, params, kernels=jax_paged_kernels, **CFG)
     engine.warmup()
     outs = [[engine.submit(p, max_new_tokens=m, **knobs)
              for p, m in requests] for knobs in ({}, TOP_K)]

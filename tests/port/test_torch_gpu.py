@@ -32,9 +32,15 @@ The sampler on the card against the CPU on the same logits and keys:
 keys bitwise, tokens equal except on draws the boundary rule flags
 (``_sampling.py``: the two sides round the softmax and the cumulative sums
 in other orders).
+The host KV tier: pages offloaded to pinned host memory and restored come
+back bitwise (float pools, and int8 pools with their fp32 scale rows), a
+copy queued behind a long kernel is not filed before its event completes,
+and an engine with the tier (or a priority swap) gives the tokens of one
+without it.
 """
 
 import math
+import time
 
 import numpy as np
 import pytest
@@ -54,7 +60,12 @@ from bigdl_tpu_torch.nn import int8
 from bigdl_tpu_torch.ops import flash_attention as tfa
 from bigdl_tpu_torch.ops import residual_add as ra
 from bigdl_tpu_torch.optim import SGD
-from bigdl_tpu_torch.serving import GenerationEngine, static_generate
+from bigdl_tpu_torch.serving import (
+    GenerationEngine,
+    HostCopier,
+    PageBlockMover,
+    static_generate,
+)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # (q dtype, K/V dtype): one dtype, or bf16 K/V under fp32 activations
@@ -969,3 +980,114 @@ def test_speculative_engine_on_card(cuda):
                                 page_size=8, speculate=(draft, 3), seed=4,
                                 sampling=[knobs] * len(requests))
     assert sampled == static
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8],
+                         ids=["float", "int8"])
+def test_offload_and_restore_return_the_bytes_bitwise(cuda, dtype):
+    """Pages gathered, copied to pinned host memory without blocking,
+    taken once landed, uploaded and scattered into other pages: every
+    leaf's bytes as they left (int8: K/V and the fp32 scale rows)."""
+    model = Transformer(128, 64, 4, 128, 2, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    cache = model.init_paged_cache(17, 8, dtype)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for leaves in cache.values():
+        for leaf in leaves:
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape, device=cuda,
+                                         generator=g).to(torch.int8))
+            else:
+                leaf.copy_(torch.randn(leaf.shape, device=cuda, generator=g))
+    want = {n: tuple(t.clone() for t in ls) for n, ls in cache.items()}
+    mover, copier = PageBlockMover(), HostCopier(cache, slots=2,
+                                                 slot_pages=4)
+    ticket = copier.start(mover.gather(cache, [2, 9, 5]))
+    rows = copier.take(ticket, wait=True)
+    assert all(t.device.type == "cpu" for ls in rows.values() for t in ls)
+    mover.scatter(cache, copier.upload(rows), [11, 12, 13])
+    torch.cuda.synchronize()
+    for name, leaves in cache.items():
+        for leaf, before in zip(leaves, want[name]):
+            assert torch.equal(leaf[[11, 12, 13]], before[[2, 9, 5]])
+            assert torch.equal(leaf[:11], before[:11])
+
+
+@pytest.mark.gpu
+def test_a_copy_behind_a_long_kernel_is_not_filed_before_it_lands(cuda):
+    """An offload queued behind a long kernel: its event has not
+    completed, so a drain files nothing; once the card is done, it files
+    the pages."""
+    model = Transformer(128, 64, 4, 128, 2, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    engine = GenerationEngine(model, max_slots=2, max_len=48, page_size=4,
+                              prefill_chunk=4, prefix_cache=True,
+                              host_pages=8)
+    prompt = list(range(1, 14))
+    engine.generate(prompt, max_new_tokens=3, timeout=120)
+    assert engine.shared_pages == 3
+    torch.cuda._sleep(2_000_000_000)        # ~1 s of one SM spinning
+    engine._evict_for(engine.num_pages, None)
+    assert len(engine._pending_offloads) == 2
+    assert not any(engine._copier.ready(e["copy"])
+                   for e in engine._pending_offloads)
+    engine._drain_offloads()
+    assert engine.host_store.prefix_pages == 0
+    torch.cuda.synchronize()
+    engine._drain_offloads()
+    assert engine.host_store.prefix_pages == 2
+    engine.close()
+    assert engine.host_pages_in_use == 0 and engine.pages_in_use == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8],
+                         ids=["float", "int8"])
+def test_host_tier_and_swap_on_card_keep_the_tokens(cuda, dtype):
+    """On the card: revisits restored from the host tier give the tokens
+    of an engine without it, and a stream swapped out for a
+    higher-priority request resumes with the tokens of a run with no
+    swap, greedy and sampled."""
+    model = Transformer(128, 64, 4, 128, 2, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    cfg = dict(max_slots=2, max_len=48, page_size=4, prefill_chunk=4,
+               cache_dtype=dtype, prefix_cache=True)
+    rs = np.random.RandomState(5)
+    fams = [rs.randint(1, 128, 12).tolist() for _ in range(4)]
+    prompts = [f + [t, t + 1] for t in (1, 3, 5) for f in fams]
+
+    def run(host_pages):
+        engine = GenerationEngine(model, num_pages=12,
+                                  host_pages=host_pages, **cfg)
+        outs = [engine.generate(p, max_new_tokens=3, timeout=120)
+                for p in prompts]
+        snap = engine.metrics.snapshot()
+        engine.close()
+        assert engine.pages_in_use == engine.host_pages_in_use == 0
+        return outs, snap
+
+    want, _ = run(None)
+    got, snap = run(32)
+    assert got == want
+    assert snap["kv_offload_pages"] > 0 and snap["kv_restore_pages"] > 0
+    for knobs in ({}, dict(temperature=0.8, top_k=50, top_p=0.95, seed=7)):
+        ref = GenerationEngine(model, max_slots=3, max_len=48, page_size=4,
+                               num_pages=24, cache_dtype=dtype)
+        lows_want = [ref.generate([i + 1] * 6, max_new_tokens=42,
+                                  timeout=120, **knobs) for i in range(2)]
+        ref.close()
+        engine = GenerationEngine(model, num_pages=24, host_pages=64,
+                                  **dict(cfg, max_slots=3))
+        lows = [engine.submit([i + 1] * 6, max_new_tokens=42, **knobs)
+                for i in range(2)]
+        while engine.active_slots < 2:
+            time.sleep(0.001)
+        high = engine.submit([40, 41, 42], max_new_tokens=4, priority=5)
+        assert len(high.result(120)) == 4
+        assert [s.result(120) for s in lows] == lows_want
+        snap = engine.metrics.snapshot()
+        engine.close()
+        assert snap["kv_swaps_out"] >= 1
+        assert snap["kv_swaps_in"] == snap["kv_swaps_out"]
+        assert engine.pages_in_use == engine.host_pages_in_use == 0

@@ -56,7 +56,9 @@ def test_port_tree_is_scanned():
     assert REPO / "port_perf" / "variants.py" in files
     for module in ("core/threefry.py", "nn/layers/embedding.py",
                    "nn/module.py", "nn/criterion.py", "ops/sampling.py",
-                   "core/rng.py", "serving/engine.py", "serving/paging.py"):
+                   "core/rng.py", "serving/engine.py", "serving/paging.py",
+                   "serving/prefix_cache.py", "serving/kv_tiers.py",
+                   "serving/disagg.py"):
         assert REPO / "bigdl_tpu_torch" / module in files, module
     assert len(files) >= 15, files
 

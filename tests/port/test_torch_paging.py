@@ -135,15 +135,20 @@ def test_metrics_quantized_serving_gauges():
     snap = m.snapshot()
     assert (snap["kv_bytes_in_use"], snap["kv_cache_dtype"],
             snap["quantized_gemms"]) == (4096, "int8", 25)
-    # the quantized block follows the page gauges; the sampled and
-    # speculative rows of later slices append after it
+    # the quantized block follows the page gauges; the sampled,
+    # speculative, prefix-cache and KV-tier rows of later slices append
+    # after it
     keys = list(snap)
     at = keys.index("pages_peak") + 1
     assert keys[at:at + 3] == ["kv_bytes_in_use", "kv_cache_dtype",
                                "quantized_gemms"]
     assert keys[at + 3:] == ["sampled_tokens", "draft_tokens",
                              "accepted_tokens", "acceptance_rate",
-                             "verify_steps"]
+                             "verify_steps"] + ["prefix_hits", "prefix_misses",
+        "prefix_hit_rate", "shared_pages", "prefill_chunks_skipped",
+        "kv_offload_pages", "kv_restore_pages", "kv_offload_dropped",
+        "kv_swaps_out", "kv_swaps_in", "host_pages", "host_bytes",
+        "host_pages_peak"]
 
 
 def test_metrics_reservoir_is_bounded_and_replays():

@@ -495,9 +495,14 @@ def test_speculative_metrics_rows_append_after_existing():
         "tokens_out", "ttft_ms", "prefill_chunks", "pages_in_use",
         "pages_total", "pages_peak", "kv_bytes_in_use", "kv_cache_dtype",
         "quantized_gemms"]
+    # the prefix-cache and KV-tier rows append after the speculative block
     assert keys[keys.index("quantized_gemms") + 1:] == [
         "sampled_tokens", "draft_tokens", "accepted_tokens",
-        "acceptance_rate", "verify_steps"]
+        "acceptance_rate", "verify_steps"] + ["prefix_hits", "prefix_misses",
+        "prefix_hit_rate", "shared_pages", "prefill_chunks_skipped",
+        "kv_offload_pages", "kv_restore_pages", "kv_offload_dropped",
+        "kv_swaps_out", "kv_swaps_in", "host_pages", "host_bytes",
+        "host_pages_peak"]
     assert snap["draft_tokens"] == 8 and snap["accepted_tokens"] == 5
     assert snap["acceptance_rate"] == pytest.approx(5 / 8)
     assert snap["verify_steps"] == 1 and snap["sampled_tokens"] == 2
