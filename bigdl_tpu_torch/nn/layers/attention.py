@@ -17,9 +17,12 @@ differences from the JAX code:
   recovers by donating the cache to every jitted call;
 - the step API ported is the language model's paged one:
   ``init_paged_cache``, ``prefill_paged`` (prompt chunks),
-  ``decode_step_paged`` (one token per slot, no external bias) and
-  ``decode_verify_paged`` (the speculative verify step: W candidate rows
-  per slot, no external bias), with float or int8 pools. The dense
+  ``decode_step_paged`` (one token per slot) and ``decode_verify_paged``
+  (the speculative verify step: W candidate rows per slot, which takes
+  no external bias), with float or int8 pools. ``Attention`` in its
+  paged decode arm composes an external ``(S, 1, 1, L)`` bias with the
+  validity mask over the gathered lanes (B2 on a card; the plain paged
+  attention's bits on the CPU for an all-zero bias). The dense
   slot-table cache comes with a later slice.
 
 In training mode the forward takes a threefry key (``model(ids,
@@ -175,9 +178,6 @@ class Attention(nn.Module):
             out = dot_product_attention(q, lk, lv, validity)
         elif per_slot:
             # decode: one token per slot; map is (S, ppn)
-            if bias is not None:
-                raise NotImplementedError(
-                    "external-bias paged decode is not ported yet")
             page_map = paged["map"]
             pos = cache_index.long()
             slots = torch.arange(pos.shape[0], device=pos.device)
@@ -185,11 +185,29 @@ class Attention(nn.Module):
             row = pos % page_size
             _scatter_rows(pk, pks, pg, row, k[:, :, 0, :])
             _scatter_rows(pv, pvs, pg, row, v[:, :, 0, :])
-            out3 = paged_attention(q[:, :, 0, :].contiguous(), pk, pv,
-                                   page_map, cache_index,
-                                   use_kernel=paged.get("use_kernel"),
-                                   k_scales=pks, v_scales=pvs)
-            out = out3[:, :, None, :]
+            if bias is not None:
+                # external bias: gather the logical lanes (dequantized
+                # for int8 pools) and add the caller's bias, broadcast
+                # against (S, 1, 1, L), to the -1e9 validity mask. The
+                # op sequence of the plain paged attention, so an
+                # all-zero bias gives its bits; a CUDA tensor runs B2
+                lk = gather_kv_lanes(pk, page_map)         # (S, H, L, D)
+                lv = gather_kv_lanes(pv, page_map)
+                if int8_kv:
+                    lk = dequantize_lanes(lk,
+                                          gather_scale_lanes(pks, page_map))
+                    lv = dequantize_lanes(lv,
+                                          gather_scale_lanes(pvs, page_map))
+                cols = torch.arange(lk.shape[2], device=q.device)
+                validity = torch.where(cols[None, :] <= pos[:, None], 0.0,
+                                       -1e9)[:, None, None, :]  # (S,1,1,L)
+                out = dot_product_attention(q, lk, lv, bias + validity)
+            else:
+                out3 = paged_attention(q[:, :, 0, :].contiguous(), pk, pv,
+                                       page_map, cache_index,
+                                       use_kernel=paged.get("use_kernel"),
+                                       k_scales=pks, v_scales=pvs)
+                out = out3[:, :, None, :]
         else:
             # prefill chunk: q rows are positions idx..idx+C-1 of ONE
             # sequence whose page ids are the (ppn,) "map" row. Rows past

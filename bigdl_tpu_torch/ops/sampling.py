@@ -27,8 +27,12 @@ The speculative tier (``draft_sample``, ``speculative_sample``) keys every
 draw by ``fold_in(fold_in(request_key, stream), output_position)``, so a
 stream is a pure function of its request whatever the acceptance lengths.
 
-An external logit bias (the grammar mask of constrained decoding) is not
-ported yet: a non-None ``bias`` raises ``NotImplementedError``.
+An optional external logit bias ``(S, V)`` (the grammar mask of
+constrained decoding: 0 for legal tokens, -1e9 for the rest) is added to
+the fp32 logits before everything else, greedy argmax included, as the
+JAX package adds it; an all-zero row changes no bit. ``logit + (-1e9)``
+rounds to -1e9 for every ordinary logit, so masked tokens tie below every
+legal one, and their softmax weight underflows to exactly 0.
 """
 
 from __future__ import annotations
@@ -48,19 +52,20 @@ DRAFT_STREAM = 1
 ACCEPT_STREAM = 2
 EXTRA_STREAM = 3
 
-GRAMMAR_NOT_PORTED = (
-    "an external logit bias (grammar-constrained decoding, ROADMAP A.5.6) "
-    "is not ported yet: pass bias=None")
-
 
 def check_temperature(temperature: float) -> None:
     if temperature < 0.0:
         raise ValueError("temperature must be >= 0")
 
 
-def check_no_bias(bias) -> None:
-    if bias is not None:
-        raise NotImplementedError(GRAMMAR_NOT_PORTED)
+def biased_logits(logits: torch.Tensor, bias=None) -> torch.Tensor:
+    """``logits`` in fp32 plus the optional additive ``bias`` (a host
+    array or a tensor of a broadcastable shape), moved to the logits'
+    device and added in fp32."""
+    logits = logits.float()
+    if bias is None:
+        return logits
+    return logits + torch.as_tensor(bias).to(logits.device, torch.float32)
 
 
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
@@ -139,11 +144,12 @@ def sample_tokens(logits, temperature, top_k, top_p, key_data,
     parameters and ``key_data`` (S, 2) uint32 are host arrays. Returns
     ``(tokens (S,) int32 on the logits' device, new key_data (S, 2))``.
     Exactly one split per slot per call, greedy slots included, so token
-    ``i`` of a stream draws from split ``i`` of its request key."""
-    check_no_bias(bias)
+    ``i`` of a stream draws from split ``i`` of its request key.
+    ``bias`` (S, V), optional, is added to the fp32 logits first."""
     pairs = split_keys(key_data)                      # (S, 2, 2)
     u = uniform_keys(pairs[:, 1])
-    return (sample_with_uniforms(logits, temperature, top_k, top_p, u),
+    return (sample_with_uniforms(biased_logits(logits, bias), temperature,
+                                 top_k, top_p, u),
             pairs[:, 0].copy())
 
 
@@ -175,9 +181,10 @@ def filtered_probs(logits, temperature, top_k, top_p,
                    bias=None) -> torch.Tensor:
     """The distribution each slot draws from, in vocab order: ``logits``
     (S, V) -> (S, V) fp32, normalised over the kept set after temperature
-    and the top-k / top-p filters. Greedy rows are the one-hot argmax."""
-    check_no_bias(bias)
-    logits = logits.float()
+    and the top-k / top-p filters. Greedy rows are the one-hot argmax.
+    ``bias`` (S, V), optional, is added to the fp32 logits first: a token
+    it masks gets probability 0."""
+    logits = biased_logits(logits, bias)
     n, vocab = logits.shape
     greedy = torch.nn.functional.one_hot(
         torch.argmax(logits, dim=-1), vocab).float()
@@ -221,8 +228,9 @@ def position_sample(logits, temperature, top_k, top_p, key_data,
                     bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One token per slot from its filtered distribution, picked with the
     ``stream`` draw at its output position ``positions`` (S,). -> ``(tokens
-    (S,) int32, dists (S, V))``."""
-    dists = filtered_probs(logits, temperature, top_k, top_p, bias)
+    (S,) int32, dists (S, V))``. ``bias`` as :func:`filtered_probs`."""
+    logits = biased_logits(logits, bias)
+    dists = filtered_probs(logits, temperature, top_k, top_p)
     if not _any_sampled(temperature):
         # every row a one-hot delta: the pick is its argmax, for any u
         return greedy_tokens(logits), dists
@@ -235,7 +243,8 @@ def draft_sample(logits, temperature, top_k, top_p, key_data, out_pos,
     """One draft proposal per slot from the draft model's filtered
     distribution, with the DRAFT_STREAM draw at each slot's output
     position ``out_pos`` (S,). -> ``(tokens (S,) int32, dists (S, V))``;
-    the distributions go to the verify step's accept test."""
+    the distributions go to the verify step's accept test. A grammar
+    ``bias`` keeps the proposals legal."""
     return position_sample(logits, temperature, top_k, top_p, key_data,
                            DRAFT_STREAM, out_pos, bias)
 

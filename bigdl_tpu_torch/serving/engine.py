@@ -68,8 +68,23 @@ needs them. ``submit(priority=)``: a page-blocked head may swap out active
 streams of strictly lower priority through the same tier; they resume
 where they stopped, bit for bit.
 
-Disaggregation, grammar masks, async scheduling, tensor parallelism,
-faults and tracing come with later slices.
+Prefill/decode disaggregation: ``role="prefill"`` runs only prompt
+calls and hands each prompt's finished pages to a consumer (the gathered
+block, the page manifest, the first token and the key after its split);
+``role="decode"`` runs only decode steps and admits such payloads through
+``submit_prefilled``, adopting the pages into its own pool. The front
+door is ``serving.disagg.DisaggregatedEngine``; its streams are the
+monolithic engine's token for token.
+
+Grammar-constrained decoding: ``submit(grammar=automaton)`` samples every
+token of a stream under the automaton's current-state mask (an additive
+``(S, V)`` row per slot, 0 legal / -1e9 illegal, added to the logits
+before the sampler), advances the state on the host per emitted token,
+and fails a stream that cannot parse with ``GrammarViolation``. A step
+with no constrained slot passes no mask at all.
+
+Async scheduling, tensor parallelism, faults and tracing come with later
+slices.
 """
 
 from __future__ import annotations
@@ -78,9 +93,10 @@ import logging
 import queue as _queue
 import threading
 import time
+import uuid
 import weakref
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,7 +109,7 @@ from bigdl_tpu_torch.nn.quantized import (
 )
 from bigdl_tpu_torch.ops.sampling import (
     EXTRA_STREAM,
-    check_no_bias,
+    biased_logits,
     check_temperature,
     draft_sample,
     position_sample,
@@ -101,9 +117,9 @@ from bigdl_tpu_torch.ops.sampling import (
     speculative_sample,
 )
 from bigdl_tpu_torch.serving.batcher import bucket_sizes_for
-from bigdl_tpu_torch.serving.disagg import PageBlockMover
 from bigdl_tpu_torch.serving.errors import (
     DeadlineExceeded,
+    GrammarViolation,
     Overloaded,
     StreamCancelled,
 )
@@ -152,6 +168,42 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
+def _masked(bias) -> dict:
+    """The kernel call's ``bias`` keyword: none at all for an unmasked
+    call, so a kernel set that takes no mask keeps serving unconstrained
+    traffic."""
+    return {} if bias is None else {"bias": bias}
+
+
+class _BiasStage:
+    """Grammar mask rows on their way to the device. On a card the rows
+    are staged in a pinned host buffer allocated once and copied without
+    blocking (a copy from pageable memory would make the host wait for
+    every kernel queued before it); the buffer is refilled only after the
+    last copy's event has completed. On the CPU the rows are copied into
+    a tensor of their own."""
+
+    def __init__(self, rows: int, vocab: int, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._stage = torch.empty((rows, vocab), dtype=torch.float32,
+                                  pin_memory=self.cuda)
+        self._event = None
+
+    def upload(self, rows: np.ndarray) -> torch.Tensor:
+        """``rows`` (n, V) float32 as a tensor on the device."""
+        if not self.cuda:
+            return torch.tensor(rows, dtype=torch.float32)
+        if self._event is not None:
+            self._event.synchronize()   # the last copy has read the stage
+        stage = self._stage[:rows.shape[0]]
+        stage.numpy()[...] = rows
+        out = stage.to(self.device, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record()
+        return out
+
+
 class _PagedKernels:
     """What both kernel sets share: the target ``model``, its device, and
     the non-final prompt chunk."""
@@ -183,8 +235,10 @@ class PagedDecodeKernels(_PagedKernels):
     the int32 next-token vector comes back. Token selection runs on the
     device: greedy argmax, or sampling from per-slot ``temperature`` /
     ``top_k`` / ``top_p`` under per-slot threefry keys, split once per call
-    (``ops.sampling.sample_tokens``). A non-None ``bias`` (the grammar
-    mask) raises ``NotImplementedError``."""
+    (``ops.sampling.sample_tokens``). ``bias`` (the grammar mask: ``(1,
+    V)`` for ``prefill``, ``(S, V)`` for ``decode``), optional, is added
+    to the fp32 logits before the sampler; the model's attention never
+    sees it."""
 
     @torch.inference_mode()
     def prefill(self, cache, pages, tokens, start: int, length: int,
@@ -193,14 +247,13 @@ class PagedDecodeKernels(_PagedKernels):
         """Final (or only) chunk of one prompt: writes its K/V rows and
         samples the first generated token under ``key`` (2,). Returns
         ``(token (device int32 scalar), new key (1, 2), cache)``."""
-        check_no_bias(bias)
         key = np.zeros(2, np.uint32) if key is None else key
         logits, cache = self.model.prefill_paged(
             cache, self._ids(pages), self._ids(tokens), int(start),
             int(length), int(trash))
         toks, new_key = sample_tokens(
             logits[None], [temperature], [top_k], [top_p],
-            np.asarray(key, np.uint32).reshape(1, 2))
+            np.asarray(key, np.uint32).reshape(1, 2), bias)
         return toks[0], new_key, cache
 
     @torch.inference_mode()
@@ -209,11 +262,11 @@ class PagedDecodeKernels(_PagedKernels):
         """One decode step for every slot with its sampling parameters and
         key (host arrays (S,) and (S, 2)) -> ``(next token per slot (S,)
         device int32, new keys (S, 2), cache)``."""
-        check_no_bias(bias)
         logits, cache = self.model.decode_step_paged(
             cache, self._ids(tokens), self._ids(positions),
             self._ids(page_map))
-        toks, new_keys = sample_tokens(logits, temps, top_ks, top_ps, keys)
+        toks, new_keys = sample_tokens(logits, temps, top_ks, top_ps, keys,
+                                       bias)
         return toks, new_keys, cache
 
 
@@ -237,8 +290,11 @@ class SpeculativeKernels(_PagedKernels):
       the rejection sampler -> ``(n_accepted, tokens, cache)``.
 
     Keys are each slot's constant request key; draws fold in the stream
-    and the output position. A non-None ``bias`` raises
-    ``NotImplementedError``."""
+    and the output position. ``bias``, optional, is the grammar mask
+    added to the fp32 logits before the sampler: ``(1, V)`` for
+    ``prefill``, ``(S, V)`` for ``draft`` (the proposals stay legal) and
+    ``(S, k+1, V)`` for ``verify`` (a masked token has target probability
+    0, so an illegal proposal is always rejected)."""
 
     def __init__(self, model, draft_model):
         if not hasattr(draft_model, "decode_step_paged"):
@@ -261,14 +317,14 @@ class SpeculativeKernels(_PagedKernels):
         """Final (or only) chunk of one prompt through the target; the
         first token is the EXTRA_STREAM draw at output position 0 of
         ``key``. -> ``(token (device int32 scalar), cache)``."""
-        check_no_bias(bias)
         key = np.zeros(2, np.uint32) if key is None else key
         logits, cache = self.model.prefill_paged(
             cache, self._ids(pages), self._ids(tokens), int(start),
             int(length), int(trash))
         tok, _ = position_sample(
             logits[None], [temperature], [top_k], [top_p],
-            np.asarray(key, np.uint32).reshape(1, 2), EXTRA_STREAM, [0])
+            np.asarray(key, np.uint32).reshape(1, 2), EXTRA_STREAM, [0],
+            bias)
         return tok[0], cache
 
     @torch.inference_mode()
@@ -286,12 +342,11 @@ class SpeculativeKernels(_PagedKernels):
         """One draft decode step for every slot (``tokens`` a host array or
         the previous draft step's device tensor) -> ``(tokens (S,) device
         int32, dists (S, V), draft cache)``."""
-        check_no_bias(bias)
         logits, dcache = self.draft_model.decode_step_paged(
             dcache, self._ids(tokens), self._ids(positions),
             self._ids(page_map))
         toks, dists = draft_sample(logits, temps, top_ks, top_ps, keys,
-                                   out_pos)
+                                   out_pos, bias)
         return toks, dists, dcache
 
     @torch.inference_mode()
@@ -301,13 +356,14 @@ class SpeculativeKernels(_PagedKernels):
         """The target's verify forward and the rejection sampler.
         ``draft_tokens`` / ``draft_dists`` are the k draft steps' outputs.
         -> ``(n_accepted (S,), tokens (S, k+1), cache)`` on the device."""
-        check_no_bias(bias)
         d_tokens = torch.stack([self._ids(t) for t in draft_tokens], dim=1)
         tokens = torch.cat([self._ids(last_tokens)[:, None], d_tokens],
                            dim=1)
         logits, cache = self.model.decode_verify_paged(
             cache, tokens, self._ids(positions), self._ids(page_map),
             int(trash))
+        if bias is not None:
+            logits = biased_logits(logits, bias)
         n_acc, out = speculative_sample(
             logits, d_tokens, torch.stack(list(draft_dists), dim=1), temps,
             top_ks, top_ps, keys, out_base)
@@ -318,7 +374,11 @@ class GenerationStream:
     """Iterator-future for one generation request: iterate for tokens as
     they arrive (then the terminal error, if any), or block on
     :meth:`result`. :meth:`cancel` retires the request at the next step
-    boundary (the stream then ends with :class:`StreamCancelled`)."""
+    boundary (the stream then ends with :class:`StreamCancelled`).
+    :meth:`add_done_callback` runs a function once the stream finishes
+    (at once if it has). ``t_first`` / ``t_done`` are the monotonic times
+    of the first token and the finish; ``ttft_s`` is submit to first
+    token."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -327,20 +387,42 @@ class GenerationStream:
         self._done = threading.Event()
         self._error: Optional[BaseException] = None
         self._cancelled = False
+        self._callbacks: List[Callable[["GenerationStream"], None]] = []
         self.t_submit = time.monotonic()
+        self.t_first: Optional[float] = None
+        self.t_done: Optional[float] = None
 
-    def _push(self, token: int) -> None:
+    def _push(self, token: int, now: Optional[float] = None) -> None:
         with self._lock:
+            if self.t_first is None:
+                self.t_first = time.monotonic() if now is None else now
             self._tokens.append(token)
         self._q.put(token)
 
-    def _finish(self, error: Optional[BaseException] = None) -> None:
+    def _finish(self, error: Optional[BaseException] = None,
+                now: Optional[float] = None) -> None:
         with self._lock:
             if self._done.is_set():
                 return
             self._error = error
+            self.t_done = time.monotonic() if now is None else now
+            callbacks = list(self._callbacks)
             self._done.set()
         self._q.put(_SENTINEL)
+        for cb in callbacks:
+            try:
+                cb(self)
+            except Exception:
+                log.exception("GenerationStream done-callback failed")
+
+    def add_done_callback(
+            self, fn: Callable[["GenerationStream"], None]) -> None:
+        """Call ``fn(stream)`` once the stream is done (now, if it is)."""
+        with self._lock:
+            if not self._done.is_set():
+                self._callbacks.append(fn)
+                return
+        fn(self)
 
     def _raise_error(self):
         # a fresh copy per raise (constructor bypassed, attributes kept):
@@ -390,18 +472,23 @@ class GenerationStream:
     def error(self) -> Optional[BaseException]:
         return self._error
 
+    @property
+    def ttft_s(self) -> Optional[float]:
+        """Submit to first token, seconds (None before the first token)."""
+        return None if self.t_first is None else self.t_first - self.t_submit
+
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new_tokens", "deadline", "stream",
                  "temperature", "top_k", "top_p", "seed", "tag", "handoff",
-                 "priority")
+                 "priority", "grammar")
 
     def __init__(self, prompt: List[int], max_new_tokens: int,
                  deadline: Optional[float], stream: GenerationStream,
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, seed: Optional[int] = None,
                  tag: Any = None, handoff: Optional[dict] = None,
-                 priority: int = 0):
+                 priority: int = 0, grammar=None):
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
         self.deadline = deadline
@@ -411,8 +498,9 @@ class _GenRequest:
         self.top_p = top_p
         self.seed = seed
         self.tag = tag            # opaque caller context, rides a swap
-        self.handoff = handoff    # swap-in payload (a parked stream)
+        self.handoff = handoff    # a handoff or swap-in payload
         self.priority = int(priority)
+        self.grammar = grammar    # a compiled TokenAutomaton, or None
 
     @property
     def sampled(self) -> bool:
@@ -425,7 +513,8 @@ class _SlotState:
 
     __slots__ = ("req", "last_token", "position", "generated", "phase",
                  "pages", "page_row", "prefill_pos", "draft_pages",
-                 "dpage_row", "cache_version", "t_last")
+                 "dpage_row", "cache_version", "t_last", "grammar_state",
+                 "grammar_error")
 
     def __init__(self, req: _GenRequest, pages: List[int], page_row,
                  pad_id: int, draft_pages: Optional[List[int]] = None,
@@ -442,6 +531,8 @@ class _SlotState:
         self.dpage_row = dpage_row
         self.cache_version = 0     # prefix-index version at admission
         self.t_last = 0.0          # when its last token was pushed
+        self.grammar_state: Optional[int] = None   # automaton state
+        self.grammar_error: Optional[GrammarViolation] = None
 
 
 class _Core:
@@ -545,7 +636,8 @@ class GenerationEngine:
     (``nn.layers.attention.Transformer``).
 
     ``submit(prompt, max_new_tokens=..., deadline=..., temperature=...,
-    top_k=..., top_p=..., seed=...)`` returns a :class:`GenerationStream`.
+    top_k=..., top_p=..., seed=..., grammar=...)`` returns a
+    :class:`GenerationStream`.
     ``warmup()`` runs every kernel shape once (and, on a card, builds the
     CUDA kernels) before traffic. ``device`` defaults to ``"cuda"`` and
     must be where the model's parameters are. ``quantize="int8"`` serves
@@ -561,7 +653,13 @@ class GenerationEngine:
     the device pool with N pages of host memory (needs the prefix cache;
     excludes speculation): evicted prefix pages offload there and come
     back on a later hit, and a page-blocked request may swap out active
-    streams of strictly lower ``priority``.
+    streams of strictly lower ``priority``. ``role="prefill"`` /
+    ``"decode"`` split the engine for disaggregation (see
+    ``serving.disagg.DisaggregatedEngine``; excludes speculation, and
+    the decode role takes neither the prefix cache nor the host tier).
+    ``submit(grammar=...)`` constrains a stream to a grammar.
+    ``metrics`` is the sink the engine reports to (a fresh
+    :class:`ServingMetrics` by default).
     """
 
     def __init__(self, model, *, device: DeviceLike = None,
@@ -577,21 +675,51 @@ class GenerationEngine:
                  speculate: Optional[tuple] = None,
                  prefix_cache: bool = False,
                  cache_aware_admission: bool = False,
-                 host_pages: Optional[int] = None):
+                 host_pages: Optional[int] = None,
+                 role: str = "both",
+                 metrics: Optional[ServingMetrics] = None):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if max_len < 2:
             raise ValueError("max_len must be >= 2 (prompt + 1 token)")
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(
+                f"role must be 'both', 'prefill' or 'decode', got {role!r}")
         self.device = _model_device(model, device)
         self.speculative = speculate is not None
         self.draft_model, self.spec_k = _speculate_knob(speculate)
         self.prefix_caching = bool(prefix_cache)
         self.cache_aware_admission = bool(cache_aware_admission)
+        # prefill/decode disaggregation: role="prefill" runs only the
+        # prompt calls, and a prompt's final chunk hands the finished
+        # pages to ``_handoff_cb`` (set by DisaggregatedEngine or
+        # PrefillWorker) instead of decoding; role="decode" runs only the
+        # decode step and admits through ``submit_prefilled``, scattering
+        # the pages into its own pool. role="both" is the monolithic
+        # engine
+        self.role = role
+        self._handoff_cb: Optional[Callable[[dict], None]] = None
+        if role != "both":
+            if self.speculative:
+                raise ValueError(
+                    "role='prefill'/'decode' excludes speculative decoding "
+                    "(draft-lane pages do not cross the handoff yet)")
+            if role == "decode" and self.prefix_caching:
+                raise ValueError(
+                    "the prefix index lives with the prefill role (pages "
+                    "are published where prompts are written); pass "
+                    "prefix_cache=True to the prefill engine instead")
         if host_pages is not None:
             if self.speculative:
                 raise ValueError(
                     "host_pages excludes speculative decoding (draft-"
                     "lane pages do not offload yet)")
+            if role == "decode":
+                raise ValueError(
+                    "the host tier lives with the prefix index "
+                    "(prefill/both roles: pages offload where prompts "
+                    "are written); pass host_pages to the prefill "
+                    "engine instead")
             if not self.prefix_caching:
                 raise ValueError(
                     "host_pages needs prefix_cache=True — the host tier "
@@ -615,7 +743,7 @@ class GenerationEngine:
         self.pad_id = int(pad_id)
         self.max_queue = int(max_queue)
         self.seed = int(seed)
-        self.metrics = ServingMetrics()
+        self.metrics = metrics if metrics is not None else ServingMetrics()
         self.max_prompt_len = int(max_prompt_len or (max_len - 1))
         if not 1 <= self.max_prompt_len < self.max_len:
             raise ValueError(
@@ -655,6 +783,17 @@ class GenerationEngine:
         self._top_ks = np.zeros((self.max_slots,), np.int32)
         self._top_ps = np.ones((self.max_slots,), np.float32)
         self._keys = np.zeros((self.max_slots, 2), np.uint32)
+        # grammar-constrained decoding: one additive mask row per slot,
+        # all-zero (a no-op) for unconstrained and idle slots. A step
+        # with no constrained slot passes no bias at all
+        vocab = getattr(model, "vocab_size", None)
+        self._bias = (np.zeros((self.max_slots, int(vocab)), np.float32)
+                      if vocab else None)
+        self._bias_stage = (_BiasStage(self.max_slots, int(vocab),
+                                       self.device) if vocab else None)
+        # the grammar keys this engine has served: a submit whose key is
+        # here reused the compiled automaton (grammar_compile_cache_hits)
+        self._grammars: set = set()
         if self.speculative:
             self._dcache = self.draft_model.init_paged_cache(
                 self.num_pages + 1, self.page_size, cache_dtype)
@@ -686,14 +825,25 @@ class GenerationEngine:
         self._pending_offloads: List[dict] = []
         self._offload_inflight_cap = 2
         self._swap_seq = 0
-        self.handoff_source = f"engine-{id(self):x}"
+        # the namespace of this engine's exported pages: an adopting pool
+        # dedups on (source, page, generation), so two engines' page ids
+        # never alias
+        self.handoff_source = f"{role}-{uuid.uuid4().hex[:12]}"
+        if host_pages is not None or role != "both":
+            # the prefill role gathers handed-off pages; the decode role
+            # uploads a host block (the PrefillWorker path) and scatters.
+            # Imported here: disagg.py imports this module at its top
+            from bigdl_tpu_torch.serving.disagg import PageBlockMover
+
+            self._mover = PageBlockMover()
         if host_pages is not None:
             self._host = HostPageStore(int(host_pages),
                                        page_bytes=self._kv_page_bytes)
-            self._mover = PageBlockMover()
             self._copier = HostCopier(self._cache,
                                       slots=self._offload_inflight_cap,
                                       slot_pages=ppn)
+        elif role == "decode":
+            self._copier = HostCopier(self._cache, slots=0, slot_pages=ppn)
         self._report_pages()
         self._failed: Optional[BaseException] = None
         self._core = _Core(self.max_slots)
@@ -712,7 +862,8 @@ class GenerationEngine:
                top_p: float = 1.0,
                seed: Optional[int] = None,
                tag: Any = None,
-               priority: int = 0) -> GenerationStream:
+               priority: int = 0,
+               grammar=None) -> GenerationStream:
         """Enqueue one prompt (token ids). ``max_new_tokens`` caps the
         generation (default: whatever fits in ``max_len``); ``deadline``
         is seconds from now. Raises :class:`Overloaded` when the pending
@@ -727,7 +878,20 @@ class GenerationEngine:
         greedy argmax. The stream's key defaults to a pure function of
         the engine's seed and the prompt, so sampled output is the same
         across runs and admission orders; ``seed`` gives byte-identical
-        prompts distinct streams."""
+        prompts distinct streams.
+
+        ``grammar`` is a compiled
+        :class:`~bigdl_tpu_torch.grammar.TokenAutomaton` over this model's
+        vocabulary and ``eos_id``: every token of the stream is then
+        sampled under the automaton's current-state mask (greedy is the
+        argmax over the legal tokens), the state advances on the host per
+        emitted token, and a stream that cannot reach a parse (its budget
+        runs out mid-grammar, or a stuck state) fails with
+        :class:`GrammarViolation`. Monolithic (role='both') engines only."""
+        if self.role == "decode":
+            raise RuntimeError(
+                "a decode-role engine admits only prefilled requests "
+                "(pages already materialized) — use submit_prefilled()")
         temperature = float(temperature)
         check_temperature(temperature)
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
@@ -736,13 +900,18 @@ class GenerationEngine:
         if len(prompt) > self.max_prompt_len:
             raise ValueError(f"prompt length {len(prompt)} exceeds "
                              f"max_prompt_len {self.max_prompt_len}")
+        if grammar is not None:
+            self._check_grammar(grammar)
         room = self.max_len - len(prompt)
         mnt = room if max_new_tokens is None else min(int(max_new_tokens),
                                                       room)
         if mnt < 1:
             raise ValueError("no room to generate even one token")
+        # a prefill-role engine reserves prompt pages only: the generation
+        # budget is the decode pool's
         need = self._lanes * self._pool.pages_for(
-            min(len(prompt) + mnt - 1, self.max_len))
+            len(prompt) if self.role == "prefill"
+            else min(len(prompt) + mnt - 1, self.max_len))
         if need > self.num_pages:
             # a reservation the pool can never satisfy would block the FIFO
             # head forever: reject it on the caller's thread instead
@@ -757,7 +926,36 @@ class GenerationEngine:
                           temperature=temperature, top_k=int(top_k),
                           top_p=float(top_p),
                           seed=None if seed is None else int(seed),
-                          tag=tag, priority=int(priority))
+                          tag=tag, priority=int(priority), grammar=grammar)
+        self._enqueue(req, grammar)
+        return stream
+
+    def _check_grammar(self, grammar) -> None:
+        if self._bias is None:
+            raise ValueError(
+                "grammar-constrained decoding needs a model exposing "
+                "vocab_size (the per-slot mask is (S, vocab))")
+        if self.role != "both":
+            raise ValueError(
+                "grammar-constrained decoding does not cross the "
+                "prefill/decode handoff yet — submit to a monolithic "
+                "(role='both') engine")
+        if not hasattr(grammar, "bias_row"):
+            raise TypeError(
+                "grammar must be a compiled TokenAutomaton — build one "
+                "with grammar.compile_grammar(regex_grammar(...) or "
+                "json_schema_grammar(...), vocab, eos_id)")
+        if grammar.vocab_size != self._bias.shape[1]:
+            raise ValueError(
+                f"grammar compiled over a {grammar.vocab_size}-token "
+                f"vocabulary, model has {self._bias.shape[1]}")
+        if grammar.eos_id != self.eos_id:
+            raise ValueError(
+                f"grammar compiled with eos_id={grammar.eos_id}, engine "
+                f"has eos_id={self.eos_id} — the EOS mask column is how a "
+                f"constrained stream terminates")
+
+    def _enqueue(self, req: _GenRequest, grammar=None) -> None:
         core = self._core
         with core.lock:
             if self._failed is not None:
@@ -769,8 +967,59 @@ class GenerationEngine:
             if len(core.pending) >= self.max_queue:
                 self.metrics.record_rejected()
                 raise Overloaded(len(core.pending), self.max_queue)
+            if grammar is not None:
+                # a key this engine has served: the compiled automaton
+                # was reused rather than built again
+                if grammar.key in self._grammars:
+                    self.metrics.record_grammar_cache_hit()
+                else:
+                    self._grammars.add(grammar.key)
             core.pending.append(req)
             core.wake.put(None)
+
+    def submit_prefilled(self, payload: dict, *,
+                         stream: Optional[GenerationStream] = None
+                         ) -> GenerationStream:
+        """Enqueue a request whose prompt a prefill-role engine already
+        ran (decode-role engines only). ``payload`` is what that engine's
+        handoff produced: the prompt, the first token, the key after the
+        first token's split, the sampling parameters, the page manifest
+        and the gathered KV block (device tensors, or host tensors on the
+        PrefillWorker path). Admission adopts the prompt pages into this
+        pool (a shared prefix page dedups to one local copy), scatters
+        the block, pushes the first token and decodes on: the stream is
+        the monolithic engine's, token for token.
+
+        ``payload["deadline"]`` is absolute ``time.monotonic()`` time.
+        ``stream`` continues an existing consumer-facing stream (the
+        front door's); without it a fresh one is returned."""
+        if self.role != "decode":
+            raise RuntimeError(
+                "submit_prefilled() needs a role='decode' engine — "
+                "monolithic engines prefill their own prompts")
+        prompt = [int(t) for t in np.asarray(payload["prompt"]).reshape(-1)]
+        if not prompt:
+            raise ValueError("empty prompt in handoff payload")
+        mnt = int(payload["max_new_tokens"])
+        if mnt < 1:
+            raise ValueError("handoff payload has no generation budget")
+        need = self._pool.pages_for(min(len(prompt) + mnt - 1, self.max_len))
+        if need > self.num_pages:
+            raise ValueError(
+                f"request needs {need} KV pages but the decode pool holds "
+                f"{self.num_pages}; shrink the prompt/max_new_tokens or "
+                f"grow num_pages")
+        stream = stream or GenerationStream()
+        deadline = payload.get("deadline")
+        req = _GenRequest(prompt, mnt,
+                          None if deadline is None else float(deadline),
+                          stream,
+                          temperature=float(payload.get("temperature", 0.0)),
+                          top_k=int(payload.get("top_k", 0)),
+                          top_p=float(payload.get("top_p", 1.0)),
+                          handoff=payload,
+                          priority=int(payload.get("priority", 0)))
+        self._enqueue(req)
         return stream
 
     def generate(self, prompt: Sequence[int], *,
@@ -805,7 +1054,11 @@ class GenerationEngine:
 
     def _pages_needed(self, req: _GenRequest) -> int:
         # pages per lane: rows written = prompt + generated - 1 (the last
-        # token is returned but never written back)
+        # token is returned but never written back). A prefill-role slot
+        # writes prompt rows only: the adopting decode pool reserves the
+        # generation's pages
+        if self.role == "prefill":
+            return self._pool.pages_for(len(req.prompt))
         return self._pool.pages_for(
             min(len(req.prompt) + req.max_new_tokens - 1, self.max_len))
 
@@ -1047,6 +1300,7 @@ class GenerationEngine:
                     (st.req.priority, st.t_last, slot, st)
                     for slot, st in core.active.items()
                     if st.phase == "decode" and st.pages
+                    and st.req.grammar is None
                     and st.req.priority < head.priority
                     and st.generated < st.req.max_new_tokens
                     and st.position < self.max_len]
@@ -1076,6 +1330,7 @@ class GenerationEngine:
             "page_meta": meta,
             "source": self.handoff_source,
             "block": self._mover.gather(self._cache, st.pages),
+            "swap": True,
             "swap_id": swap_id,
             "position": int(st.position),
             "generated": int(st.generated),
@@ -1089,12 +1344,7 @@ class GenerationEngine:
         # publish: nothing enters the index off a parked stream
         self._pool.export_pages(st.pages or ())
         st.pages = None
-        self._page_map[slot] = self._pool.trash
-        self._temps[slot] = 0.0
-        self._top_ks[slot] = 0
-        self._top_ps[slot] = 1.0
-        self._keys[slot] = 0
-        self._evict_stale = False
+        self._disarm_slot(slot)
         self._host.park_stream(swap_id, len(meta))
         self.metrics.record_swap_out()
         resume = _GenRequest(req.prompt, req.max_new_tokens, req.deadline,
@@ -1109,25 +1359,35 @@ class GenerationEngine:
         self._report_pages()
 
     def _admit_prefilled(self, req: _GenRequest) -> None:
-        """Resume a parked stream: adopt fresh pages for its rows, copy
-        them back and scatter them in, and arm the slot with the parked
-        key, position and generated count; it decodes on from there and
-        pushes nothing now (its consumer holds every token already). A
-        failure between adopt and scatter fails this stream only."""
+        """Admit a request whose prompt's KV rows arrive as a block and a
+        page manifest instead of running its prompt here: a decode-role
+        handoff, or a parked stream's resume. Adopt the pages (a shared
+        prefix page dedups to one local copy), upload the block if it is
+        host memory, scatter it, and arm the slot as a monolithic final
+        chunk would: the same last token, position, sampling parameters
+        and key (the key after the first token's split), so the stream
+        goes on as the monolithic engine's. A handoff pushes its first
+        token; a resume continues mid-stream and pushes nothing (its
+        consumer holds every token already). A failure between adopt and
+        scatter fails this stream only, and its pages release."""
         payload = req.handoff
-        self._host.unpark_stream(int(payload["swap_id"]))
-        self.metrics.record_swap_in()
-        self._report_pages()
+        swap = bool(payload.get("swap"))
+        if swap:
+            # the parked booking ends when the resume admission runs,
+            # whatever its outcome
+            self._host.unpark_stream(int(payload["swap_id"]))
+            self.metrics.record_swap_in()
+            self._report_pages()
         now = time.monotonic()
         why = self._retire_why(None, req, now)
         if why is not None:
-            self._finish_request(req, why)
+            self._finish_request(req, why, now)
             return
         core = self._core
         with core.lock:
             core.free.sort()
             slot = core.free.pop(0)
-        meta = payload["page_meta"]
+        meta = np.asarray(payload["page_meta"]).reshape(-1, 3)
         need = self._pages_needed(req)
         k_p = len(meta)
         pages: List[int] = []
@@ -1139,6 +1399,13 @@ class GenerationEngine:
             row = np.full((self._pool.pages_per_slot,), self._pool.trash,
                           np.int32)
             row[:len(pages)] = pages
+            ready = payload.get("ready")
+            if ready is not None:
+                # the gather ran on the prefill role's stream: wait for it
+                # on ours (both roles use the device's default stream
+                # today, where this costs nothing; a role given a stream
+                # of its own must not read the block before it is written)
+                torch.cuda.current_stream(self.device).wait_event(ready)
             self._mover.scatter(self._cache,
                                 self._copier.upload(payload["block"]),
                                 pages[:k_p])
@@ -1147,27 +1414,32 @@ class GenerationEngine:
             with core.lock:
                 core.free.append(slot)
             self._report_pages()
-            req.stream._finish(e)
+            self.metrics.record_failed()
+            req.stream._finish(e, time.monotonic())
             return
         self._temps[slot] = req.temperature
         self._top_ks[slot] = req.top_k
         self._top_ps[slot] = req.top_p
         self._keys[slot] = np.asarray(payload["key"], np.uint32)
         self._page_map[slot] = row
+        now = time.monotonic()
         st = _SlotState(req, pages, row, self.pad_id)
         st.phase = "decode"
         st.last_token = int(payload["first_token"])
-        st.position = int(payload["position"])
-        st.generated = int(payload["generated"])
+        st.position = (int(payload["position"]) if swap
+                       else len(req.prompt))
+        st.generated = int(payload["generated"]) if swap else 1
         st.prefill_pos = len(req.prompt)
         st.t_last = now
         with core.lock:
             core.active[slot] = st
         self._report_pages()
+        if not swap:
+            req.stream._push(st.last_token, now)
         why = self._retire_why(st, req, now)
         if why is not None:
             self._release_slot(slot, st)
-            self._finish_request(req, why)
+            self._finish_request(req, why, now)
 
     def _request_key(self, req: _GenRequest) -> np.ndarray:
         seed = req.seed
@@ -1192,8 +1464,10 @@ class GenerationEngine:
         now = time.monotonic()
         why = self._retire_why(None, req, now)
         if why is not None:
-            self._finish_request(req, why)
+            self._finish_request(req, why, now)
             return
+        if req.grammar is not None:
+            self.metrics.record_constrained_stream()
         core = self._core
         with core.lock:
             core.free.sort()
@@ -1281,6 +1555,12 @@ class GenerationEngine:
         self._temps[slot] = req.temperature
         self._top_ks[slot] = req.top_k
         self._top_ps[slot] = req.top_p
+        # a constrained slot's mask row at the automaton's start state,
+        # armed before the first token is sampled
+        bias1 = None
+        if req.grammar is not None:
+            self._grammar_arm(slot, st)
+            bias1 = self._bias_stage.upload(self._bias[slot:slot + 1])
         # the request's key, fresh here: token i draws from split i (or,
         # speculative, from output position i) whatever decode traffic
         # ran during the prefill
@@ -1290,7 +1570,7 @@ class GenerationEngine:
         if self.speculative:
             tok_dev, self._cache = self.kernels.prefill(
                 self._cache, st.page_row, padded, start, remaining,
-                self._pool.trash, *sampling)
+                self._pool.trash, *sampling, **_masked(bias1))
             self._dcache = self.kernels.draft_write(
                 self._dcache, st.dpage_row, padded, start, remaining,
                 self._pool.trash)
@@ -1299,7 +1579,7 @@ class GenerationEngine:
         else:
             tok_dev, new_key, self._cache = self.kernels.prefill(
                 self._cache, st.page_row, padded, start, remaining,
-                self._pool.trash, *sampling)
+                self._pool.trash, *sampling, **_masked(bias1))
             self._keys[slot] = new_key[0]
         tok = int(tok_dev.item())
         self._page_map[slot] = st.page_row   # K/V written: go live
@@ -1307,16 +1587,115 @@ class GenerationEngine:
         self.metrics.record_prefill(now - req.stream.t_submit)
         if req.sampled:
             self.metrics.record_sampled(1)
-        req.stream._push(tok)
+        req.stream._push(tok, now)
         st.phase = "decode"
         st.last_token = tok
         st.position = len(prompt)
         st.generated = 1
         st.t_last = now
-        why = self._retire_why(st, req, now)
+        self._grammar_step(slot, st, tok)
+        why = self._grammar_why(st, self._retire_why(st, req, now))
         if why is not None:
             self._release_slot(slot, st)
-            self._finish_request(req, why)
+            self._finish_slot(st, why, now)
+            return
+        if self.role == "prefill":
+            # the whole prompt is written and the request wants more
+            # tokens: hand its pages to the decode role. The callback
+            # gathers the block on this thread while the pages are still
+            # this slot's; only after it returns do they export and the
+            # slot free. A failure there fails this stream only
+            try:
+                cb = self._handoff_cb
+                if cb is None:
+                    raise RuntimeError(
+                        "prefill-role engine has no handoff consumer "
+                        "(set by DisaggregatedEngine / PrefillWorker)")
+                cb(self._handoff_payload(slot, st, tok))
+            except Exception as e:
+                self._abort_handoff(slot, st, e)
+                return
+            self._handoff_slot(slot, st)
+            self._finish_request(req, "done", now)
+
+    def _handoff_payload(self, slot: int, st: _SlotState, tok: int) -> dict:
+        """What a decode-role engine needs to go on with ``st``'s stream:
+        the first token, the key after its split (token i draws from
+        split i whichever engine holds the slot), the sampling
+        parameters, and the page manifest: ``(page id, write generation,
+        shareable)`` per prompt page under this engine's
+        ``handoff_source`` (full prompt pages are shareable; the partial
+        last page takes decode writes and is always copied fresh). The
+        handoff consumer gathers the block while the pages are still
+        owned."""
+        req = st.req
+        ps = self.page_size
+        plen = len(req.prompt)
+        meta = np.asarray(
+            [(int(p), self._pool.generation(p), int((i + 1) * ps <= plen))
+             for i, p in enumerate(st.pages)], np.int64).reshape(-1, 3)
+        return {
+            "prompt": np.asarray(req.prompt, np.int32),
+            "first_token": int(tok),
+            "key": self._keys[slot].copy(),
+            "plen": plen,
+            "max_new_tokens": int(req.max_new_tokens),
+            "temperature": float(req.temperature),
+            "top_k": int(req.top_k),
+            "top_p": float(req.top_p),
+            "deadline": req.deadline,
+            "page_row": st.page_row.copy(),
+            "page_meta": meta,
+            "source": self.handoff_source,
+            "tag": req.tag,
+            "priority": int(req.priority),
+        }
+
+    def _disarm_slot(self, slot: int) -> None:
+        """Park a freed slot's map row on the trash page and reset its
+        sampling row, key and mask row."""
+        self._page_map[slot] = self._pool.trash
+        self._temps[slot] = 0.0
+        self._top_ks[slot] = 0
+        self._top_ps[slot] = 1.0
+        self._keys[slot] = 0
+        if self._bias is not None:
+            self._bias[slot] = 0.0
+        self._evict_stale = False
+
+    def _handoff_slot(self, slot: int, st: _SlotState) -> None:
+        """Retire a prefill-role slot whose pages were handed off: publish
+        its full prompt pages to the prefix index (which lives with this
+        role), export the request's references and free the slot."""
+        core = self._core
+        with core.lock:
+            core.active.pop(slot, None)
+            core.free.append(slot)
+        if (self._prefix is not None and st.pages
+                and st.cache_version == self._prefix.version):
+            self._prefix.publish(st.req.prompt, st.page_row)
+            self._evict_stale = False
+            self._dedup_after_publish()
+        self._pool.export_pages(st.pages or ())
+        st.pages = None
+        self._disarm_slot(slot)
+        self._report_pages()
+
+    def _abort_handoff(self, slot: int, st: _SlotState,
+                       err: BaseException) -> None:
+        """A handoff failed before its pages left this pool: release them
+        (no publish), free the slot and fail this stream with ``err``. The
+        gather only read the cache, so the engine serves on."""
+        core = self._core
+        with core.lock:
+            core.active.pop(slot, None)
+            core.free.append(slot)
+        self._pool.release(st.pages or ())
+        st.pages = None
+        self._disarm_slot(slot)
+        self._report_pages()
+        self.metrics.record_failed()
+        st.req.stream._finish(err, time.monotonic())
 
     def _step_inputs(self, active) -> Tuple[np.ndarray, ...]:
         """Each active slot's last token, its position and its tokens so
@@ -1329,11 +1708,21 @@ class GenerationEngine:
             generated[slot] = st.generated
         return tokens, positions, generated
 
+    def _step_bias(self, active) -> Optional[torch.Tensor]:
+        """Every slot's mask row on the device when some active slot is
+        constrained; otherwise None, and the step adds no launch and no
+        upload (a zero row would be a bitwise no-op anyway)."""
+        if self._bias is None or all(st.req.grammar is None
+                                     for _, st in active):
+            return None
+        return self._bias_stage.upload(self._bias)
+
     def _decode_once(self, active: List[Tuple[int, _SlotState]]) -> None:
         tokens, positions, _ = self._step_inputs(active)
         toks_dev, self._keys, self._cache = self.kernels.decode(
             self._cache, tokens, positions, self._page_map, self._temps,
-            self._top_ks, self._top_ps, self._keys)
+            self._top_ks, self._top_ps, self._keys,
+            **_masked(self._step_bias(active)))
         toks = toks_dev.cpu().numpy()
         now = time.monotonic()
         self.metrics.record_decode_step(len(active))
@@ -1344,17 +1733,21 @@ class GenerationEngine:
             st.last_token = tok
             st.position += 1
             st.generated += 1
+            if st.t_last:
+                # the gap since this stream's previous token
+                self.metrics.record_itl(now - st.t_last)
             st.t_last = now
             sampled += st.req.sampled
-            st.req.stream._push(tok)
-            why = self._retire_why(st, st.req, now)
+            st.req.stream._push(tok, now)
+            self._grammar_step(slot, st, tok)
+            why = self._grammar_why(st, self._retire_why(st, st.req, now))
             if why is not None:
                 retired.append((slot, st, why))
         if sampled:
             self.metrics.record_sampled(sampled)
         for slot, st, why in retired:
             self._release_slot(slot, st)
-            self._finish_request(st.req, why)
+            self._finish_slot(st, why, now)
 
     def _speculative_round(self,
                            active: List[Tuple[int, _SlotState]]) -> None:
@@ -1365,26 +1758,50 @@ class GenerationEngine:
         all k candidates, then the host's accept and rollback bookkeeping.
         Rollback is by position only: rejected candidates' rows sit past
         the slot's position, masked, until a later round overwrites
-        them."""
+        them.
+
+        Under a grammar, draft step i and verify row i share one mask: the
+        automaton state after the first i proposals, walked on a scratch
+        copy of each constrained slot's state (the draft's tokens come to
+        the host for it). The slot's own state advances only on emitted
+        tokens, so a rejected proposal never moves it; the accepted prefix
+        is the draft prefix, so the residual pick at the first rejection
+        is masked by its true predecessor state."""
         k = self.spec_k
         tokens, positions, out_base = self._step_inputs(active)
         sampling = (self._temps, self._top_ks, self._top_ps, self._keys)
-        d_tokens, d_dists = [], []
+        gslots = [(slot, st) for slot, st in active
+                  if st.req.grammar is not None]
+        scratch = {slot: st.grammar_state for slot, st in gslots}
+        d_tokens, d_dists, biases = [], [], []
         cur = tokens
         for i in range(k + 1):
+            bias_i = None
+            if gslots:
+                rows = self._bias.copy()
+                for slot, st in gslots:
+                    rows[slot] = st.req.grammar.bias_row(scratch[slot])
+                bias_i = self._bias_stage.upload(rows)
+                biases.append(bias_i)
             # positions clamp at the lane end: a slot about to retire at
             # max_len keeps its shapes (its proposals there are rejected
             # or cut by the room cap below)
             pos_i = np.minimum(positions + i, self.max_len - 1)
             cur, dist, self._dcache = self.kernels.draft(
                 self._dcache, cur, pos_i, self._dpage_map, *sampling,
-                out_base + i)
+                out_base + i, **_masked(bias_i))
+            if gslots:
+                proposed = cur.cpu().numpy()
+                for slot, st in gslots:
+                    scratch[slot] = st.req.grammar.advance(
+                        scratch[slot], int(proposed[slot]))
             if i < k:
                 d_tokens.append(cur)
                 d_dists.append(dist)
         n_dev, out_dev, self._cache = self.kernels.verify(
             self._cache, tokens, d_tokens, positions, self._page_map,
-            self._pool.trash, *sampling, out_base, d_dists)
+            self._pool.trash, *sampling, out_base, d_dists,
+            **_masked(torch.stack(biases, dim=1) if gslots else None))
         n_acc = n_dev.cpu().numpy()
         outs = out_dev.cpu().numpy()
         now = time.monotonic()
@@ -1398,17 +1815,26 @@ class GenerationEngine:
             pushed = 0
             for j in range(emit):
                 tok = int(outs[slot, j])
-                st.req.stream._push(tok)
+                st.req.stream._push(tok, now)
                 pushed += 1
                 if self.eos_id is not None and tok == self.eos_id:
                     break
+                # the slot's own state advances per emitted token; a
+                # stuck verdict stops the emission
+                self._grammar_step(slot, st, tok)
+                if st.grammar_error is not None:
+                    break
             accepted += min(int(n_acc[slot]), pushed)
             pushed_total += pushed
+            if st.t_last:
+                # the round's gap spread over the tokens it pushed
+                self.metrics.record_itl((now - st.t_last) / pushed, pushed)
+            st.t_last = now
             st.last_token = int(outs[slot, pushed - 1])
             st.position += pushed
             st.generated += pushed
             sampled += pushed if st.req.sampled else 0
-            why = self._retire_why(st, st.req, now)
+            why = self._grammar_why(st, self._retire_why(st, st.req, now))
             if why is not None:
                 retired.append((slot, st, why))
         self.metrics.record_verify_step(k * len(active), accepted,
@@ -1417,7 +1843,7 @@ class GenerationEngine:
             self.metrics.record_sampled(sampled)
         for slot, st, why in retired:
             self._release_slot(slot, st)
-            self._finish_request(st.req, why)
+            self._finish_slot(st, why, now)
 
     def _release_lanes(self, slot: int, st: _SlotState) -> None:
         """Return a slot's pages (both lanes) to the pool, park its map
@@ -1425,16 +1851,12 @@ class GenerationEngine:
         clobber a page the next owner gets, and disarm its sampling row."""
         self._pool.release(st.pages or ())
         st.pages = None
-        self._page_map[slot] = self._pool.trash
         if self.speculative:
             self._pool.release(st.draft_pages or ())
             st.draft_pages = None
             self._dpage_map[slot] = self._pool.trash
-        self._temps[slot] = 0.0
-        self._top_ks[slot] = 0
-        self._top_ps[slot] = 1.0
-        self._keys[slot] = 0
-        self._evict_stale = False   # released pages: a re-scan is live
+        self._disarm_slot(slot)    # released pages: a re-scan is live
+        st.grammar_state = None
 
     def _release_slot(self, slot: int, st: _SlotState) -> None:
         """Free the slot and its lanes. With the prefix cache, a sequence
@@ -1519,19 +1941,91 @@ class GenerationEngine:
             return "expired"
         return None
 
-    def _finish_request(self, req: _GenRequest, why: str) -> None:
+    # ------------------------------------------------------- grammar ----
+
+    def _grammar_arm(self, slot: int, st: _SlotState) -> None:
+        """Arm a constrained slot's mask row at the automaton's start
+        state, before its first token is sampled."""
+        g = st.req.grammar
+        st.grammar_state = g.start_state
+        self._bias[slot] = g.bias_row(st.grammar_state)
+        self.metrics.record_masked_frac(g.masked_frac(st.grammar_state))
+
+    def _grammar_step(self, slot: int, st: _SlotState, tok: int) -> None:
+        """Advance a constrained slot's automaton on one emitted token and
+        arm its mask row for the next step. A verdict (a stuck state, or
+        a token the mask should have excluded) goes to
+        ``st.grammar_error`` for :meth:`_grammar_why`; nothing raises in
+        the loop."""
+        g = st.req.grammar
+        if g is None or st.grammar_error is not None:
+            return
+        if self.eos_id is not None and tok == self.eos_id:
+            # EOS is legal only in accepting states: sampling it is the
+            # parse
+            return
+        state = g.advance(st.grammar_state, tok)
+        st.grammar_state = state
+        if state < 0:
+            st.grammar_error = GrammarViolation(
+                f"token {tok} is not legal from the previous state",
+                state=state, tokens_out=st.generated, grammar_key=g.key)
+            return
+        if not g.has_continuation(state) and not g.is_accepting(state):
+            st.grammar_error = GrammarViolation(
+                "stuck state: no legal continuation and no legal EOS "
+                "over this vocabulary", state=state,
+                tokens_out=st.generated, grammar_key=g.key)
+            return
+        self._bias[slot] = g.bias_row(state)
+        self.metrics.record_masked_frac(g.masked_frac(state))
+
+    def _grammar_why(self, st: _SlotState,
+                     why: Optional[str]) -> Optional[str]:
+        """Fold the grammar's verdict into the retirement disposition: a
+        recorded violation fails the stream; a budget or length ``done``
+        in a non-accepting state is a violation; with no EOS id, an
+        accepting state with nothing legal left is ``done``. Cancel and
+        expiry pass through."""
+        g = st.req.grammar
+        if g is None:
+            return why
+        if st.grammar_error is not None:
+            return "grammar"
+        if why == "done" and not g.is_accepting(st.grammar_state):
+            st.grammar_error = GrammarViolation(
+                "token budget exhausted before the grammar could "
+                "complete", state=st.grammar_state,
+                tokens_out=st.generated, grammar_key=g.key)
+            return "grammar"
+        if (why is None and self.eos_id is None
+                and g.is_accepting(st.grammar_state)
+                and not g.has_continuation(st.grammar_state)):
+            return "done"
+        return why
+
+    def _finish_slot(self, st: _SlotState, why: str, now: float) -> None:
+        if why == "grammar":
+            self.metrics.record_failed()
+            st.req.stream._finish(st.grammar_error, now)
+            return
+        self._finish_request(st.req, why, now)
+
+    def _finish_request(self, req: _GenRequest, why: str,
+                        now: Optional[float] = None) -> None:
         stream = req.stream
+        now = time.monotonic() if now is None else now
         if why == "expired":
             self.metrics.record_expired()
             stream._finish(DeadlineExceeded(
-                time.monotonic() - stream.t_submit,
-                req.deadline - stream.t_submit))
+                now - stream.t_submit,
+                req.deadline - stream.t_submit), now)
         elif why == "cancelled":
             stream._finish(StreamCancelled(
-                "generation stream cancelled by its consumer"))
+                "generation stream cancelled by its consumer"), now)
         else:
             self.metrics.record_served()
-            stream._finish(None)
+            stream._finish(None, now)
 
     def _report_pages(self) -> None:
         """Page occupancy, the prefix index's and the host tier's pages,
@@ -1551,13 +2045,17 @@ class GenerationEngine:
     # -------------------------------------------------------- lifecycle ----
 
     def warmup(self) -> None:
-        """Run every kernel shape once before traffic: the decode step (or
-        the draft and verify steps) greedy and sampled, the chunk step
-        (when prompts can be chunked), every prompt bucket, a sampled
-        first token, and the host tier's page copies both ways. On a card
-        the kernels load on their first launch, the sampler's included,
-        so traffic pays none of it. Every write goes to the trash page.
-        Must run before the first submit."""
+        """Run every kernel shape of this engine's role once before
+        traffic: the decode step (or the draft and verify steps) greedy,
+        sampled and, with a vocabulary, under a zero grammar mask; the
+        chunk step (when prompts can be chunked), every prompt bucket and
+        a sampled first token; the handoff's gather (prefill role) or its
+        upload and scatter (decode role); and the host tier's page copies
+        both ways. A prefill-role engine never runs the decode step, a
+        decode-role engine never a prompt call. On a card the kernels
+        load on their first launch, the sampler's included, so traffic
+        pays none of it. Every write goes to the trash page. Must run
+        before the first submit."""
         core = self._core
         with core.lock:
             if core.pending or core.active:
@@ -1567,24 +2065,32 @@ class GenerationEngine:
         zeros = np.zeros((self.max_slots,), np.int32)
         ones = np.ones((self.max_slots,), np.float32)
         kernels = self.kernels
-        for temps in (self._temps, ones):       # greedy, then sampled
+        passes = [(self._temps, False), (ones, False)]  # greedy, sampled
+        if self._bias is not None and self.role == "both":
+            passes.append((self._temps, True))          # under a mask
+        for temps, masked in passes if self.role != "prefill" else ():
             sampling = (temps, self._top_ks, self._top_ps, self._keys)
+            bias = self._bias_stage.upload(self._bias) if masked else None
             if self.speculative:
                 tok, dist, self._dcache = kernels.draft(
                     self._dcache, zeros, zeros, self._dpage_map, *sampling,
-                    zeros)
+                    zeros, **_masked(bias))
                 _, _, self._cache = kernels.verify(
                     self._cache, zeros, [tok] * self.spec_k, zeros,
                     self._page_map, trash, *sampling, zeros,
-                    [dist] * self.spec_k)
+                    [dist] * self.spec_k,
+                    **_masked(None if bias is None else torch.stack(
+                        [bias] * (self.spec_k + 1), dim=1)))
             else:
                 _, _, self._cache = kernels.decode(
-                    self._cache, zeros, zeros, self._page_map, *sampling)
+                    self._cache, zeros, zeros, self._page_map, *sampling,
+                    **_masked(bias))
         chunks = [(self.prefill_chunk, 0.0, False)] \
             if self.max_prompt_len > self.prefill_chunk else []
         finals = [(b, 0.0, True) for b in self.prompt_buckets]
-        for width, temperature, final in chunks + finals + [
-                (self.prompt_buckets[0], 1.0, True)]:
+        prompts = chunks + finals + [(self.prompt_buckets[0], 1.0, True)]
+        for width, temperature, final in (prompts if self.role != "decode"
+                                          else ()):
             pad = np.full((width,), self.pad_id, np.int32)
             if final:
                 self._cache = kernels.prefill(self._cache, trash_row, pad, 0,
@@ -1595,6 +2101,18 @@ class GenerationEngine:
             if self.speculative:
                 self._dcache = kernels.draft_write(
                     self._dcache, trash_row, pad, 0, width, trash)
+        if self.role == "prefill":
+            # the handoff's gather, off the trash page
+            self._mover.gather(self._cache, [trash])
+        elif self.role == "decode":
+            # the PrefillWorker path's upload of a host block and the
+            # adoption's scatter, trash page to trash page
+            rows = {name: tuple(torch.zeros((1,) + leaf.shape[1:],
+                                            dtype=leaf.dtype)
+                                for leaf in leaves)
+                    for name, leaves in self._cache.items()}
+            self._mover.scatter(self._cache, self._copier.upload(rows),
+                                [trash])
         if self._host is not None:
             # the host tier's gather, copies and scatter, trash page to
             # trash page
@@ -1699,9 +2217,11 @@ def static_generate(model, requests, *, max_slots: int, max_len: int,
     decode steps (or verify rounds) executed)``. ``quantize``,
     ``cache_dtype``, ``seed`` and ``speculate`` are the engine's knobs;
     ``sampling`` is an optional per-request list of dicts
-    (``temperature`` / ``top_k`` / ``top_p`` / ``seed``). Seeds derive as
-    the engine's do, so the engine and a static run emit the same
-    streams, greedy or sampled, plain or speculative."""
+    (``temperature`` / ``top_k`` / ``top_p`` / ``seed`` / ``grammar``).
+    Seeds derive as the engine's do and grammar masks arm as the engine's
+    do, so the engine and a static run emit the same streams, greedy or
+    sampled, plain or speculative, constrained or not. A constrained
+    stream that cannot parse raises :class:`GrammarViolation`."""
     _model_device(model, device)
     draft_model, spec_k = _speculate_knob(speculate)
     if kernels is not None and hasattr(kernels, "verify") != (
@@ -1726,9 +2246,39 @@ def static_generate(model, requests, *, max_slots: int, max_len: int,
                draft_model=draft_model, spec_k=spec_k)
 
 
+def _static_grammar_step(g, state, tok, eos_id, n_out):
+    """``static_generate``'s per-token automaton advance: the engine's
+    ``_grammar_step``, raising :class:`GrammarViolation` where the engine
+    fails a stream."""
+    if g is None or (eos_id is not None and tok == eos_id):
+        return state
+    state = g.advance(state, tok)
+    if state < 0:
+        raise GrammarViolation(
+            f"token {tok} is not legal from the previous state",
+            state=state, tokens_out=n_out, grammar_key=g.key)
+    if not g.has_continuation(state) and not g.is_accepting(state):
+        raise GrammarViolation(
+            "stuck state: no legal continuation and no legal EOS over "
+            "this vocabulary", state=state, tokens_out=n_out,
+            grammar_key=g.key)
+    return state
+
+
+def _static_grammar_finish(g, state, tok, eos_id, n_out):
+    """A static stream that stops on its budget or length must stop in an
+    accepting state (one that stops on EOS always does)."""
+    if g is None or (eos_id is not None and tok == eos_id):
+        return
+    if not g.is_accepting(state):
+        raise GrammarViolation(
+            "token budget exhausted before the grammar could complete",
+            state=state, tokens_out=n_out, grammar_key=g.key)
+
+
 class _StaticGroup:
-    """The page pool, maps and per-slot sampling rows of a static run, and
-    the admission of one group's prompts into them."""
+    """The page pool, maps and per-slot sampling and mask rows of a static
+    run, and the admission of one group's prompts into them."""
 
     def __init__(self, model, kernels, *, max_slots, max_len, pad_id,
                  cache_dtype, prompt_buckets, page_size, num_pages,
@@ -1755,13 +2305,27 @@ class _StaticGroup:
         self.top_ks = np.zeros((max_slots,), np.int32)
         self.top_ps = np.ones((max_slots,), np.float32)
         self.keys = np.zeros((max_slots, 2), np.uint32)
+        vocab = getattr(model, "vocab_size", None)
+        self.bias = (np.zeros((max_slots, int(vocab)), np.float32)
+                     if vocab else None)
+        self.stage = (_BiasStage(max_slots, int(vocab), kernels.device)
+                      if vocab else None)
+        self.constrained = False    # some slot of the group has a grammar
 
     def params(self):
         return self.temps, self.top_ks, self.top_ps, self.keys
 
+    def step_bias(self, rows=None) -> Optional[torch.Tensor]:
+        """The group's mask rows on the device, or None when no slot of
+        the group is constrained (as the engine passes no bias then)."""
+        if not self.constrained:
+            return None
+        return self.stage.upload(self.bias if rows is None else rows)
+
     def admit(self, slot: int, index: int, prompt: List[int], target: int):
         """Reserve the lanes of request ``index`` in ``slot``, arm its
-        sampling row and run its prompt. -> (first token, pages)."""
+        sampling and mask rows and run its prompt. -> (first token,
+        pages, grammar)."""
         n = len(prompt)
         spec = dict(self.sampling[index] or {}) if self.sampling else {}
         req_seed = spec.get("seed")
@@ -1772,6 +2336,15 @@ class _StaticGroup:
         self.top_ks[slot] = int(spec.get("top_k", 0))
         self.top_ps[slot] = float(spec.get("top_p", 1.0))
         key = threefry_key_data(req_seed)
+        g = spec.get("grammar")
+        bias1 = None
+        if g is not None:
+            if self.bias is None:
+                raise ValueError("sampling['grammar'] needs a model "
+                                 "exposing vocab_size")
+            self.constrained = True
+            self.bias[slot] = g.bias_row(g.start_state)
+            bias1 = self.stage.upload(self.bias[slot:slot + 1])
         need = self.pool.pages_for(min(n + target - 1, self.max_len))
         if not self.pool.can_reserve(self.lanes * need):
             raise ValueError(
@@ -1800,13 +2373,13 @@ class _StaticGroup:
                 tok, new_key, self.cache = kernels.prefill(
                     self.cache, self.page_map[slot], piece, start, real,
                     trash, self.temps[slot], self.top_ks[slot],
-                    self.top_ps[slot], key)
+                    self.top_ps[slot], key, **_masked(bias1))
                 key = new_key[0]
             else:
                 tok, self.cache = kernels.prefill(
                     self.cache, self.page_map[slot], piece, start, real,
                     trash, self.temps[slot], self.top_ks[slot],
-                    self.top_ps[slot], key)
+                    self.top_ps[slot], key, **_masked(bias1))
             if self.dcache is not None:
                 self.dcache = kernels.draft_write(
                     self.dcache, self.dpage_map[slot], piece, start, real,
@@ -1815,7 +2388,7 @@ class _StaticGroup:
                 break
             start += width
         self.keys[slot] = key
-        return int(tok.item()), pages
+        return int(tok.item()), pages, g
 
     def release(self, pages) -> None:
         self.pool.release(pages)
@@ -1825,6 +2398,37 @@ class _StaticGroup:
         self.top_ks[:] = 0
         self.top_ps[:] = 1.0
         self.keys[:] = 0
+        if self.bias is not None:
+            self.bias[:] = 0.0
+        self.constrained = False
+
+
+def _static_emit(g, s, tok, eos_id):
+    """Append ``tok`` to static stream ``s`` and advance its automaton;
+    True when the stream stopped on EOS."""
+    s["tokens"].append(tok)
+    if eos_id is not None and tok == eos_id:
+        return True
+    s["gstate"] = _static_grammar_step(g, s["gstate"], tok, eos_id,
+                                       len(s["tokens"]))
+    return False
+
+
+def _static_settle(g_group, slot, s, eos_id, max_len):
+    """After a stream's tokens of one step or round: arm its mask row,
+    and decide whether it is done (EOS, its budget, the lane end; or, with
+    no EOS id, a finished parse), checking the parse where it stops on
+    its budget."""
+    g = s["grammar"]
+    if g is not None:
+        g_group.bias[slot] = g.bias_row(s["gstate"])
+    if _finished(s, eos_id, max_len):
+        s["done"] = True
+        _static_grammar_finish(g, s["gstate"], s["last"], eos_id,
+                               len(s["tokens"]))
+    elif (g is not None and eos_id is None
+          and not g.has_continuation(s["gstate"])):
+        s["done"] = True
 
 
 def _static_groups(model, requests, kernels, *, max_slots, max_len, eos_id,
@@ -1841,12 +2445,14 @@ def _static_groups(model, requests, kernels, *, max_slots, max_len, eos_id,
         for slot, (prompt, mnt) in enumerate(
                 requests[base:base + max_slots]):
             target = min(mnt, max_len - len(prompt))
-            tok, pages = g.admit(slot, base + slot, prompt, target)
-            states.append({
-                "index": base + slot, "tokens": [tok], "last": tok,
-                "pos": len(prompt), "target": target, "pages": pages,
-                "done": (eos_id is not None and tok == eos_id)
-                or target <= 1})
+            tok, pages, grammar = g.admit(slot, base + slot, prompt, target)
+            s = {"index": base + slot, "tokens": [], "last": tok,
+                 "pos": len(prompt), "target": target, "pages": pages,
+                 "grammar": grammar, "done": False,
+                 "gstate": None if grammar is None else grammar.start_state}
+            _static_emit(grammar, s, tok, eos_id)
+            _static_settle(g, slot, s, eos_id, max_len)
+            states.append(s)
         yield g, states
         g.release([p for s in states for p in s["pages"]])
 
@@ -1870,16 +2476,17 @@ def _static_generate_paged(model, requests, kernels, *, max_slots, max_len,
                 tokens[slot] = s["last"]
                 positions[slot] = s["pos"]
             toks_dev, g.keys, g.cache = kernels.decode(
-                g.cache, tokens, positions, g.page_map, *g.params())
+                g.cache, tokens, positions, g.page_map, *g.params(),
+                **_masked(g.step_bias()))
             toks = toks_dev.cpu().numpy()
             total_steps += 1
             for slot, s in enumerate(states):
                 if s["done"]:
                     continue
                 s["last"] = int(toks[slot])
-                s["tokens"].append(s["last"])
+                _static_emit(s["grammar"], s, s["last"], eos_id)
                 s["pos"] += 1
-                s["done"] = _finished(s, eos_id, max_len)
+                _static_settle(g, slot, s, eos_id, max_len)
         for s in states:
             outputs[s["index"]] = s["tokens"]
     return outputs, total_steps
@@ -1888,7 +2495,8 @@ def _static_generate_paged(model, requests, kernels, *, max_slots, max_len,
 def _static_generate_spec(model, requests, kernels, *, max_slots, max_len,
                           eos_id, spec_k, **knobs):
     """Speculative body of :func:`static_generate`: the engine's draft and
-    verify rounds, group at a time. Draws are keyed by (request, output
+    verify rounds, group at a time, grammar masks walked on scratch
+    states as the engine walks them. Draws are keyed by (request, output
     position), so the streams equal the engine's under any grouping.
     Returns ``(token lists, verify rounds executed)``."""
     outputs: List[Optional[List[int]]] = [None] * len(requests)
@@ -1903,19 +2511,35 @@ def _static_generate_spec(model, requests, kernels, *, max_slots, max_len,
                 tokens[slot] = s["last"]
                 positions[slot] = s["pos"]
                 out_base[slot] = len(s["tokens"])
-            d_tokens, d_dists = [], []
+            glive = [(slot, s) for slot, s in enumerate(states)
+                     if not s["done"] and s["grammar"] is not None]
+            scratch = {slot: s["gstate"] for slot, s in glive}
+            d_tokens, d_dists, biases = [], [], []
             cur = tokens
             for i in range(spec_k + 1):
+                rows = None
+                if g.constrained:
+                    rows = g.bias.copy()
+                    for slot, s in glive:
+                        rows[slot] = s["grammar"].bias_row(scratch[slot])
+                bias_i = g.step_bias(rows)
                 pos_i = np.minimum(positions + i, max_len - 1)
                 cur, dist, g.dcache = kernels.draft(
                     g.dcache, cur, pos_i, g.dpage_map, *g.params(),
-                    out_base + i)
+                    out_base + i, **_masked(bias_i))
+                if bias_i is not None:
+                    biases.append(bias_i)
+                    proposed = cur.cpu().numpy()
+                    for slot, s in glive:
+                        scratch[slot] = s["grammar"].advance(
+                            scratch[slot], int(proposed[slot]))
                 if i < spec_k:
                     d_tokens.append(cur)
                     d_dists.append(dist)
             n_dev, out_dev, g.cache = kernels.verify(
                 g.cache, tokens, d_tokens, positions, g.page_map,
-                g.pool.trash, *g.params(), out_base, d_dists)
+                g.pool.trash, *g.params(), out_base, d_dists,
+                **_masked(torch.stack(biases, dim=1) if biases else None))
             n_acc = n_dev.cpu().numpy()
             outs = out_dev.cpu().numpy()
             total_rounds += 1
@@ -1926,14 +2550,13 @@ def _static_generate_spec(model, requests, kernels, *, max_slots, max_len,
                            max_len - s["pos"])
                 pushed = 0
                 for j in range(min(int(n_acc[slot]) + 1, room)):
-                    tok = int(outs[slot, j])
-                    s["tokens"].append(tok)
                     pushed += 1
-                    if eos_id is not None and tok == eos_id:
+                    if _static_emit(s["grammar"], s, int(outs[slot, j]),
+                                    eos_id):
                         break
                 s["last"] = int(outs[slot, pushed - 1])
                 s["pos"] += pushed
-                s["done"] = _finished(s, eos_id, max_len)
+                _static_settle(g, slot, s, eos_id, max_len)
         for s in states:
             outputs[s["index"]] = s["tokens"]
     return outputs, total_rounds

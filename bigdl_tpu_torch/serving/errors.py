@@ -2,8 +2,8 @@
 
 Admission-time failures (:class:`Overloaded`) raise on the caller's
 thread before a queue slot is taken; in-flight failures
-(:class:`DeadlineExceeded`, :class:`StreamCancelled`) end the request's
-stream.
+(:class:`DeadlineExceeded`, :class:`StreamCancelled`,
+:class:`GrammarViolation`) end the request's stream.
 """
 
 from __future__ import annotations
@@ -42,3 +42,24 @@ class DeadlineExceeded(ServingError):
             f"waiting {waited_s * 1e3:.1f} ms")
         self.waited_s = waited_s
         self.deadline_s = deadline_s
+
+
+class GrammarViolation(ServingError):
+    """A grammar-constrained stream reached a terminal it cannot parse
+    from: the token budget ran out in a non-accepting automaton state, or
+    the state has no legal continuation and no legal EOS (stuck). Every
+    emitted stream must parse, so the stream fails with this error rather
+    than deliver text outside the grammar. Tokens produced before the
+    violation stay on the stream; ``state`` is the automaton state the
+    stream ended in."""
+
+    def __init__(self, why: str, *, state: int, tokens_out: int,
+                 grammar_key: "str | None" = None):
+        what = f" for grammar '{grammar_key}'" if grammar_key else ""
+        super().__init__(
+            f"constrained stream cannot complete a parse{what}: {why} "
+            f"(automaton state {state}, {tokens_out} tokens emitted)")
+        self.why = why
+        self.state = state
+        self.tokens_out = tokens_out
+        self.grammar_key = grammar_key

@@ -7,8 +7,11 @@ temperature above 0, the speculative tier's verify rounds (draft
 tokens proposed, accepted, their rate), the prefix cache's probes (hits,
 misses, prompt calls skipped, pages the index holds) and the KV tiers'
 page moves (offloaded, restored, dropped, streams swapped out and in,
-host pages resident). Lock-protected; the snapshot keys keep the JAX
-package's names, each block after the ones before it.
+host pages resident), inter-token latency (ITL, p50/p95/p99) and failed
+streams, and the grammar counters (constrained streams, compile-cache
+hits, the mean masked share of the vocabulary). Lock-protected; the
+snapshot keys keep the JAX package's names, each block after the ones
+before it.
 """
 
 from __future__ import annotations
@@ -92,7 +95,17 @@ class ServingMetrics:
         self.host_pages = 0          # host-tier resident pages (gauge)
         self.host_bytes = 0          # host-tier resident bytes (gauge)
         self.host_pages_peak = 0
+        self.failed = 0              # streams failed by a request error
+        self.constrained_streams = 0         # grammar requests admitted
+        self.grammar_compile_cache_hits = 0  # automaton reuses at submit
+        self._masked_frac_sum = 0.0  # mean masked-vocab share over every
+        self._masked_frac_n = 0      # armed constrained step
         self._ttft = _Reservoir(reservoir_size)      # submit -> 1st token
+        # one sample per generated token past a stream's first: the gap
+        # since that stream's previous token (the first token's wait is
+        # TTFT). Prefill interference inflates it; disaggregation exists
+        # to protect it
+        self._itl = _Reservoir(reservoir_size)
 
     def record_served(self) -> None:
         with self._lock:
@@ -105,6 +118,39 @@ class ServingMetrics:
     def record_expired(self) -> None:
         with self._lock:
             self.expired += 1
+
+    def record_failed(self, n: int = 1) -> None:
+        """``n`` streams failed with a request-scoped error (a handoff
+        that raised, a grammar violation)."""
+        with self._lock:
+            self.failed += int(n)
+
+    def record_itl(self, gap_s: float, n: int = 1) -> None:
+        """``n`` tokens of one stream arrived ``gap_s`` after the stream's
+        previous token each (n > 1: a speculative round's gap spread over
+        the tokens it pushed)."""
+        with self._lock:
+            for _ in range(int(n)):
+                self._itl.add(gap_s)
+
+    def record_constrained_stream(self) -> None:
+        """One grammar-constrained request reached admission."""
+        with self._lock:
+            self.constrained_streams += 1
+
+    def record_grammar_cache_hit(self) -> None:
+        """A submit reused a grammar key this engine had already served:
+        its automaton came from the compile cache."""
+        with self._lock:
+            self.grammar_compile_cache_hits += 1
+
+    def record_masked_frac(self, frac: float) -> None:
+        """The share of the vocabulary the just-armed mask row excludes
+        (one sample per armed constrained step; the snapshot reports the
+        mean)."""
+        with self._lock:
+            self._masked_frac_sum += float(frac)
+            self._masked_frac_n += 1
 
     def record_prefill(self, ttft_s: float) -> None:
         """One final prompt chunk, which emits the first token."""
@@ -215,6 +261,7 @@ class ServingMetrics:
     def snapshot(self) -> dict:
         with self._lock:
             ttft = self._ttft.percentiles(self.LATENCY_QS)
+            itl = self._itl.percentiles(self.LATENCY_QS)
             return {
                 "served": self.served,
                 "rejected": self.rejected,
@@ -254,4 +301,15 @@ class ServingMetrics:
                 "host_pages": self.host_pages,
                 "host_bytes": self.host_bytes,
                 "host_pages_peak": self.host_pages_peak,
+                "itl_ms": None if itl is None else {
+                    f"p{q}": round(v * 1e3, 3)
+                    for q, v in zip(self.LATENCY_QS, itl)},
+                "itl_samples": self._itl.seen,
+                "failed": self.failed,
+                "constrained_streams": self.constrained_streams,
+                "grammar_compile_cache_hits":
+                    self.grammar_compile_cache_hits,
+                "masked_vocab_frac": (self._masked_frac_sum
+                                      / self._masked_frac_n
+                                      if self._masked_frac_n else 0.0),
             }

@@ -116,13 +116,49 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              equal its run with no swap, greedy and sampled (temperature
              0.8, top-k 50, top-p 0.95, seed 7). Prints the swap-out and
              swap-in counts and the swapped stream's wall.
-13. B1     — the residual-add kernel against its plain version at the
+13. engine-disagg — prefill/decode disaggregation over the JAX
+             bench's prompt-heavy leg (``bench.py --disaggregate``, real
+             costs): 32 requests of alternating 6- and 40-token prompts
+             (RandomState(4)), 24 new tokens, chunks of 16, prompts up to
+             48, the odd requests sampled as in ``engine-sample``; the
+             monolithic engine, then a ``DisaggregatedEngine`` on the same
+             card, float and int8. Checks every stream equals the
+             monolithic engine's, both pools drained, the pages adopted
+             equal the prompt pages handed off, B2 only on the prefill
+             role's prompt calls and the paged kernel only on the decode
+             role's steps; four requests through a ``PrefillWorker``
+             (host-memory payload) give the same streams. Prints tokens/s,
+             TTFT p50 and ITL p50/p99 of both (not gated: one card, one
+             process), the host ms of the handoff's callback,
+             ``submit_prefilled`` and adoption, the peak bytes of blocks
+             not yet adopted, and one 40-token prompt's gather and scatter
+             device ms against bytes over HBM.
+14. engine-grammar — grammar-constrained serving as the JAX bench's
+             grammar leg sets it up (``bench.py --grammar``): the toy
+             tokenizer (printable ASCII at its codepoint), EOS id 3, the
+             32 serving-mix prompts, 48 new tokens, under the regex
+             ``id-[0-9][0-9][0-9]`` and the schema ``{"tool": enum
+             ["search", "calc"], "ok": boolean}``. Per grammar: parse rate
+             1.0 (greedy, sampled, int8), engine == ``static_generate``,
+             sampled streams the same in reversed order, speculative
+             greedy with the narrow draft == plain constrained greedy
+             (near-ties among legal tokens below the verify-vs-decode
+             difference accepted); prints the compile ms at V = 8192,
+             constrained against unconstrained tokens/s,
+             ``masked_vocab_frac``, the host ms of the grammar work a step
+             and the speculative acceptance with and without the grammar.
+             Then B2 at the external-bias decode shape (q (8, 8, 1, 64),
+             256-key lanes, an (8, 1, 1, 256) bias: one legal column plus
+             validity) against its plain version with kernel, plain, SDPA
+             and bound times, and the arm through ``Attention``: a zero
+             bias (B2) against no bias (B3).
+15. B1     — the residual-add kernel against its plain version at the
              four residual-add shapes of ResNet-50 at batch 128, bf16 and
              fp32: bitwise equal; the dispatch cases that take the plain
              add (small, mixed dtype, broadcast, CPU tensors); kernel and
              ``torch.add`` times at the layer1 bf16 shape in alternating
              pairs with their median ratio, plain time and the bound.
-14. train  — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
+16. train  — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
              NCHW) at batch 128 under the bf16 mixed policy, SGD lr 0.1 /
              momentum 0.9, through ``optimizer(...).optimize()`` on 4 x 128
              samples from numpy seed 0; two legs from the same seeded
@@ -133,7 +169,7 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              memory; then one fp32 step of ``build_cifar(8)`` at batch 8 on
              the card against the CPU, and (``[trace]``) a torch.profiler
              window over 3 training steps of the second leg.
-15. train-lm — a Transformer language model at the width of the JAX
+17. train-lm — a Transformer language model at the width of the JAX
              package's ``bench.py --mode lm`` (vocab 8192, hidden 512, 8
              heads, filter 2048, 4 layers), batch 8 x 128 tokens, fp32,
              embedding/residual and FFN dropout 0.1 (threefry-keyed),
@@ -156,9 +192,10 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              a stated tolerance; a full-width mask card vs CPU, bitwise;
              and B2 at the training shape (8, 8, 128, 64), causal, fp32
              and bf16 x bf16: error, kernel, plain, SDPA and bound times.
-16. a ``{"kernels": [...]}`` line (each row counts its launches on every
-    path, by path; B2's carries its training-shape and verify-shape
-    times), the card's name and power limit, and the last line
+18. a ``{"kernels": [...]}`` line (each row counts its launches on every
+    path, by path; B2's carries its training-shape, verify-shape and
+    external-bias decode-shape times), the card's name and power limit,
+    and the last line
     ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time per launch: the launches are captured
@@ -176,6 +213,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -201,10 +239,12 @@ from bigdl_tpu_torch.ops import residual_add as ra
 from bigdl_tpu_torch.ops import sampling
 from bigdl_tpu_torch.optim import SGD, Trigger, optimizer
 from bigdl_tpu_torch.serving import (
+    DisaggregatedEngine,
     GenerationEngine,
     HostCopier,
     PageBlockMover,
     PagedDecodeKernels,
+    PrefillWorker,
     SpeculativeKernels,
     static_generate,
 )
@@ -291,6 +331,19 @@ KV_FAMILIES, KV_FAMILY_PAGES, KV_DEVICE_PAGES, KV_HOST_PAGES = 20, 2, 4, 64
 # the swap case: a priority-0 stream of 96 new tokens in an 8-page pool
 SWAP_PAGES, SWAP_PROMPT, SWAP_NEW, SWAP_HIGH_NEW = 8, 16, 96, 16
 SWAP_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=7)
+
+# the disaggregation run (bench.py --disaggregate on the serving width):
+# alternating 6- and 40-token prompts (one and three chunks of a page),
+# 24 new tokens, prompts up to 3 pages
+DZ_SHORT, DZ_LONG, DZ_NEW, DZ_MAX_PROMPT = 6, 40, 24, 3 * PAGE
+# the grammar run (bench.py --grammar): EOS id 3 of the toy tokenizer,
+# 48 new tokens, a fixed-length regex and an enum + boolean schema
+GR_EOS, GR_NEW = 3, 48
+GR_REGEX = "id-[0-9][0-9][0-9]"
+GR_SCHEMA = {"type": "object",
+             "properties": {"tool": {"enum": ["search", "calc"]},
+                            "ok": {"type": "boolean"}},
+             "required": ["tool", "ok"]}
 
 # the training run: ResNet-50 as the JAX package's bench trains it
 # (bench.py run_bench: batch 128, SGD lr 0.1 / momentum 0.9)
@@ -775,9 +828,9 @@ def time_calls(kernels):
         acc = spent[name] = [0.0, 0]
 
         def timed(*args, _fn=getattr(kernels, name), _acc=acc,
-                  _sync=name not in ("draft", "draft_write")):
+                  _sync=name not in ("draft", "draft_write"), **kw):
             t0 = time.monotonic()
-            out = _fn(*args)
+            out = _fn(*args, **kw)
             if _sync:
                 torch.cuda.synchronize()
             _acc[0] += (time.monotonic() - t0) * 1e3
@@ -1364,7 +1417,7 @@ def phase_engine_spec(card, model, requests, float_run):
               f"draft's {draft.num_hidden_layers} layer(s) x {SPEC_K + 1} "
               f"steps a round; the target none)")
         report_spec("engine-spec", label, run, card)
-    return narrow, launches
+    return narrow, launches, diff
 
 
 def phase_engine_spec_int8(card, model, narrow, requests, int8_run):
@@ -1705,6 +1758,453 @@ def phase_engine_tiers(card, model):
           f"B/s: {link_ms:.5f} ms each way")
     swap_case(model, card, path)
     return path, dict(copy_out_ms=out_ms, copy_in_ms=in_ms)
+
+
+# ------------------------------------ disaggregation and grammar masks ----
+
+
+def disagg_requests():
+    """The JAX package's disaggregation leg (bench.py --disaggregate on
+    the TPU): alternating 6- and 40-token prompts (one and three chunks
+    of 16), ids from RandomState(4); the odd (long) ones sampled as in
+    ``[engine-sample]``."""
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(1, 8000, (DZ_LONG if i % 2 else DZ_SHORT,)).tolist()
+               for i in range(N_REQUESTS)]
+    return prompts, sampled_requests()
+
+
+def dz_engine_kw(**knobs):
+    return dict(device="cuda", max_slots=SLOTS, max_len=MAX_LEN,
+                max_prompt_len=DZ_MAX_PROMPT, max_queue=2 * N_REQUESTS,
+                page_size=PAGE, prefill_chunk=PAGE, seed=0, **knobs)
+
+
+def serve_front(engine, prompts, sampling):
+    """Every request submitted at once; the streams, the wall, and each
+    stream's client-side TTFT (ms)."""
+    t0 = time.monotonic()
+    streams = [engine.submit(p, max_new_tokens=DZ_NEW, **kw)
+               for p, kw in zip(prompts, sampling)]
+    outs = [s.result(600) for s in streams]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return outs, wall, [s.ttft_s * 1e3 for s in streams]
+
+
+def handoff_host_ms(dz):
+    """Wrap the handoff's three host steps to add up their time (``{step:
+    [ms, calls]}``) and track the bytes of gathered blocks not yet
+    adopted (``queued``: now and peak)."""
+    spent = {"callback": [0.0, 0], "submit_prefilled": [0.0, 0],
+             "adopt": [0.0, 0]}
+    queued = {"now": 0, "peak": 0}
+    lock = threading.Lock()
+
+    def block_bytes(payload):
+        return sum(nbytes(*leaves) for leaves in payload["block"].values())
+
+    def timed(fn, acc, before=None, after=None):
+        def wrapper(*a, **kw):
+            if before is not None:
+                before(*a)
+            t0 = time.monotonic()
+            out = fn(*a, **kw)
+            acc[0] += (time.monotonic() - t0) * 1e3
+            acc[1] += 1
+            if after is not None:
+                after(*a)
+            return out
+        return wrapper
+
+    def on_gathered(payload):
+        with lock:
+            queued["now"] += block_bytes(payload)
+            queued["peak"] = max(queued["peak"], queued["now"])
+
+    def on_adopt(req):
+        if req.handoff is not None and "block" in req.handoff:
+            with lock:
+                queued["now"] -= block_bytes(req.handoff)
+
+    pe, de = dz.prefill_engine, dz.decode_engine
+    pe._handoff_cb = timed(pe._handoff_cb, spent["callback"])
+    de.submit_prefilled = timed(de.submit_prefilled,
+                                spent["submit_prefilled"], before=on_gathered)
+    de._admit_prefilled = timed(de._admit_prefilled, spent["adopt"],
+                                before=on_adopt)
+    return spent, queued
+
+
+def handoff_device_ms(model, reps=20):
+    """Device ms, between CUDA events, of one 40-token prompt's handoff
+    gather (its 3 pages out of the prefill pools) and scatter (into the
+    decode pools), over the serving model's pools; a spin kernel queued
+    ahead keeps the interval to device time. The bound: each moves the
+    pages' bytes in and out once over HBM."""
+    n_pages = -(-DZ_LONG // PAGE)
+    src = model.init_paged_cache(SLOTS * n_pages + 1, PAGE)
+    dst = model.init_paged_cache(SLOTS * n_pages + 1, PAGE)
+    for leaves in src.values():
+        for leaf in leaves:
+            leaf.normal_()
+    mover = PageBlockMover()
+    pages = list(range(2, 2 + n_pages))
+    gather_ms, scatter_ms = [], []
+    for i in range(reps):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda._sleep(2_000_000)
+        e0.record()
+        block = mover.gather(src, pages)
+        e1.record()
+        mover.scatter(dst, block, [p + 5 for p in pages])
+        e2.record()
+        torch.cuda.synchronize()
+        gather_ms.append(e0.elapsed_time(e1))
+        scatter_ms.append(e1.elapsed_time(e2))
+    for name, leaves in src.items():
+        for a, b in zip(leaves, dst[name]):
+            assert torch.equal(b[[p + 5 for p in pages]], a[pages]), name
+    page = sum(leaf[0].numel() * leaf.element_size()
+               for leaves in src.values() for leaf in leaves)
+    moved = n_pages * page
+    return (statistics.median(gather_ms), statistics.median(scatter_ms),
+            moved, 2 * moved / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_engine_disagg(card, model, narrow):
+    """Monolithic against disaggregated serving of the prompt-heavy mix,
+    float then int8, on one card; then four requests through the
+    PrefillWorker's host payload."""
+    prompts, sampling = disagg_requests()
+    prompt_pages = sum(-(-len(p) // PAGE) for p in prompts)
+    path = {}
+    legs = {}
+    int8 = dict(quantize="int8", cache_dtype=torch.int8)
+    switch = sys.getswitchinterval()
+    # the third leg shortens the interpreter's thread switch interval
+    # (5 ms by default) for the disaggregated run: both role loops are
+    # host-bound Python threads of one process, and it shows how much of
+    # their cost is waiting for the interpreter lock
+    for label, knobs, interval in (("float", {}, switch),
+                                   ("int8", int8, switch),
+                                   ("float, switch interval 0.5 ms", {},
+                                    0.0005)):
+        mono = GenerationEngine(model, **dz_engine_kw(**knobs))
+        mono.warmup()
+        mono_spent = time_calls(mono.kernels)
+        mono_outs, mono_wall, mono_ttft = serve_front(mono, prompts,
+                                                      sampling)
+        mono.close()
+        msnap = mono.metrics.snapshot()
+        dz = DisaggregatedEngine(model, **dz_engine_kw(**knobs))
+        dz.warmup()
+        spent, queued = handoff_host_ms(dz)
+        dspent = time_calls(dz.decode_engine.kernels)
+        pspent = time_calls(dz.prefill_engine.kernels)
+        zero_launches()
+        sys.setswitchinterval(interval)
+        try:
+            outs, wall, ttft = serve_front(dz, prompts, sampling)
+        finally:
+            sys.setswitchinterval(switch)
+        launches = read_launches()
+        dz.close()
+        pe, de = dz.prefill_engine, dz.decode_engine
+        psnap, dsnap = pe.metrics.snapshot(), de.metrics.snapshot()
+        pool = de._pool.snapshot()
+        mismatches = sum(a != b for a, b in zip(outs, mono_outs))
+        paged, other = (("paged_attention_int8", "paged_attention")
+                        if knobs
+                        else ("paged_attention", "paged_attention_int8"))
+        prompt_calls = psnap["prefills"] + psnap["prefill_chunks"]
+        drained = (pe.pages_in_use == 0 and de.pages_in_use == 0)
+        print(f"[engine-disagg] {label}: {N_REQUESTS} requests ({DZ_SHORT}- "
+              f"and {DZ_LONG}-token prompts, {DZ_NEW} new, chunks of "
+              f"{PAGE}): mismatched streams against the monolithic engine "
+              f"{mismatches}; pages adopted {pool['pages_adopted']} of "
+              f"{prompt_pages} prompt pages handed off (shared "
+              f"{pool['pages_adopt_shared']}); both pools drained "
+              f"{drained}; B2 {launches['flash_attention']} = prefill role's "
+              f"{prompt_calls} prompt calls x {LAYERS}; "
+              f"{'B3-int8' if knobs else 'B3'} {launches[paged]} = "
+              f"decode role's {dsnap['decode_steps']} steps x {LAYERS}; "
+              f"prefill role decode steps {psnap['decode_steps']}, decode "
+              f"role prompt calls "
+              f"{dsnap['prefills'] + dsnap['prefill_chunks']}")
+        assert mismatches == 0, (label, mismatches)
+        assert drained, label
+        assert pool["pages_adopted"] == prompt_pages, (pool, prompt_pages)
+        assert psnap["decode_steps"] == 0, psnap
+        assert dsnap["prefills"] + dsnap["prefill_chunks"] == 0, dsnap
+        assert launches["flash_attention"] == prompt_calls * LAYERS > 0, \
+            (launches, psnap)
+        assert launches[paged] == dsnap["decode_steps"] * LAYERS > 0, \
+            (launches, dsnap)
+        assert launches[other] == 0, launches
+        add_launches(path, launches)
+        tokens = sum(len(o) for o in outs)
+        mitl, ditl = msnap["itl_ms"], dsnap["itl_ms"]
+        print(f"[engine-disagg] {label}: monolithic tokens/s="
+              f"{tokens / mono_wall:.1f} TTFT p50 "
+              f"{statistics.median(mono_ttft):.3f} ms ITL p50 "
+              f"{mitl['p50']} p99 {mitl['p99']} ms ({msnap['itl_samples']} "
+              f"samples); disaggregated tokens/s={tokens / wall:.1f} TTFT "
+              f"p50 {statistics.median(ttft):.3f} ms ITL p50 {ditl['p50']} "
+              f"p99 {ditl['p99']} ms ({dsnap['itl_samples']} samples); "
+              f"printed, not gated: both roles share one card and one "
+              f"process, on {card}")
+        print(f"[engine-disagg] {label}: handoff host ms: callback (gather "
+              f"and dispatch) {spent['callback'][0]:.1f} in "
+              f"{spent['callback'][1]} calls, submit_prefilled "
+              f"{spent['submit_prefilled'][0]:.1f} in "
+              f"{spent['submit_prefilled'][1]}, adopt (adopt, scatter, arm) "
+              f"{spent['adopt'][0]:.1f} in {spent['adopt'][1]}; peak bytes "
+              f"of gathered blocks not yet adopted "
+              f"{queued['peak']} ({queued['peak'] / 2**20:.2f} MiB)")
+
+        def per_call(sp, names):
+            ms = sum(sp[n][0] for n in names)
+            calls = sum(sp[n][1] for n in names)
+            return f"{ms / max(calls, 1):.3f} ({calls} calls)"
+
+        print(f"[engine-disagg] {label}: host ms a call, synced: decode "
+              f"step monolithic {per_call(mono_spent, ('decode',))}, decode "
+              f"role {per_call(dspent, ('decode',))}; prompt call "
+              f"monolithic {per_call(mono_spent, ('prefill', 'chunk'))}, "
+              f"prefill role {per_call(pspent, ('prefill', 'chunk'))}; "
+              f"interpreter switch interval {interval * 1e3:g} ms")
+        legs[label] = dict(outs=outs, mono=mono_outs)
+    gather_ms, scatter_ms, moved, bound_ms = handoff_device_ms(model)
+    print(f"[engine-disagg] one {DZ_LONG}-token prompt's handoff ("
+          f"{moved} bytes: its {-(-DZ_LONG // PAGE)} prompt pages, every "
+          f"pool leaf): gather {gather_ms:.5f} ms, scatter "
+          f"{scatter_ms:.5f} ms device time (events, median of 20); bound "
+          f"{bound_ms:.5f} ms each (the bytes in and out once at "
+          f"{HBM_BYTES_PER_S:.3g} B/s) on {card}")
+    worker = PrefillWorker(model, **dz_engine_kw())
+    dz = DisaggregatedEngine(model, remote_prefill=worker, **dz_engine_kw())
+    dz.warmup()
+    zero_launches()
+    got = [s.result(600) for s in [
+        dz.submit(p, max_new_tokens=DZ_NEW, **kw)
+        for p, kw in zip(prompts[:4], sampling[:4])]]
+    add_launches(path, read_launches())
+    dz.close()
+    assert got == legs["float"]["mono"][:4]
+    assert worker.pages_in_use == 0 and dz.decode_engine.pages_in_use == 0
+    print("[engine-disagg] PrefillWorker (host-memory payload): 4 requests, "
+          "streams == the monolithic engine's; both pools drained")
+    return path
+
+
+def grammar_vocab():
+    """The JAX grammar leg's toy tokenizer (bench.py --grammar): printable
+    ASCII at its codepoint, every other id a placeholder."""
+    return [chr(i) if 32 <= i < 127 else f"<tok{i}>" for i in range(VOCAB)]
+
+
+def constrained_gap(model, prompt, tokens, g, cache_dtype=torch.float32):
+    """The top-2 gap among the legal tokens of the plain constrained
+    step that chose ``tokens[-1]``."""
+    ppn = MAX_LEN // PAGE
+    row = np.arange(ppn, dtype=np.int32)
+    cache = model.init_paged_cache(ppn + 1, PAGE, cache_dtype)
+    state = g.start_state
+    with torch.inference_mode():
+        logits, cache = model.prefill_paged(cache, row, prompt, 0,
+                                            len(prompt), ppn)
+        for i, tok in enumerate(tokens[:-1]):
+            state = g.advance(state, tok)
+            logits, cache = model.decode_step_paged(
+                cache, [tok], [len(prompt) + i], row[None])
+            logits = logits[0]
+    masked = logits.float().cpu() + torch.from_numpy(g.bias_row(state))
+    top2 = masked.topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+def serve_grammar(model, prompts, g, sampling=None, order=None, **knobs):
+    """The prompts through a constrained engine (submitted in ``order``),
+    with the host time of its grammar work (advance, mask rows, upload)
+    and of its kernel calls; the launch counts zeroed just before the
+    traffic and read just after it."""
+    engine = GenerationEngine(model, device="cuda", max_slots=SLOTS,
+                              max_len=MAX_LEN, max_prompt_len=MAX_PROMPT,
+                              page_size=PAGE, seed=0, eos_id=GR_EOS, **knobs)
+    engine.warmup()
+    spent = time_calls(engine.kernels)
+    spent.update(time_methods(engine, ("_grammar_arm", "_grammar_step",
+                                       "_step_bias")))
+    sampling = sampling or [{}] * len(prompts)
+    order = range(len(prompts)) if order is None else order
+    zero_launches()
+    t0 = time.monotonic()
+    streams = {i: engine.submit(prompts[i], max_new_tokens=GR_NEW,
+                                grammar=g, **sampling[i]) for i in order}
+    outs = [streams[i].result(600) for i in range(len(prompts))]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    engine.close()
+    snap = engine.metrics.snapshot()
+    check_launches("engine-grammar", engine, snap, launches)
+    assert engine.pages_in_use == 0
+    return dict(engine=engine, outs=outs, wall=wall, snap=snap,
+                launches=launches, spent=spent,
+                tokens=sum(len(o) for o in outs))
+
+
+def b2_external_bias_shape(card, model):
+    """B2 at the paged decode arm's external-bias shape: q (8, 8, 1, 64)
+    against gathered 256-key lanes under an (8, 1, 1, 256) bias, one
+    legal column plus the validity mask, fp32: error, kernel, plain, SDPA
+    and bound times. Then the arm itself through ``Attention`` at the
+    serving width, the launch counts zeroed around it: a zero bias (B2
+    over the gathered lanes) against no bias (B3), and B2 on every call."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    q = torch.randn(SLOTS, HEADS, 1, HEAD_DIM, generator=g, device="cuda")
+    k, v = (torch.randn(SLOTS, HEADS, MAX_LEN, HEAD_DIM, generator=g,
+                        device="cuda") for _ in range(2))
+    pos = torch.randint(0, MAX_LEN, (SLOTS,), generator=g, device="cuda")
+    legal = torch.randint(0, MAX_LEN, (SLOTS,), generator=g,
+                          device="cuda") % (pos + 1)
+    cols = torch.arange(MAX_LEN, device="cuda")
+    bias = (torch.where(cols[None, :] == legal[:, None], 0.0, -1e9)
+            + torch.where(cols[None, :] <= pos[:, None], 0.0, -1e9)
+            )[:, None, None, :]
+    err = max_err(fa.flash_attention(q, k, v, bias),
+                  fa.plain_attention(q, k, v, bias))
+    assert err <= TOL[torch.float32], err
+    row = time_b2(q, k, v, bias, False)
+    print(f"[engine-grammar] B2 at the external-bias decode shape q "
+          f"{tuple(q.shape)} lanes {tuple(k.shape)} bias {tuple(bias.shape)}"
+          f" fp32: max_abs_err={err:.3e} kernel_ms={row['ms']:.5f} "
+          f"eager_ms={row['eager_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+          f"library_ms(sdpa)={row['library_ms']:.5f} bound_ms="
+          f"{row['bound_ms']:.6f} ({row['bound_by']}) on {card}")
+    attn = model.decoder_0.self_attention.inner
+    x = torch.randn(SLOTS, 1, HIDDEN, generator=g, device="cuda")
+    ppn = MAX_LEN // PAGE
+    pools = {"k": torch.randn(SLOTS * ppn + 1, HEADS, PAGE, HEAD_DIM,
+                              generator=g, device="cuda"),
+             "v": torch.randn(SLOTS * ppn + 1, HEADS, PAGE, HEAD_DIM,
+                              generator=g, device="cuda"),
+             "map": torch.randperm(SLOTS * ppn, device="cuda").reshape(
+                 SLOTS, ppn).to(torch.int32)}
+    positions = pos.to(torch.int32)
+    zero = torch.zeros(SLOTS, 1, 1, MAX_LEN, device="cuda")
+    with torch.inference_mode():
+        unbiased, _ = attn(x, cache_index=positions, paged=dict(pools))
+        zero_launches()
+        calls = 4
+        for _ in range(calls):
+            biased, _ = attn(x, bias=zero, cache_index=positions,
+                             paged=dict(pools))
+        launches = read_launches()
+    arm_err = max_err(biased, unbiased)
+    print(f"[engine-grammar] the paged decode arm with an external bias, "
+          f"through Attention at width {HIDDEN}: zero bias (B2 over the "
+          f"gathered lanes) against no bias (B3): max_abs_err={arm_err:.3e} "
+          f"(tol {TOL[torch.float32]:g}); {launches['flash_attention']} B2 "
+          f"launches in {calls} calls, {launches['paged_attention']} B3")
+    assert arm_err <= TOL[torch.float32], arm_err
+    assert launches["flash_attention"] == calls and \
+        launches["paged_attention"] == 0, launches
+    return dict(row, max_abs_err=err), launches
+
+
+def phase_engine_grammar(card, model, narrow, verify_tol):
+    """Grammar-constrained serving of the 32 serving-mix requests under
+    the JAX grammar leg's two grammars; the external-bias decode arm."""
+    from bigdl_tpu_torch.grammar import (
+        clear_compile_cache,
+        compile_grammar,
+        json_schema_grammar,
+        regex_grammar,
+    )
+
+    vocab = grammar_vocab()
+    prompts = [p for p, _ in bench_requests()]
+    knobs = sampled_requests()
+    path = {}
+    free = serve_grammar(model, prompts, None)
+    fspec = serve_grammar(model, prompts, None,
+                          speculate=(narrow, SPEC_K))
+    for run in (free, fspec):
+        add_launches(path, run["launches"])
+    clear_compile_cache()
+    for label, spec in (
+            ("regex", regex_grammar(GR_REGEX)),
+            ("json", json_schema_grammar(GR_SCHEMA))):
+        t0 = time.monotonic()
+        g = compile_grammar(spec, vocab, eos_id=GR_EOS)
+        compile_ms = (time.monotonic() - t0) * 1e3
+        run = serve_grammar(model, prompts, g)
+        parsed = sum(g.matches(o) for o in run["outs"])
+        static, _ = static_generate(
+            model, [(p, GR_NEW) for p in prompts], max_slots=SLOTS,
+            max_len=MAX_LEN, device="cuda", page_size=PAGE, eos_id=GR_EOS,
+            prompt_buckets=run["engine"].prompt_buckets,
+            sampling=[{"grammar": g}] * len(prompts))
+        static_mismatches = sum(a != b for a, b in zip(static, run["outs"]))
+        sampled = serve_grammar(model, prompts, g, sampling=knobs)
+        rev = serve_grammar(model, prompts, g, sampling=knobs,
+                            order=reversed(range(len(prompts))))
+        sampled_parsed = sum(g.matches(o) for o in sampled["outs"])
+        spec_run = serve_grammar(model, prompts, g,
+                                 speculate=(narrow, SPEC_K))
+        differ = 0
+        for i, (got, want) in enumerate(zip(spec_run["outs"], run["outs"])):
+            if got == want:
+                continue
+            j = next(n for n, (a, b) in enumerate(zip(got, want)) if a != b)
+            gap = constrained_gap(model, prompts[i], want[:j + 1], g)
+            print(f"[engine-grammar] {label}: speculative stream {i} differs "
+                  f"at token {j}: legal top-2 gap {gap:.3e} (accepted below "
+                  f"{verify_tol:.3e})")
+            assert gap < verify_tol, (i, j, gap)
+            differ += 1
+        int8 = serve_grammar(model, prompts, g, quantize="int8",
+                             cache_dtype=torch.int8)
+        int8_parsed = sum(g.matches(o) for o in int8["outs"])
+        for r in (run, sampled, rev, spec_run, int8):
+            add_launches(path, r["launches"])
+        snap = run["snap"]
+        sp = run["spent"]
+        steps = snap["decode_steps"]
+        grammar_ms = sum(sp[n][0] for n in ("_grammar_arm", "_grammar_step",
+                                            "_step_bias"))
+        print(f"[engine-grammar] {label} ({g.n_states} states, compiled in "
+              f"{compile_ms:.1f} ms at V={VOCAB}): parse rate "
+              f"{parsed / len(prompts):.4f} greedy, "
+              f"{sampled_parsed / len(prompts):.4f} sampled, "
+              f"{int8_parsed / len(prompts):.4f} int8; engine == static "
+              f"mismatches {static_mismatches}; sampled streams the same in "
+              f"reversed order: {rev['outs'] == sampled['outs']}; "
+              f"speculative greedy (narrow draft) == plain constrained "
+              f"greedy: {len(prompts) - differ}/{len(prompts)} ({differ} "
+              f"near-ties); masked_vocab_frac "
+              f"{snap['masked_vocab_frac']:.6f}")
+        print(f"[engine-grammar] {label}: constrained tokens/s="
+              f"{run['tokens'] / run['wall']:.1f} ({run['tokens']} tokens in "
+              f"{run['wall']:.3f} s) against unconstrained "
+              f"{free['tokens'] / free['wall']:.1f} ({free['tokens']} in "
+              f"{free['wall']:.3f} s); host ms of grammar work "
+              f"{grammar_ms:.2f} over {steps} decode steps = "
+              f"{grammar_ms / max(steps, 1):.4f} a step (advance and mask "
+              f"rows {sp['_grammar_step'][0]:.2f}, arm "
+              f"{sp['_grammar_arm'][0]:.2f}, upload {sp['_step_bias'][0]:.2f})"
+              f"; speculative acceptance {spec_run['snap']['acceptance_rate']:.3f}"
+              f" with the grammar, {fspec['snap']['acceptance_rate']:.3f} "
+              f"without, on {card}")
+        assert parsed == sampled_parsed == int8_parsed == len(prompts), \
+            (parsed, sampled_parsed, int8_parsed)
+        assert static_mismatches == 0, static_mismatches
+        assert rev["outs"] == sampled["outs"]
+        assert snap["constrained_streams"] == len(prompts)
+    row, launches = b2_external_bias_shape(card, model)
+    return path, row, launches
 
 
 def check_int8_logits(model, requests):
@@ -2491,12 +2991,16 @@ def main() -> int:
              "engine_sample": phase_engine_sample(card, model, requests,
                                                   float_run)}
     b2["verify_shape"] = b2_verify_shape(card)
-    narrow, paths["engine_spec"] = phase_engine_spec(card, model, requests,
-                                                     float_run)
+    narrow, paths["engine_spec"], verify_tol = phase_engine_spec(
+        card, model, requests, float_run)
     paths["engine_spec_int8"] = phase_engine_spec_int8(
         card, model, narrow, requests, int8_run)
     paths["engine_prefix"] = phase_engine_prefix(card, model, narrow)
     paths["engine_tiers"], _ = phase_engine_tiers(card, model)
+    paths["engine_disagg"] = phase_engine_disagg(card, model, narrow)
+    (paths["engine_grammar"], b2["external_bias"],
+     paths["attention_external_bias"]) = phase_engine_grammar(
+        card, model, narrow, verify_tol)
     del model, narrow, float_run, int8_run
     b1 = phase_b1(card)
     residual_launches = phase_train(card)
@@ -2531,9 +3035,10 @@ def main() -> int:
         if name in by_path:
             rows[-1]["launches_by_path"] = by_path[name]
         if name == "flash_attention":
-            timed = dict(lm_b2_rows, verify=b2["verify_shape"])
+            timed = dict(lm_b2_rows, verify=b2["verify_shape"],
+                         external_bias_decode=b2["external_bias"])
             for label, row in timed.items():
-                rows[-1][label if label == "verify"
+                rows[-1][label if label in ("verify", "external_bias_decode")
                          else f"train_lm_{str(label)[6:]}"] = {
                     key: row[key] for key in (
                         "ms", "plain_ms", "bound_ms", "bound_by",

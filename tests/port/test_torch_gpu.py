@@ -36,7 +36,13 @@ The host KV tier: pages offloaded to pinned host memory and restored come
 back bitwise (float pools, and int8 pools with their fp32 scale rows), a
 copy queued behind a long kernel is not filed before its event completes,
 and an engine with the tier (or a priority swap) gives the tokens of one
-without it.
+without it. Disaggregation: role-split engines give the monolithic
+engine's tokens on the card, the handoff's gather and scatter move the
+CPU's bytes, and a scatter on another stream waits for its gather's
+event. Grammar-constrained decoding: B2 at the external-bias decode shape
+against its plain version (fp32 1e-4), the zero-bias arm (B2) against the
+unbiased one (B3) within the same 1e-4, a mask upload that does not wait
+for queued kernels, and constrained engine == static on the card.
 """
 
 import math
@@ -1091,3 +1097,190 @@ def test_host_tier_and_swap_on_card_keep_the_tokens(cuda, dtype):
         assert snap["kv_swaps_out"] >= 1
         assert snap["kv_swaps_in"] == snap["kv_swaps_out"]
         assert engine.pages_in_use == engine.host_pages_in_use == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8],
+                         ids=["float", "int8"])
+def test_disaggregated_handoff_on_card(cuda, dtype):
+    """Role-split engines on the card: the streams of the monolithic
+    engine on the card, token for token (whole and chunked prompts,
+    greedy and sampled); B2 only on the prefill role and the paged kernel
+    only on the decode role; both pools drain; and the handoff's gather
+    and scatter move the same bytes on the card as on the CPU."""
+    from bigdl_tpu_torch.serving import DisaggregatedEngine
+
+    gen = torch.Generator().manual_seed(0)
+    model = Transformer(128, 64, 4, 128, 2, device=cuda, generator=gen)
+    cpu_model = Transformer(128, 64, 4, 128, 2, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(2)
+    reqs = [(rs.randint(1, 128, (n,)).tolist(), knobs) for n, knobs in (
+        (3, dict(temperature=0.9, top_k=8, seed=7)), (9, {}), (2, {}),
+        (15, dict(temperature=1.1, seed=3)))]
+    cfg = dict(max_slots=4, max_len=48, max_prompt_len=16, page_size=8,
+               prefill_chunk=8, cache_dtype=dtype,
+               quantize="int8" if dtype == torch.int8 else None)
+
+    def run(engine):
+        outs = [s.result(120) for s in [
+            engine.submit(p, max_new_tokens=8, **kw) for p, kw in reqs]]
+        engine.close()
+        return outs
+
+    mono = GenerationEngine(model, **cfg)
+    mono.warmup()
+    want = run(mono)
+    dz = DisaggregatedEngine(model, **cfg)
+    dz.warmup()
+    tfa.flash_attention.launches = 0
+    tfa.paged_flash_attention.launches = 0
+    tfa.paged_flash_attention.int8_launches = 0
+    got = run(dz)
+    paged = (tfa.paged_flash_attention.int8_launches if dtype == torch.int8
+             else tfa.paged_flash_attention.launches)
+    psnap = dz.prefill_engine.metrics.snapshot()
+    dsnap = dz.decode_engine.metrics.snapshot()
+    assert got == want
+    prompt_calls = psnap["prefills"] + psnap["prefill_chunks"]
+    assert tfa.flash_attention.launches == 2 * prompt_calls > 0
+    assert paged == 2 * dsnap["decode_steps"] > 0
+    assert dz.prefill_engine.pages_in_use == dz.decode_engine.pages_in_use \
+        == 0
+    # the handoff's data movement, card against the same on the CPU
+    cpu_cache = cpu_model.init_paged_cache(9, 8, dtype)
+    card_cache = model.init_paged_cache(9, 8, dtype)
+    g = torch.Generator().manual_seed(5)
+    for cc, kc in zip(cpu_cache.values(), card_cache.values()):
+        for c, k in zip(cc, kc):
+            c.copy_(torch.randint(-127, 128, c.shape, generator=g).to(c.dtype)
+                    if c.dtype == torch.int8
+                    else torch.randn(c.shape, generator=g))
+            k.copy_(c)
+    mover = PageBlockMover()
+    for cache in (cpu_cache, card_cache):
+        mover.scatter(cache, mover.gather(cache, [3, 1, 6]), [7, 2, 4])
+    for cc, kc in zip(cpu_cache.values(), card_cache.values()):
+        for c, k in zip(cc, kc):
+            assert torch.equal(c, k.cpu())
+
+
+@pytest.mark.gpu
+def test_a_handoff_scatter_on_another_stream_waits_for_its_gather(cuda):
+    """The prefill side's gather queued behind a long kernel on its own
+    stream, the decode side's scatter on another: the scatter waits on
+    the event recorded after the gather (the payload's ``ready``), so it
+    never writes the rows before the gather has read them."""
+    cache = {"l": (torch.zeros(8, 2, 4, 16, device=cuda),
+                   torch.zeros(8, 2, 4, 16, device=cuda))}
+    dest = {"l": (torch.zeros(8, 2, 4, 16, device=cuda),
+                  torch.zeros(8, 2, 4, 16, device=cuda))}
+    mover = PageBlockMover()
+    prefill, decode = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(prefill):
+        torch.cuda._sleep(500_000_000)          # the long kernel
+        for leaf in cache["l"]:
+            leaf[3].fill_(7.0)                  # the prompt's rows
+        block = mover.gather(cache, [3])
+        ready = torch.cuda.Event()
+        ready.record()
+    with torch.cuda.stream(decode):
+        torch.cuda.current_stream().wait_event(ready)
+        mover.scatter(dest, block, [5])
+    torch.cuda.synchronize()
+    for leaf in dest["l"]:
+        assert torch.equal(leaf[5], torch.full_like(leaf[5], 7.0))
+
+
+@pytest.mark.gpu
+def test_flash_kernel_at_the_external_bias_decode_shape(cuda):
+    """B2 as the paged decode arm with an external bias drives it: q (8,
+    8, 1, 64) against gathered 256-key lanes under an (8, 1, 1, 256) bias
+    (one legal column plus the validity mask), fp32, against its plain
+    version; and through the layer, a zero bias (B2 over the gathered
+    lanes) against the unbiased arm (B3)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(8, 8, 1, 64, generator=g, device=cuda)
+    k, v = (torch.randn(8, 8, 256, 64, generator=g, device=cuda)
+            for _ in range(2))
+    pos = torch.randint(0, 256, (8,), generator=g, device=cuda)
+    cols = torch.arange(256, device=cuda)
+    legal = torch.randint(0, 256, (8,), generator=g, device=cuda) % (pos + 1)
+    bias = (torch.where(cols[None, :] == legal[:, None], 0.0, -1e9)
+            + torch.where(cols[None, :] <= pos[:, None], 0.0, -1e9)
+            )[:, None, None, :]
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v, bias)
+    assert tfa.flash_attention.launches == before + 1
+    assert (out - tfa.plain_attention(q, k, v, bias)).abs().max().item() \
+        <= TOL[torch.float32]
+    from bigdl_tpu_torch.nn.layers.attention import Attention
+
+    attn = Attention(512, 8, device=cuda,
+                     generator=torch.Generator().manual_seed(1))
+    x = torch.randn(8, 1, 512, generator=g, device=cuda)
+    pools = {"k": torch.randn(129, 8, 16, 64, generator=g, device=cuda),
+             "v": torch.randn(129, 8, 16, 64, generator=g, device=cuda),
+             "map": torch.randperm(128, device=cuda).reshape(8, 16).to(
+                 torch.int32)}
+    with torch.no_grad():
+        b3 = tfa.paged_flash_attention.launches
+        plain, _ = attn(x, cache_index=pos.to(torch.int32),
+                        paged=dict(pools))
+        assert tfa.paged_flash_attention.launches == b3 + 1
+        b2 = tfa.flash_attention.launches
+        biased, _ = attn(x, bias=torch.zeros(8, 1, 1, 256, device=cuda),
+                         cache_index=pos.to(torch.int32), paged=dict(pools))
+        assert tfa.flash_attention.launches == b2 + 1
+    assert (biased - plain).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.gpu
+def test_a_grammar_mask_upload_does_not_wait_for_queued_kernels(cuda):
+    """The engine's mask rows go up from a pinned stage without blocking:
+    with ~1 s of kernel queued, the upload returns at once, and the rows
+    land intact once the card is done."""
+    from bigdl_tpu_torch.serving.engine import _BiasStage
+
+    stage = _BiasStage(8, 8192, cuda)
+    rows = np.random.RandomState(0).randn(8, 8192).astype(np.float32)
+    stage.upload(np.zeros_like(rows))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    t0 = time.monotonic()
+    out = stage.upload(rows)
+    host_s = time.monotonic() - t0
+    assert host_s < 0.1, host_s
+    torch.cuda.synchronize()
+    assert np.array_equal(out.cpu().numpy(), rows)
+
+
+@pytest.mark.gpu
+def test_grammar_engine_on_card(cuda):
+    """A constrained engine on the card: every stream parses, the
+    engine's streams are ``static_generate``'s under the same grammar,
+    greedy and sampled, and an unconstrained neighbour's stream is its
+    stream with no grammar anywhere."""
+    from bigdl_tpu_torch.grammar import compile_grammar, regex_grammar
+
+    model = Transformer(128, 64, 4, 128, 2, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    vocab = [chr(i) if 32 <= i < 127 else f"<tok{i}>" for i in range(128)]
+    g = compile_grammar(regex_grammar("id-[0-9][0-9][0-9]"), vocab, eos_id=3)
+    cfg = dict(max_slots=4, max_len=48, page_size=8, eos_id=3)
+    specs = [([5, 6, 7], g, {}), ([9, 4], g, dict(temperature=0.9, seed=2)),
+             ([8, 8, 1], None, {})]
+    engine = GenerationEngine(model, **cfg)
+    engine.warmup()
+    outs = [s.result(120) for s in [
+        engine.submit(p, max_new_tokens=12, grammar=gr, **kw)
+        for p, gr, kw in specs]]
+    free = engine.generate([8, 8, 1], max_new_tokens=12, timeout=120)
+    engine.close()
+    assert g.matches(outs[0]) and g.matches(outs[1])
+    assert outs[2] == free
+    static, _ = static_generate(
+        model, [(p, 12) for p, _, _ in specs], max_slots=4, max_len=48,
+        page_size=8, eos_id=3,
+        sampling=[dict(kw, grammar=gr) for _, gr, kw in specs])
+    assert static == outs

@@ -464,7 +464,8 @@ def test_kv_tier_metrics_rows_follow_the_prefix_block():
     snap = m.snapshot()
     keys = list(snap)
     at = keys.index("prefill_chunks_skipped") + 1
-    assert keys[at:] == ["kv_offload_pages", "kv_restore_pages",
-                         "kv_offload_dropped", "kv_swaps_out", "kv_swaps_in",
-                         "host_pages", "host_bytes", "host_pages_peak"]
-    assert [snap[k] for k in keys[at:]] == [3, 2, 1, 1, 1, 1, 100, 5]
+    assert keys[at:at + 8] == ["kv_offload_pages", "kv_restore_pages",
+                               "kv_offload_dropped", "kv_swaps_out",
+                               "kv_swaps_in", "host_pages", "host_bytes",
+                               "host_pages_peak"]
+    assert [snap[k] for k in keys[at:at + 8]] == [3, 2, 1, 1, 1, 1, 100, 5]

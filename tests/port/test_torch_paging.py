@@ -136,8 +136,8 @@ def test_metrics_quantized_serving_gauges():
     assert (snap["kv_bytes_in_use"], snap["kv_cache_dtype"],
             snap["quantized_gemms"]) == (4096, "int8", 25)
     # the quantized block follows the page gauges; the sampled,
-    # speculative, prefix-cache and KV-tier rows of later slices append
-    # after it
+    # speculative, prefix-cache, KV-tier, ITL and grammar rows of later
+    # slices append after it
     keys = list(snap)
     at = keys.index("pages_peak") + 1
     assert keys[at:at + 3] == ["kv_bytes_in_use", "kv_cache_dtype",
@@ -148,7 +148,9 @@ def test_metrics_quantized_serving_gauges():
         "prefix_hit_rate", "shared_pages", "prefill_chunks_skipped",
         "kv_offload_pages", "kv_restore_pages", "kv_offload_dropped",
         "kv_swaps_out", "kv_swaps_in", "host_pages", "host_bytes",
-        "host_pages_peak"]
+        "host_pages_peak"] + ["itl_ms", "itl_samples", "failed",
+        "constrained_streams", "grammar_compile_cache_hits",
+        "masked_vocab_frac"]
 
 
 def test_metrics_reservoir_is_bounded_and_replays():

@@ -448,10 +448,24 @@ def test_probabilities_match_jax_to_the_last_bits_only():
 
 
 def test_a_logit_bias_is_not_ported():
-    logits = torch.zeros(2, 8)
-    args = (np.zeros(2), np.zeros(2), np.ones(2))
+    """The logit bias (the grammar mask) was the one sampling argument
+    that raised until constrained decoding was ported; it now applies to
+    the fp32 logits before everything else: a zero bias changes no bit,
+    and a -1e9 mask leaves only the legal token to pick, greedy or
+    sampled (``test_torch_grammar.py`` holds it against JAX)."""
+    rs = np.random.RandomState(5)
+    logits = torch.from_numpy(rs.randn(2, 8).astype(np.float32))
+    args = (np.asarray([0.0, 1.0], np.float32), np.zeros(2), np.ones(2))
     keys = np.zeros((2, 2), np.uint32)
-    with pytest.raises(NotImplementedError, match="A.5.6"):
-        sampling.sample_tokens(logits, *args, keys, bias=np.zeros((2, 8)))
-    with pytest.raises(NotImplementedError, match="grammar"):
-        sampling.filtered_probs(logits, *args, bias=np.zeros((2, 8)))
+    zero = np.zeros((2, 8), np.float32)
+    assert torch.equal(
+        sampling.sample_tokens(logits, *args, keys, bias=zero)[0],
+        sampling.sample_tokens(logits, *args, keys)[0])
+    assert torch.equal(sampling.filtered_probs(logits, *args, bias=zero),
+                       sampling.filtered_probs(logits, *args))
+    mask = np.full((2, 8), -1e9, np.float32)
+    mask[:, 5] = 0.0
+    assert sampling.sample_tokens(logits, *args, keys,
+                                  bias=mask)[0].tolist() == [5, 5]
+    assert sampling.filtered_probs(logits, *args,
+                                   bias=mask)[:, 5].tolist() == [1.0, 1.0]

@@ -473,9 +473,17 @@ def test_speculate_knob_validation(lm):
     with pytest.raises(ValueError, match="quantize"):
         GenerationEngine(tm, device="cpu", quantize="int8", kernels=kernels,
                          speculate=(td, 2))
-    with pytest.raises(NotImplementedError, match="A.5.6"):
-        kernels.draft(None, [0], [0], [[0]], [0.0], [0], [1.0],
-                      np.zeros((1, 2), np.uint32), [0], bias=np.zeros(64))
+    # the grammar mask reaches the draft's sampler (it raised until
+    # constrained decoding was ported): with one legal token a slot
+    # proposes it, greedy or sampled
+    dcache = td.init_paged_cache(2, PAGE, torch.float32)
+    mask = np.full((1, 64), -1e9, np.float32)
+    mask[0, 17] = 0.0
+    for temperature in (0.0, 1.0):
+        toks, dists, dcache = kernels.draft(
+            dcache, [0], [0], [[0]], [temperature], [0], [1.0],
+            np.zeros((1, 2), np.uint32), [0], bias=mask)
+        assert toks.tolist() == [17] and dists[0, 17].item() == 1.0
 
 
 def test_speculative_metrics_rows_append_after_existing():
@@ -495,14 +503,17 @@ def test_speculative_metrics_rows_append_after_existing():
         "tokens_out", "ttft_ms", "prefill_chunks", "pages_in_use",
         "pages_total", "pages_peak", "kv_bytes_in_use", "kv_cache_dtype",
         "quantized_gemms"]
-    # the prefix-cache and KV-tier rows append after the speculative block
+    # the prefix-cache, KV-tier, ITL and grammar rows append after the
+    # speculative block
     assert keys[keys.index("quantized_gemms") + 1:] == [
         "sampled_tokens", "draft_tokens", "accepted_tokens",
         "acceptance_rate", "verify_steps"] + ["prefix_hits", "prefix_misses",
         "prefix_hit_rate", "shared_pages", "prefill_chunks_skipped",
         "kv_offload_pages", "kv_restore_pages", "kv_offload_dropped",
         "kv_swaps_out", "kv_swaps_in", "host_pages", "host_bytes",
-        "host_pages_peak"]
+        "host_pages_peak"] + ["itl_ms", "itl_samples", "failed",
+        "constrained_streams", "grammar_compile_cache_hits",
+        "masked_vocab_frac"]
     assert snap["draft_tokens"] == 8 and snap["accepted_tokens"] == 5
     assert snap["acceptance_rate"] == pytest.approx(5 / 8)
     assert snap["verify_steps"] == 1 and snap["sampled_tokens"] == 2
