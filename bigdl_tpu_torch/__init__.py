@@ -12,7 +12,11 @@ Ported so far: the paged generation engine serving a decoder-only
 ``Transformer`` (``serving.GenerationEngine``, ``serving.static_generate``)
 with kernels B2 (flash-attention forward) and B3 (paged decode attention),
 greedy or sampled (``ops.sampling``, threefry-keyed per request), plain or
-speculative (``speculate=(draft_model, k)``), float or int8;
+speculative (``speculate=(draft_model, k)``), float or int8, with a
+prefix cache, a host KV tier, prefill/decode roles, grammar masks and
+async scheduling, observed through ``obs`` (step timeline, request
+traces, a metrics registry served as Prometheus text) and exercised
+through ``faults`` (fault sites, a stall watchdog);
 single-device training (``optim.optimizer``, ``optim.SGD``,
 ``dataset.DataSet.tensors``) of the ResNets in ``models.resnet``, with
 kernel B1 (the residual add) under ``BIGDL_RESIDUAL_ADD=pallas``, and of

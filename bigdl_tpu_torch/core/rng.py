@@ -51,6 +51,15 @@ def element_seed(base_seed: int, index: int, stream: int = 0) -> int:
     return x >> 1  # non-negative, < 2**63
 
 
+def uniform01(seed: int, index: int, stream: int = 0) -> float:
+    """Deterministic uniform draw in [0, 1) from the splitmix64 stream keyed
+    on ``(seed, index, stream)``: :func:`element_seed` scaled to the unit
+    interval. Fault plans draw their rate decisions and backoff jitter
+    from it, and the metrics' reservoirs their replacement slots, so all
+    of them replay exactly."""
+    return element_seed(seed, index, stream) / float(1 << 63)
+
+
 def np_rng(seed: int, index: int = 0, stream: int = 0) -> np.random.Generator:
     """``np.random.default_rng(seed)``, or with ``index``/``stream`` an
     independent keyed sub-stream through :func:`element_seed`."""

@@ -85,10 +85,12 @@ def _any_sampled(temperature) -> bool:
 
 
 def _filters(temperature, top_k, top_p, vocab: int, device,
-             u=None) -> Tuple[torch.Tensor, ...]:
+             u=None, upload=None) -> Tuple[torch.Tensor, ...]:
     """The per-slot filter arguments on ``device``, in one copy: the safe
     temperature, the effective top-k and top-p, the sampled flag and,
-    given ``u``, the uniforms (JAX's ``where`` clauses, on the host)."""
+    given ``u``, the uniforms (JAX's ``where`` clauses, on the host).
+    ``upload`` (a numpy array -> device tensor function), when given,
+    makes the copy."""
     t = _host(temperature, np.float32)
     k = _host(top_k, np.int64)
     p = _host(top_p, np.float32)
@@ -99,7 +101,8 @@ def _filters(temperature, top_k, top_p, vocab: int, device,
     if u is not None:
         rows.append(_host(u, np.float32))
     host = np.stack([np.asarray(r, np.float32) for r in rows])
-    out = torch.from_numpy(host).to(device)
+    out = (upload(host) if upload is not None
+           else torch.from_numpy(host).to(device))
     return (out[0], out[1].long(), out[2], out[3] > 0) + tuple(out[4:])
 
 
@@ -113,16 +116,19 @@ def _sorted_keep(scaled, probs_sorted, k_eff, p_eff):
         ((csum - probs_sorted) < p_eff[:, None]) | (ranks == 0))
 
 
-def sample_with_uniforms(logits, temperature, top_k, top_p,
-                         u) -> torch.Tensor:
+def sample_with_uniforms(logits, temperature, top_k, top_p, u,
+                         upload=None) -> torch.Tensor:
     """One token per slot from ``logits`` (S, V) given each slot's uniform
-    draw ``u`` (S,) — :func:`sample_tokens` after its key split."""
+    draw ``u`` (S,) — :func:`sample_tokens` after its key split. The
+    parameters and ``u`` are host values; ``upload``, when given, copies
+    the filter rows to the device (see :func:`sample_tokens`)."""
     logits = logits.float()
     greedy = greedy_tokens(logits)
     if not _any_sampled(temperature):
         return greedy
     t_safe, k_eff, p_eff, sampled, u = _filters(
-        temperature, top_k, top_p, logits.shape[-1], logits.device, u)
+        temperature, top_k, top_p, logits.shape[-1], logits.device, u,
+        upload)
     scaled = logits / t_safe[:, None]
     order = torch.argsort(-scaled, dim=-1, stable=True)
     probs = torch.softmax(torch.gather(scaled, -1, order), dim=-1)
@@ -139,17 +145,21 @@ def sample_with_uniforms(logits, temperature, top_k, top_p,
 
 
 def sample_tokens(logits, temperature, top_k, top_p, key_data,
-                  bias=None) -> Tuple[torch.Tensor, np.ndarray]:
+                  bias=None, upload=None) -> Tuple[torch.Tensor, np.ndarray]:
     """Sample one token per slot. ``logits`` (S, V) on any device; the
     parameters and ``key_data`` (S, 2) uint32 are host arrays. Returns
     ``(tokens (S,) int32 on the logits' device, new key_data (S, 2))``.
     Exactly one split per slot per call, greedy slots included, so token
     ``i`` of a stream draws from split ``i`` of its request key.
-    ``bias`` (S, V), optional, is added to the fp32 logits first."""
+    ``bias`` (S, V), optional, is added to the fp32 logits first.
+    ``upload`` (a function from a numpy array to a tensor on the logits'
+    device), when given, is how the sampled branch's per-slot rows reach
+    the device: a pinned, non-blocking copy keeps the call from waiting
+    for the kernels queued before it."""
     pairs = split_keys(key_data)                      # (S, 2, 2)
     u = uniform_keys(pairs[:, 1])
     return (sample_with_uniforms(biased_logits(logits, bias), temperature,
-                                 top_k, top_p, u),
+                                 top_k, top_p, u, upload),
             pairs[:, 0].copy())
 
 

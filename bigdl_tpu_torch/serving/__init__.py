@@ -1,6 +1,7 @@
 """Serving tier: paged continuous-batching generation, greedy or sampled,
-plain or speculative, grammar-constrained or free, with a prefix cache, a
-host KV tier and prefill/decode disaggregation."""
+plain or speculative, grammar-constrained or free, scheduled synchronously
+or async, with a prefix cache, a host KV tier and prefill/decode
+disaggregation."""
 
 from bigdl_tpu_torch.serving.batcher import bucket_sizes_for
 from bigdl_tpu_torch.serving.disagg import (

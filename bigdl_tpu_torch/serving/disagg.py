@@ -140,7 +140,9 @@ class DisaggregatedEngine:
     ``**shared`` are engine arguments for both roles, with these keys
     redirected: ``prefix_cache``, ``cache_aware_admission`` and
     ``host_pages`` go to the prefill role only (the prefix index lives
-    where prompt pages are written); ``metrics`` goes to the decode role,
+    where prompt pages are written), and so does ``tracer`` (a request's
+    trace covers its queue wait, page reservation and prompt calls);
+    ``metrics`` goes to the decode role,
     whose metrics are the front door's (``dz.metrics is
     dz.decode_engine.metrics``: ITL, served, failed), while the prefill
     engine keeps its own (TTFT of the prompt calls). ``prefill_overrides``
@@ -160,6 +162,7 @@ class DisaggregatedEngine:
                  decode_overrides: Optional[dict] = None, **shared):
         shared.pop("role", None)
         metrics = shared.pop("metrics", None)
+        tracer = shared.pop("tracer", None)
         prefix = bool(shared.pop("prefix_cache", False))
         cam = bool(shared.pop("cache_aware_admission", False))
         host_pages = shared.pop("host_pages", None)
@@ -175,7 +178,7 @@ class DisaggregatedEngine:
         if remote_prefill is None:
             prefill_kw = dict(shared)
             prefill_kw.update(prefix_cache=prefix,
-                              cache_aware_admission=cam)
+                              cache_aware_admission=cam, tracer=tracer)
             if host_pages is not None:
                 prefill_kw["host_pages"] = host_pages
             prefill_kw.update(prefill_overrides or {})

@@ -83,13 +83,42 @@ before the sampler), advances the state on the host per emitted token,
 and fails a stream that cannot parse with ``GrammarViolation``. A step
 with no constrained slot passes no mask at all.
 
-Async scheduling, tensor parallelism, faults and tracing come with later
-slices.
+Observability: every scheduler iteration lands one row in
+``engine.timeline`` (:class:`~bigdl_tpu_torch.obs.timeline.StepTimeline`:
+host time against time inside the kernel-call regions, the prefill /
+decode / verify split, queue depth, occupancy); ``tracer=obs.Tracer()``
+gives every request a span tree (queue wait, page reservation, prompt
+chunks, counted decode steps or verify rounds, outcome) on its stream;
+``profile_dir`` records a ``torch.profiler`` trace of the first
+``profile_iters`` iterations. The engine fires the fault sites of
+:data:`~bigdl_tpu_torch.faults.SITES` (``engine.decode``,
+``engine.prefill``, ``engine.prefix_attach``, ``engine.page_handoff``,
+``engine.draft``, ``engine.verify``, ``kv.offload``, ``kv.restore``), and
+``stall_timeout`` arms a watchdog around every iteration: a step that
+makes no progress for that long fails every stream with
+:class:`~bigdl_tpu_torch.faults.StallError` and the engine refuses new
+submits.
+
+Async scheduling: ``async_scheduling=True`` lands step N's tokens,
+dispatches step N+1 at once, and does the host work of step N (delivery,
+retirement, admission, prompt chunks, the host tier's copy poll) while
+N+1 runs on the device. Every input of a step goes up from a pinned
+staging ring without blocking, and the step's tokens come back into a
+pinned buffer behind a CUDA event, so nothing between the step's first
+kernel and its ticket waits for the device. Decisions lag one step: a
+slot that finishes rides the step already in flight, whose token for it
+is discarded. The streams are the synchronous engine's, bit for bit. A
+speculative engine keeps the synchronous path (the verify round's accept
+count is a host decision the next round's first draft step needs).
+
+Tensor parallelism comes with a later slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import queue as _queue
 import threading
 import time
@@ -101,12 +130,16 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from bigdl_tpu_torch import faults
 from bigdl_tpu_torch.core.device import DeviceLike, resolve_device
 from bigdl_tpu_torch.core.rng import request_seed, threefry_key_data
+from bigdl_tpu_torch.faults import StallError, Watchdog
 from bigdl_tpu_torch.nn.quantized import (
     count_quantized_gemms,
     quantize_for_serving,
 )
+from bigdl_tpu_torch.obs.timeline import StepTimeline
+from bigdl_tpu_torch.obs.trace import submit_trace
 from bigdl_tpu_torch.ops.sampling import (
     EXTRA_STREAM,
     biased_logits,
@@ -175,57 +208,124 @@ def _masked(bias) -> dict:
     return {} if bias is None else {"bias": bias}
 
 
-class _BiasStage:
-    """Grammar mask rows on their way to the device. On a card the rows
-    are staged in a pinned host buffer allocated once and copied without
-    blocking (a copy from pageable memory would make the host wait for
-    every kernel queued before it); the buffer is refilled only after the
-    last copy's event has completed. On the CPU the rows are copied into
-    a tensor of their own."""
+class _HostStage:
+    """The pinned staging ring every host input of a kernel call goes up
+    through: token ids, positions, page maps, the sampler's per-slot
+    filter rows and uniforms, and grammar mask rows.
 
-    def __init__(self, rows: int, vocab: int, device: torch.device):
+    Each kernel call runs inside :meth:`call`, which takes the next slot
+    of the ring and yields ``put``: ``put(array)`` writes the numpy array
+    into the slot's pinned buffer and copies it to the device with
+    ``non_blocking=True``, returning the device tensor. Leaving the call
+    records the slot's CUDA event; a slot is written again only after
+    that event has completed. A copy from pageable memory would make the
+    host wait for every kernel queued before it; these never do, as long
+    as the ring is deeper than the calls one scheduler iteration makes.
+    On the CPU ``put`` returns the array as a tensor (the computation
+    runs before the call returns)."""
+
+    _ALIGN = 64
+
+    def __init__(self, device: torch.device, slot_bytes: int, depth: int):
         self.device = device
         self.cuda = device.type == "cuda"
-        self._stage = torch.empty((rows, vocab), dtype=torch.float32,
-                                  pin_memory=self.cuda)
-        self._event = None
+        self.slot_bytes = int(slot_bytes)
+        self._i = -1
+        self._off = 0
+        if self.cuda:
+            # pin_memory raises where pinned memory is unavailable: a CUDA
+            # engine never falls back to pageable copies
+            self._bufs = [torch.empty(self.slot_bytes, dtype=torch.uint8,
+                                      pin_memory=True)
+                          for _ in range(depth)]
+            self._events = [torch.cuda.Event() for _ in range(depth)]
+            self._used = [False] * depth
 
-    def upload(self, rows: np.ndarray) -> torch.Tensor:
-        """``rows`` (n, V) float32 as a tensor on the device."""
+    @contextlib.contextmanager
+    def call(self):
+        """Around one kernel call: takes the next slot (waiting for its
+        last copies if they have not run) and yields ``put``."""
         if not self.cuda:
-            return torch.tensor(rows, dtype=torch.float32)
-        if self._event is not None:
-            self._event.synchronize()   # the last copy has read the stage
-        stage = self._stage[:rows.shape[0]]
-        stage.numpy()[...] = rows
-        out = stage.to(self.device, non_blocking=True)
-        self._event = torch.cuda.Event()
-        self._event.record()
-        return out
+            yield _cpu_put
+            return
+        self._i = (self._i + 1) % len(self._bufs)
+        if self._used[self._i]:
+            self._events[self._i].synchronize()
+        self._off = 0
+        try:
+            yield self._put
+        finally:
+            self._events[self._i].record(
+                torch.cuda.current_stream(self.device))
+            self._used[self._i] = True
+
+    def upload(self, a) -> torch.Tensor:
+        """One array through a slot of its own."""
+        with self.call() as put:
+            return put(a)
+
+    def _put(self, a) -> torch.Tensor:
+        a = np.ascontiguousarray(a)
+        off = -(-self._off // self._ALIGN) * self._ALIGN
+        if off + a.nbytes > self.slot_bytes:
+            raise ValueError(
+                f"staging slot of {self.slot_bytes} bytes cannot hold "
+                f"{off + a.nbytes} bytes of step inputs")
+        host = self._bufs[self._i][off:off + a.nbytes].view(
+            torch.from_numpy(a).dtype).view(a.shape)
+        host.numpy()[...] = a
+        self._off = off + a.nbytes
+        return host.to(self.device, non_blocking=True)
+
+
+def _cpu_put(a) -> torch.Tensor:
+    # a snapshot, as the card's staged copy is
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _stage_bytes(max_slots: int, pages_per_slot: int, vocab: Optional[int],
+                 prompt_width: int) -> int:
+    """Bytes one kernel call's inputs take in the staging ring, alignment
+    included: a decode step's tokens, positions, page map, five filter
+    rows and mask rows, or a prompt call's page row, tokens, filter row
+    and mask row, whichever is larger (every element 4 bytes)."""
+    rows = max_slots * (2 + pages_per_slot + 5) + max_slots * (vocab or 0)
+    prompt = pages_per_slot + prompt_width + 5 + (vocab or 0)
+    return 4 * max(rows, prompt) + 8 * _HostStage._ALIGN
 
 
 class _PagedKernels:
     """What both kernel sets share: the target ``model``, its device, and
-    the non-final prompt chunk."""
+    the non-final prompt chunk.
+
+    Every method that takes ``upload`` moves its host inputs to the
+    device through it: a function from a numpy array to a device tensor
+    (the engine passes its pinned staging ring's ``put``). Without one,
+    host inputs are copied the plain way, which on a card waits for the
+    kernels queued before the copy."""
 
     def __init__(self, model):
         self.model = model
         self.device = next(model.parameters()).device
 
-    def _ids(self, a) -> torch.Tensor:
+    def _ids(self, a, upload=None) -> torch.Tensor:
         """Host ids (numpy or lists) copied to the model's device as int32;
-        a device tensor (a draft step's tokens) stays where it is."""
+        a device tensor (a draft step's tokens, a staged input) stays
+        where it is."""
         if isinstance(a, torch.Tensor):
             return a.to(self.device, torch.int32)
-        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+        a = np.asarray(a, np.int32)
+        if upload is not None:
+            return upload(a)
+        return torch.as_tensor(a, device=self.device)
 
     @torch.inference_mode()
     def chunk(self, cache, pages, tokens, start: int, length: int,
-              trash: int):
+              trash: int, upload=None):
         """Non-final prompt chunk: K/V writes only. -> cache."""
         return self.model.prefill_paged(
-            cache, self._ids(pages), self._ids(tokens), int(start),
-            int(length), int(trash), need_logits=False)
+            cache, self._ids(pages, upload), self._ids(tokens, upload),
+            int(start), int(length), int(trash), need_logits=False)
 
 
 class PagedDecodeKernels(_PagedKernels):
@@ -238,35 +338,37 @@ class PagedDecodeKernels(_PagedKernels):
     (``ops.sampling.sample_tokens``). ``bias`` (the grammar mask: ``(1,
     V)`` for ``prefill``, ``(S, V)`` for ``decode``), optional, is added
     to the fp32 logits before the sampler; the model's attention never
-    sees it."""
+    sees it. The keys split on the host, so a step's new keys are host
+    words as soon as the call returns."""
 
     @torch.inference_mode()
     def prefill(self, cache, pages, tokens, start: int, length: int,
                 trash: int, temperature: float = 0.0, top_k: int = 0,
-                top_p: float = 1.0, key=None, bias=None):
+                top_p: float = 1.0, key=None, bias=None, upload=None):
         """Final (or only) chunk of one prompt: writes its K/V rows and
         samples the first generated token under ``key`` (2,). Returns
         ``(token (device int32 scalar), new key (1, 2), cache)``."""
         key = np.zeros(2, np.uint32) if key is None else key
         logits, cache = self.model.prefill_paged(
-            cache, self._ids(pages), self._ids(tokens), int(start),
-            int(length), int(trash))
+            cache, self._ids(pages, upload), self._ids(tokens, upload),
+            int(start), int(length), int(trash))
         toks, new_key = sample_tokens(
             logits[None], [temperature], [top_k], [top_p],
-            np.asarray(key, np.uint32).reshape(1, 2), bias)
+            np.asarray(key, np.uint32).reshape(1, 2), bias, upload)
         return toks[0], new_key, cache
 
     @torch.inference_mode()
     def decode(self, cache, tokens, positions, page_map, temps, top_ks,
-               top_ps, keys, bias=None):
+               top_ps, keys, bias=None, upload=None):
         """One decode step for every slot with its sampling parameters and
         key (host arrays (S,) and (S, 2)) -> ``(next token per slot (S,)
-        device int32, new keys (S, 2), cache)``."""
+        device int32, new keys (S, 2) host words, cache)``. With
+        ``upload`` nothing in the call waits for the device."""
         logits, cache = self.model.decode_step_paged(
-            cache, self._ids(tokens), self._ids(positions),
-            self._ids(page_map))
+            cache, self._ids(tokens, upload), self._ids(positions, upload),
+            self._ids(page_map, upload))
         toks, new_keys = sample_tokens(logits, temps, top_ks, top_ps, keys,
-                                       bias)
+                                       bias, upload)
         return toks, new_keys, cache
 
 
@@ -313,14 +415,14 @@ class SpeculativeKernels(_PagedKernels):
     @torch.inference_mode()
     def prefill(self, cache, pages, tokens, start: int, length: int,
                 trash: int, temperature: float = 0.0, top_k: int = 0,
-                top_p: float = 1.0, key=None, bias=None):
+                top_p: float = 1.0, key=None, bias=None, upload=None):
         """Final (or only) chunk of one prompt through the target; the
         first token is the EXTRA_STREAM draw at output position 0 of
         ``key``. -> ``(token (device int32 scalar), cache)``."""
         key = np.zeros(2, np.uint32) if key is None else key
         logits, cache = self.model.prefill_paged(
-            cache, self._ids(pages), self._ids(tokens), int(start),
-            int(length), int(trash))
+            cache, self._ids(pages, upload), self._ids(tokens, upload),
+            int(start), int(length), int(trash))
         tok, _ = position_sample(
             logits[None], [temperature], [top_k], [top_p],
             np.asarray(key, np.uint32).reshape(1, 2), EXTRA_STREAM, [0],
@@ -329,12 +431,12 @@ class SpeculativeKernels(_PagedKernels):
 
     @torch.inference_mode()
     def draft_write(self, dcache, pages, tokens, start: int, length: int,
-                    trash: int):
+                    trash: int, upload=None):
         """A prompt chunk through the draft, final or not (the draft never
         samples during prefill). -> draft cache."""
         return self.draft_model.prefill_paged(
-            dcache, self._ids(pages), self._ids(tokens), int(start),
-            int(length), int(trash), need_logits=False)
+            dcache, self._ids(pages, upload), self._ids(tokens, upload),
+            int(start), int(length), int(trash), need_logits=False)
 
     @torch.inference_mode()
     def draft(self, dcache, tokens, positions, page_map, temps, top_ks,
@@ -378,7 +480,9 @@ class GenerationStream:
     :meth:`add_done_callback` runs a function once the stream finishes
     (at once if it has). ``t_first`` / ``t_done`` are the monotonic times
     of the first token and the finish; ``ttft_s`` is submit to first
-    token."""
+    token. ``trace`` is the request's
+    :class:`~bigdl_tpu_torch.obs.trace.RequestTrace` when the engine has a
+    tracer, else None."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -391,6 +495,9 @@ class GenerationStream:
         self.t_submit = time.monotonic()
         self.t_first: Optional[float] = None
         self.t_done: Optional[float] = None
+        # the request's trace (obs.RequestTrace); riding the stream, it
+        # needs no signature of its own anywhere the stream is passed
+        self.trace = None
 
     def _push(self, token: int, now: Optional[float] = None) -> None:
         with self._lock:
@@ -514,12 +621,13 @@ class _SlotState:
     __slots__ = ("req", "last_token", "position", "generated", "phase",
                  "pages", "page_row", "prefill_pos", "draft_pages",
                  "dpage_row", "cache_version", "t_last", "grammar_state",
-                 "grammar_error")
+                 "grammar_error", "t_admit")
 
     def __init__(self, req: _GenRequest, pages: List[int], page_row,
                  pad_id: int, draft_pages: Optional[List[int]] = None,
-                 dpage_row=None):
+                 dpage_row=None, t_admit: Optional[float] = None):
         self.req = req
+        self.t_admit = time.monotonic() if t_admit is None else t_admit
         self.last_token = pad_id
         self.position = 0          # cache row the NEXT token writes
         self.generated = 0
@@ -533,6 +641,36 @@ class _SlotState:
         self.t_last = 0.0          # when its last token was pushed
         self.grammar_state: Optional[int] = None   # automaton state
         self.grammar_error: Optional[GrammarViolation] = None
+
+
+class _StepTicket:
+    """One in-flight async decode step: what the landing needs.
+    ``parts`` pins the ``(slot, _SlotState)`` pairs the step computed for:
+    at the landing, a participant whose slot no longer maps to the same
+    state (retired, swapped out, re-admitted) is skipped, and its token is
+    the discarded rider token of the one-step lag. ``positions`` are the
+    dispatched (clamped) positions, ``keys`` every slot's key after the
+    step's split (host words), ``toks`` the tokens (a pinned host buffer
+    the device fills behind ``event`` on a card; the step's own tensor on
+    the CPU)."""
+
+    __slots__ = ("parts", "positions", "toks", "keys", "event")
+
+    def __init__(self, parts: List[Tuple[int, "_SlotState"]],
+                 positions: np.ndarray, toks: torch.Tensor,
+                 keys: np.ndarray, event):
+        self.parts = parts
+        self.positions = positions
+        self.toks = toks
+        self.keys = keys
+        self.event = event
+
+    def land(self) -> np.ndarray:
+        """Wait for the step's tokens (the only device wait of an async
+        iteration) and return them as host int32 (S,)."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.toks.numpy().copy()
 
 
 class _Core:
@@ -585,12 +723,28 @@ def _fail_streams(core: _Core, error: BaseException,
         engine._report_pages()
     for r in reqs:
         r.stream._finish(error)
+        tr = r.stream.trace
+        if tr is not None and not tr.done:
+            tr.finish(outcome="failed", error=type(error).__name__)
 
 
 def _engine_loop(engine_ref: "weakref.ref[GenerationEngine]",
                  core: _Core) -> None:
     """Loop thread body. Holds only a weak ref to the engine while idle,
-    so an engine whose owner forgot ``close()`` is collectable."""
+    so an engine whose owner forgot ``close()`` is collectable (an engine
+    with a stall watchdog must be closed: the watchdog holds it)."""
+    try:
+        _engine_loop_body(engine_ref, core)
+    finally:
+        # the loop retires the watchdog: close() leaves it to a loop
+        # still stuck in a step past its join timeout
+        engine = engine_ref()
+        if engine is not None and engine._watchdog is not None:
+            engine._watchdog.close(timeout=0)
+
+
+def _engine_loop_body(engine_ref: "weakref.ref[GenerationEngine]",
+                      core: _Core) -> None:
     while True:
         with core.lock:
             idle = not core.pending and not core.active and not core.closed
@@ -612,6 +766,15 @@ def _engine_loop(engine_ref: "weakref.ref[GenerationEngine]",
                 "generation engine was garbage-collected with requests in "
                 "flight"))
             return
+        if engine._failed is not None:
+            # the watchdog fired while a step was stuck and has failed the
+            # streams; the loop thread, the only one that may touch slots
+            # and pages, reconciles them now and stops
+            _fail_streams(core, engine._failed, engine)
+            return
+        wd = engine._watchdog
+        if wd is not None:
+            wd.arm("decode step")
         try:
             engine._step()
         except Exception as e:
@@ -621,6 +784,9 @@ def _engine_loop(engine_ref: "weakref.ref[GenerationEngine]",
             log.exception("generation engine step failed; engine stopped")
             _fail_streams(core, e, engine)
             return
+        finally:
+            if wd is not None:
+                wd.disarm()
         del engine
 
 
@@ -660,6 +826,18 @@ class GenerationEngine:
     ``submit(grammar=...)`` constrains a stream to a grammar.
     ``metrics`` is the sink the engine reports to (a fresh
     :class:`ServingMetrics` by default).
+
+    ``tracer`` (an ``obs.Tracer``) gives every request a trace on its
+    stream (None, the default, costs one ``is None`` test a request and an
+    attribute load a step); ``timeline_capacity`` bounds the always-on
+    ``engine.timeline``; ``profile_dir`` records a ``torch.profiler``
+    trace of the first ``profile_iters`` iterations there
+    (``export_chrome_trace``). ``stall_timeout`` (seconds) watches every
+    iteration: one that makes no progress for that long fails every
+    stream with ``StallError`` and stops the engine (such an engine must
+    be closed). ``async_scheduling=True`` overlaps the host's work with
+    the decode step in flight (not for a speculative engine, which keeps
+    the synchronous path); the streams are the same.
     """
 
     def __init__(self, model, *, device: DeviceLike = None,
@@ -677,7 +855,13 @@ class GenerationEngine:
                  cache_aware_admission: bool = False,
                  host_pages: Optional[int] = None,
                  role: str = "both",
-                 metrics: Optional[ServingMetrics] = None):
+                 metrics: Optional[ServingMetrics] = None,
+                 stall_timeout: Optional[float] = None,
+                 tracer=None,
+                 timeline_capacity: int = 512,
+                 profile_dir: Optional[str] = None,
+                 profile_iters: int = 10,
+                 async_scheduling: bool = False):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if max_len < 2:
@@ -789,8 +973,15 @@ class GenerationEngine:
         vocab = getattr(model, "vocab_size", None)
         self._bias = (np.zeros((self.max_slots, int(vocab)), np.float32)
                       if vocab else None)
-        self._bias_stage = (_BiasStage(self.max_slots, int(vocab),
-                                       self.device) if vocab else None)
+        # every kernel call's host inputs go up through this ring; one
+        # iteration makes at most a prompt call per slot and a decode step
+        # (or k+1 draft steps), so a slot is refilled only after its
+        # copies have run
+        self._stage = _HostStage(
+            self.device,
+            _stage_bytes(self.max_slots, ppn, vocab,
+                         max(self.prefill_chunk, self.prompt_buckets[-1])),
+            depth=self.max_slots + self.spec_k + 3)
         # the grammar keys this engine has served: a submit whose key is
         # here reused the compiled automaton (grammar_compile_cache_hits)
         self._grammars: set = set()
@@ -845,8 +1036,39 @@ class GenerationEngine:
         elif role == "decode":
             self._copier = HostCopier(self._cache, slots=0, slot_pages=ppn)
         self._report_pages()
+        # the observability plane: an optional per-request tracer, the
+        # always-on step timeline, an optional profiler bracket
+        self.tracer = tracer
+        self.timeline = StepTimeline(timeline_capacity)
+        self._profile_dir = profile_dir
+        self._profile_iters = int(profile_iters)
+        self._profile_state = 0   # 0 armed or off, 1 recording, 2 done
+        self._profile_count = 0
+        self._profiler = None
         self._failed: Optional[BaseException] = None
         self._core = _Core(self.max_slots)
+        self._watchdog: Optional[Watchdog] = None
+        if stall_timeout is not None:
+            self._watchdog = Watchdog(f"engine@{id(self):x}", stall_timeout,
+                                      self._on_stall)
+        # async scheduling: the live per-slot dispatch inputs (arming and
+        # landing write them; a dispatch stages a copy), the rows armed
+        # since the last dispatch (a landing must not fold a stale ticket
+        # over them), the ticket in flight, and the pinned buffer its
+        # tokens land in
+        self.async_scheduling = bool(async_scheduling)
+        self._async = self.async_scheduling and not self.speculative
+        self._inflight: Optional[_StepTicket] = None
+        self._step_tokens = np.zeros((self.max_slots,), np.int32)
+        self._step_positions = np.zeros((self.max_slots,), np.int32)
+        self._armed_dirty: set = set()
+        self._land_event = None
+        self._land_tokens: Optional[torch.Tensor] = None
+        if self._async and self.device.type == "cuda":
+            self._land_tokens = torch.empty((self.max_slots,),
+                                            dtype=torch.int32,
+                                            pin_memory=True)
+            self._land_event = torch.cuda.Event()
         weakref.finalize(self, _notify_core, self._core)
         self._thread = threading.Thread(
             target=_engine_loop, args=(weakref.ref(self), self._core),
@@ -920,6 +1142,12 @@ class GenerationEngine:
                 f"{self.num_pages}; shrink the prompt/max_new_tokens or "
                 f"grow num_pages")
         stream = GenerationStream()
+        # the trace attaches before the request can reach the loop thread
+        # (admission reads stream.trace); tracer=None costs this test only
+        stream.trace = submit_trace(self.tracer, "generate",
+                                    prompt_len=len(prompt),
+                                    max_new_tokens=mnt,
+                                    sampled=temperature > 0.0)
         req = _GenRequest(prompt, mnt,
                           None if deadline is None
                           else stream.t_submit + float(deadline), stream,
@@ -957,25 +1185,37 @@ class GenerationEngine:
 
     def _enqueue(self, req: _GenRequest, grammar=None) -> None:
         core = self._core
-        with core.lock:
-            if self._failed is not None:
-                raise RuntimeError(
-                    "generation engine stopped after a step failure"
-                ) from self._failed
-            if core.closed:
-                raise RuntimeError("generation engine is closed")
-            if len(core.pending) >= self.max_queue:
-                self.metrics.record_rejected()
-                raise Overloaded(len(core.pending), self.max_queue)
-            if grammar is not None:
-                # a key this engine has served: the compiled automaton
-                # was reused rather than built again
-                if grammar.key in self._grammars:
-                    self.metrics.record_grammar_cache_hit()
-                else:
-                    self._grammars.add(grammar.key)
-            core.pending.append(req)
-            core.wake.put(None)
+        tr = req.stream.trace if req.handoff is None else None
+        try:
+            with core.lock:
+                if self._failed is not None:
+                    raise RuntimeError(
+                        "generation engine stopped after a step failure"
+                    ) from self._failed
+                if core.closed:
+                    raise RuntimeError("generation engine is closed")
+                if len(core.pending) >= self.max_queue:
+                    self.metrics.record_rejected()
+                    raise Overloaded(len(core.pending), self.max_queue)
+                if tr is not None:
+                    # before the enqueue: once the loop thread sees the
+                    # request it may run and finish the trace
+                    tr.event("submit", queue_depth=len(core.pending) + 1)
+                if grammar is not None:
+                    # a key this engine has served: the compiled automaton
+                    # was reused rather than built again
+                    if grammar.key in self._grammars:
+                        self.metrics.record_grammar_cache_hit()
+                    else:
+                        self._grammars.add(grammar.key)
+                core.pending.append(req)
+                depth = len(core.pending)
+                core.wake.put(None)
+        except BaseException:
+            if tr is not None:
+                tr.finish(outcome="rejected")
+            raise
+        self.metrics.set_queue_depth(depth)
 
     def submit_prefilled(self, payload: dict, *,
                          stream: Optional[GenerationStream] = None
@@ -1027,6 +1267,28 @@ class GenerationEngine:
         """Blocking convenience: ``submit(prompt, **knobs).result(timeout)``."""
         return self.submit(prompt, **knobs).result(timeout)
 
+    def _on_stall(self, err: StallError) -> None:
+        """Watchdog callback (on the watchdog's thread): the loop is stuck
+        in a step past the deadline. Mark the engine failed, so submits
+        are refused, and finish every pending and active stream with the
+        diagnostic, so their consumers unblock. Slots and pages are left
+        to the loop thread, the only one that may touch them: it
+        reconciles them when the stuck step returns."""
+        core = self._core
+        with core.lock:
+            if self._failed is not None:
+                return
+            self._failed = err
+            reqs = list(core.pending)
+            streams = [st.req.stream for st in core.active.values()]
+            core.pending.clear()
+            core.wake.put(None)
+        log.error("generation engine stalled: %s", err)
+        for r in reqs:
+            r.stream._finish(err)
+        for s in streams:
+            s._finish(err)
+
     # ------------------------------------------------- loop internals ----
     # Everything below runs on the loop thread only (except warmup, which
     # the caller runs before traffic).
@@ -1036,21 +1298,246 @@ class GenerationEngine:
         admit pending prompts into free slots (evicting cached prefixes,
         then bypassing or swapping, before the FIFO wait), advance one
         chunk per prefilling slot, then one decode step (or one
-        speculative round) over every decoding slot."""
+        speculative round) over every decoding slot. The iteration lands
+        one row in the step timeline and in the metrics' step keys.
+
+        With ``async_scheduling`` (and no speculation) the iteration runs
+        :meth:`_step_async` instead."""
+        if self._async:
+            return self._step_async()
+        t_iter = time.monotonic()
+        self._profile_tick()
         core = self._core
         if self._pending_offloads:
             # a non-blocking poll: a copy still in flight waits for the
             # next iteration, never a decode step
             self._drain_offloads()
-        self._admit_and_prefill()
+        decode_s = verify_s = 0.0
+        prefill_s = self._admit_and_prefill()
         with core.lock:
             active = sorted((s, st) for s, st in core.active.items()
                             if st.phase == "decode")
         if active:
+            t0 = time.monotonic()
             if self.speculative:
                 self._speculative_round(active)
+                verify_s = time.monotonic() - t0
             else:
                 self._decode_once(active)
+                decode_s = time.monotonic() - t0
+        device_s = prefill_s + decode_s + verify_s
+        host_s = max(0.0, time.monotonic() - t_iter - device_s)
+        self._record_iteration(host_s, prefill_s, decode_s, verify_s)
+        self.metrics.record_engine_step(host_s, device_s)
+
+    def _record_iteration(self, host_s: float, prefill_s: float,
+                          decode_s: float, verify_s: float = 0.0,
+                          step_gap_s: float = 0.0,
+                          overlapped_s: float = 0.0) -> None:
+        core = self._core
+        with core.lock:
+            depth = len(core.pending)
+            n_active = len(core.active)
+        self.timeline.record(
+            host_s=host_s, prefill_s=prefill_s, decode_s=decode_s,
+            verify_s=verify_s, step_gap_s=step_gap_s,
+            host_overlapped_s=overlapped_s, active=n_active,
+            queue_depth=depth, occupancy=n_active / self.max_slots,
+            pages_in_use=self._pool.in_use)
+
+    def _step_async(self) -> None:
+        """One async scheduler iteration:
+
+        1. land the in-flight step's tokens (the loop's only device
+           wait), fold them into the live dispatch inputs, and advance the
+           grammar automata on them, so the next dispatch's masks follow;
+        2. dispatch the next decode step at once, before any bookkeeping;
+        3. while it runs: deliver the landed tokens, retire, poll the host
+           tier's copies, admit, run prompt chunks.
+
+        Decisions lag one step: a slot whose landed token ends it (EOS,
+        its budget, its deadline, a cancel) already rides the step
+        dispatched at 2. Its token there is discarded at the next landing
+        (the participant no longer maps to the same slot state), and its
+        K/V write lands in its own, perhaps by then recycled, pages at a
+        clamped position: stream order puts that write before any later
+        owner's prompt writes, and causal masking hides what those do not
+        overwrite. Decode is independent per row (per-slot lanes, per-slot
+        keys), so riders cannot perturb a live row: the streams are the
+        synchronous engine's, bit for bit."""
+        t_iter = time.monotonic()
+        self._profile_tick()
+        core = self._core
+        decode_s = 0.0
+        ticket = self._inflight
+        toks = None
+        t_land_end = None
+        if ticket is not None:
+            self._inflight = None
+            t0 = time.monotonic()
+            toks = ticket.land()
+            t_land_end = time.monotonic()
+            decode_s = t_land_end - t0
+            with core.lock:
+                live = {slot for slot, st in ticket.parts
+                        if core.active.get(slot) is st}
+            # fold the landed rows into the live dispatch inputs, except
+            # rows armed since the ticket left (a slot retired and
+            # re-admitted while its last step was in flight keeps its
+            # fresh arming)
+            for slot, st in ticket.parts:
+                if slot in self._armed_dirty:
+                    continue
+                self._step_tokens[slot] = toks[slot]
+                self._step_positions[slot] = ticket.positions[slot] + 1
+                self._keys[slot] = ticket.keys[slot]
+                if slot in live:
+                    # the mask of the next step follows this token; a
+                    # retired rider's automaton is left alone
+                    self._grammar_step(slot, st, int(toks[slot]))
+        with core.lock:
+            active = sorted((s, st) for s, st in core.active.items()
+                            if st.phase == "decode")
+        step_gap_s = 0.0
+        t_disp = None
+        if active:
+            t0 = time.monotonic()
+            self._dispatch_decode(active)
+            t_disp = time.monotonic()
+            if t_land_end is not None:
+                # host time between landing step N and dispatching N+1: a
+                # lower bound on the device's idle time between them
+                step_gap_s = t0 - t_land_end
+        self._armed_dirty.clear()
+        # the overlap window: everything below runs while the step just
+        # dispatched is in flight
+        if ticket is not None:
+            self._process_landed(ticket, toks)
+        if self._pending_offloads:
+            self._drain_offloads()
+        prefill_s = self._admit_and_prefill()
+        t_end = time.monotonic()
+        overlapped_s = 0.0
+        if t_disp is not None:
+            # the iteration's host work under the in-flight step (prompt
+            # calls' own waits are not host work)
+            overlapped_s = max(0.0, t_end - t_disp - prefill_s)
+        device_s = prefill_s + decode_s
+        host_s = max(0.0, t_end - t_iter - device_s)
+        self._record_iteration(host_s, prefill_s, decode_s,
+                               step_gap_s=step_gap_s,
+                               overlapped_s=overlapped_s)
+        self.metrics.record_engine_step(host_s, device_s,
+                                        overlapped=overlapped_s > 0)
+
+    def _dispatch_decode(self, active: List[Tuple[int, _SlotState]]) -> None:
+        """Launch one decode step without waiting for it (async path).
+        Every input goes up through the staging ring, a copy taken now, so
+        the live arrays may change for the next step as soon as this
+        returns; the tokens come back into a pinned buffer behind an
+        event. Positions clamp at the lane end for rider rows, whose
+        writes stay in their own lane."""
+        faults.fire("engine.decode", engine=self)
+        tokens = np.zeros((self.max_slots,), np.int32)
+        positions = np.zeros((self.max_slots,), np.int32)
+        for slot, _st in active:
+            tokens[slot] = self._step_tokens[slot]
+            positions[slot] = min(int(self._step_positions[slot]),
+                                  self.max_len - 1)
+        with self._stage.call() as put:
+            toks_dev, keys, self._cache = self.kernels.decode(
+                self._cache, tokens, positions, self._page_map, self._temps,
+                self._top_ks, self._top_ps, self._keys, upload=put,
+                **_masked(self._step_bias(active, put)))
+        event = None
+        if self._land_tokens is not None:
+            self._land_tokens.copy_(toks_dev, non_blocking=True)
+            self._land_event.record(torch.cuda.current_stream(self.device))
+            toks_dev, event = self._land_tokens, self._land_event
+        self._inflight = _StepTicket(list(active), positions, toks_dev,
+                                     keys, event)
+
+    def _arm_async_slot(self, slot: int, st: _SlotState) -> None:
+        """Arm a slot's live dispatch inputs (async path) wherever it gets
+        its first decodable token: the final prompt chunk, a handoff or
+        swap-resume admission. The dispatch reads only these rows (the
+        slot state is updated by the landing one step late); marking the
+        row dirty keeps an in-flight ticket's landing from folding stale
+        output over it."""
+        if not self._async:
+            return
+        self._step_tokens[slot] = st.last_token
+        self._step_positions[slot] = st.position
+        self._armed_dirty.add(slot)
+
+    def _process_landed(self, ticket: _StepTicket, toks: np.ndarray) -> None:
+        """Deliver a landed async step: push tokens, tick traces, record
+        ITL, retire: the synchronous step's tail, one step late.
+        Participants whose slot no longer maps to the same state are
+        skipped: their token is discarded, their stream untouched."""
+        core = self._core
+        with core.lock:
+            live = [(slot, st) for slot, st in ticket.parts
+                    if core.active.get(slot) is st]
+        now = time.monotonic()
+        self.metrics.record_decode_step(len(ticket.parts), self.max_slots)
+        sampled = 0
+        retired = []
+        for slot, st in live:
+            tok = int(toks[slot])
+            st.last_token = tok
+            st.position += 1
+            st.generated += 1
+            sampled += st.req.sampled
+            tr = st.req.stream.trace
+            if tr is not None:
+                tr.tick("decode")
+            if st.t_last:
+                self.metrics.record_itl(now - st.t_last)
+            st.t_last = now
+            st.req.stream._push(tok, now)
+            # the automaton advanced at the fold-in (the mask had to be
+            # live before the dispatch): only its verdict is read here
+            why = self._grammar_why(st, self._retire_why(st, st.req, now))
+            if why is not None:
+                retired.append((slot, st, why))
+        if sampled:
+            self.metrics.record_sampled(sampled)
+        for slot, st, why in retired:
+            self._release_slot(slot, st)
+            self._finish_slot(st, why, now)
+
+    def _profile_tick(self) -> None:
+        """The optional ``torch.profiler`` bracket: with ``profile_dir``
+        set, start recording at the first iteration and stop after
+        ``profile_iters``, writing a Chrome trace there. A profiler
+        failure disables the bracket, never serving."""
+        if self._profile_dir is None or self._profile_state == 2:
+            return
+        try:
+            if self._profile_state == 0:
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                self._profiler = torch.profiler.profile(activities=acts)
+                self._profiler.start()
+                self._profile_state = 1
+                return
+            self._profile_count += 1
+            if self._profile_count >= self._profile_iters:
+                self._stop_profile()
+        except Exception:
+            log.exception("engine profiler bracket failed; disabled")
+            self._profile_state = 2
+
+    def _stop_profile(self) -> None:
+        prof, self._profiler = self._profiler, None
+        self._profile_state = 2
+        prof.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self._profile_dir, f"engine-{os.getpid()}-{id(self):x}"
+                               f".pt.trace.json"))
 
     def _pages_needed(self, req: _GenRequest) -> int:
         # pages per lane: rows written = prompt + generated - 1 (the last
@@ -1062,13 +1549,15 @@ class GenerationEngine:
         return self._pool.pages_for(
             min(len(req.prompt) + req.max_new_tokens - 1, self.max_len))
 
-    def _admit_and_prefill(self) -> None:
-        """Admission, then one chunk per prefilling slot. A head the pool
-        cannot cover first evicts unreferenced cached pages; failing that,
-        a later request that fits may pass it (cache-aware admission, at
-        most ``_bypass_limit`` times in a row), or a host-tier engine swaps
-        out active streams of lower priority; only then does the head
-        wait (a delay, never a reorder)."""
+    def _admit_and_prefill(self) -> float:
+        """Admission, then one chunk per prefilling slot; returns the
+        prompt calls' wall time. A head the pool cannot cover first evicts
+        unreferenced cached pages; failing that, a later request that fits
+        may pass it (cache-aware admission, at most ``_bypass_limit``
+        times in a row), or a host-tier engine swaps out active streams of
+        lower priority; only then does the head wait (a delay, never a
+        reorder). In an async iteration this runs in the overlap
+        window."""
         core = self._core
         while True:
             swap_head = None
@@ -1095,10 +1584,12 @@ class GenerationEngine:
                         self.admission_bypasses += 1
                         req = core.pending[take]
                         del core.pending[take]
+                    depth = len(core.pending)
             if swap_head is not None:
                 if self._swap_out_for(swap_head, swap_need):
                     continue
                 break
+            self.metrics.set_queue_depth(depth)
             if req.handoff is not None:
                 self._admit_prefilled(req)
             else:
@@ -1106,8 +1597,12 @@ class GenerationEngine:
         with core.lock:
             prefilling = sorted((s, st) for s, st in core.active.items()
                                 if st.phase == "prefill")
+        if not prefilling:
+            return 0.0
+        t0 = time.monotonic()
         for slot, st in prefilling:
             self._prefill_chunk_once(slot, st)
+        return time.monotonic() - t0
 
     # ----------------------------------------------------- prefix cache ----
 
@@ -1209,10 +1704,18 @@ class GenerationEngine:
         to host memory, before evict() releases it, so the gather reads
         the page before its next owner writes it (one stream). At most
         ``_offload_inflight_cap`` copies are in flight; past the cap the
-        page just evicts, counted as a drop."""
+        page just evicts, counted as a drop, as it does when the
+        ``kv.offload`` site faults (only this entry is lost)."""
         if len(self._pending_offloads) >= self._offload_inflight_cap:
             self._drain_offloads()   # non-blocking: reap what landed
         if len(self._pending_offloads) >= self._offload_inflight_cap:
+            self._host.record_drop()
+            self.metrics.record_offload_dropped()
+            return
+        try:
+            faults.fire("kv.offload", engine=self, kind="prefix")
+        except Exception as exc:
+            log.debug("kv.offload copy faulted; entry dropped: %s", exc)
             self._host.record_drop()
             self.metrics.record_offload_dropped()
             return
@@ -1255,7 +1758,9 @@ class GenerationEngine:
         into fresh pages (one batched copy and scatter) and republish, so
         the attach sees them as never evicted. Returns ``(restored pages,
         new cached_len)``; the restored pages replace tail allocations one
-        for one."""
+        for one. A fault at the ``kv.restore`` site degrades the entries
+        to a miss: they leave the host store and the request prefills
+        them."""
         host = self._host
         ps = self.page_size
         prompt = req.prompt
@@ -1268,6 +1773,13 @@ class GenerationEngine:
                 break
             hits.append(key)
         if not hits:
+            return [], cached_len
+        try:
+            faults.fire("kv.restore", engine=self, kind="prefix")
+        except Exception:
+            for key in hits:
+                host.drop_prefix(version, key)
+            self._report_pages()
             return [], cached_len
         pages = self._pool.alloc(len(hits), owner="target")
         rows = [host.take_prefix(version, key) for key in hits]
@@ -1308,15 +1820,24 @@ class GenerationEngine:
                 return swapped and self._pool.can_reserve(need_alloc)
             victims.sort(key=lambda v: (v[0], v[1]))
             _, _, slot, st = victims[0]
-            self._swap_out_slot(slot, st)
+            if not self._swap_out_slot(slot, st):
+                return False
             swapped = True
         return True
 
-    def _swap_out_slot(self, slot: int, st: _SlotState) -> None:
+    def _swap_out_slot(self, slot: int, st: _SlotState) -> bool:
         """Park one active decode stream in the host tier: gather its
         pages, queue their copy to host memory, export the pages, free the
         slot and re-queue a resume request whose payload carries the
-        pages' rows, the key, the position and the generated count."""
+        pages' rows, the key, the position, the generated count and the
+        admission time. A fault at the ``kv.offload`` site aborts before
+        anything moves (False): the stream stays resident."""
+        try:
+            faults.fire("kv.offload", engine=self, kind="swap")
+        except Exception:
+            self._host.record_drop()
+            self.metrics.record_offload_dropped()
+            return False
         req = st.req
         self._swap_seq += 1
         swap_id = self._swap_seq
@@ -1334,6 +1855,7 @@ class GenerationEngine:
             "swap_id": swap_id,
             "position": int(st.position),
             "generated": int(st.generated),
+            "t_admit": float(st.t_admit),
         }
         self._queue_copy({"kind": "swap", "payload": payload, "copy": None})
         core = self._core
@@ -1357,6 +1879,7 @@ class GenerationEngine:
             # arrival
             core.pending.append(resume)
         self._report_pages()
+        return True
 
     def _admit_prefilled(self, req: _GenRequest) -> None:
         """Admit a request whose prompt's KV rows arrive as a block and a
@@ -1369,7 +1892,9 @@ class GenerationEngine:
         goes on as the monolithic engine's. A handoff pushes its first
         token; a resume continues mid-stream and pushes nothing (its
         consumer holds every token already). A failure between adopt and
-        scatter fails this stream only, and its pages release."""
+        scatter fails this stream only, and its pages release: a fault at
+        ``kv.restore`` (kind ``swap``, a resume) or ``engine.page_handoff``
+        (stage ``adopt``) lands there."""
         payload = req.handoff
         swap = bool(payload.get("swap"))
         if swap:
@@ -1392,6 +1917,9 @@ class GenerationEngine:
         k_p = len(meta)
         pages: List[int] = []
         try:
+            if swap:
+                faults.fire("kv.restore", engine=self, kind="swap")
+            faults.fire("engine.page_handoff", engine=self, stage="adopt")
             pages = self._pool.adopt_pages(
                 [(int(m[0]), int(m[1]), bool(m[2])) for m in meta],
                 source=str(payload["source"]), owner="target")
@@ -1423,7 +1951,9 @@ class GenerationEngine:
         self._keys[slot] = np.asarray(payload["key"], np.uint32)
         self._page_map[slot] = row
         now = time.monotonic()
-        st = _SlotState(req, pages, row, self.pad_id)
+        # a resume keeps its first admission's time (the queue wait)
+        st = _SlotState(req, pages, row, self.pad_id,
+                        t_admit=float(payload["t_admit"]) if swap else now)
         st.phase = "decode"
         st.last_token = int(payload["first_token"])
         st.position = (int(payload["position"]) if swap
@@ -1433,13 +1963,14 @@ class GenerationEngine:
         st.t_last = now
         with core.lock:
             core.active[slot] = st
+        self._arm_async_slot(slot, st)
         self._report_pages()
         if not swap:
             req.stream._push(st.last_token, now)
         why = self._retire_why(st, req, now)
         if why is not None:
             self._release_slot(slot, st)
-            self._finish_request(req, why, now)
+            self._finish_slot(st, why, now)
 
     def _request_key(self, req: _GenRequest) -> np.ndarray:
         seed = req.seed
@@ -1473,6 +2004,11 @@ class GenerationEngine:
             core.free.sort()
             slot = core.free.pop(0)
         need = self._pages_needed(req)
+        tr = req.stream.trace
+        reserve_sp = None
+        if tr is not None:
+            tr.span("queue_wait", tr.t0)
+            reserve_sp = tr.begin_span("page_reserve")
         cached_len = hit_k = 0
         shared: List[int] = []
         dshared: List[int] = []
@@ -1511,7 +2047,11 @@ class GenerationEngine:
         pages, row = lane("target", shared + restored)
         draft_pages, drow = lane("draft", dshared) if self.speculative \
             else (None, None)
-        st = _SlotState(req, pages, row, self.pad_id, draft_pages, drow)
+        if tr is not None:
+            tr.end_span(reserve_sp, pages=need * self._lanes, slot=slot,
+                        prefix_pages=hit_k * self._lanes)
+        st = _SlotState(req, pages, row, self.pad_id, draft_pages, drow,
+                        t_admit=now)
         st.prefill_pos = st.position = cached_len
         if self._prefix is not None:
             # the index version the prompt is prefilled under
@@ -1519,6 +2059,10 @@ class GenerationEngine:
         with core.lock:
             core.active[slot] = st
         self._report_pages()
+        if self._prefix is not None:
+            # between the attach (references taken) and the first prompt
+            # call: the loop's failure path must release every reference
+            faults.fire("engine.prefix_attach", engine=self)
 
     def _prefill_chunk_once(self, slot: int, st: _SlotState) -> None:
         """Advance one prompt chunk of a prefilling slot. Non-final chunks
@@ -1530,25 +2074,33 @@ class GenerationEngine:
         why = self._retire_why(None, req, now)
         if why is not None:
             self._release_slot(slot, st)
-            self._finish_request(req, why)
+            self._finish_slot(st, why, now)
             return
+        faults.fire("engine.prefill", engine=self)
         prompt = req.prompt
         start = st.prefill_pos
         remaining = len(prompt) - start
+        tr = req.stream.trace
         if remaining > self.prefill_chunk:
+            sp = tr.begin_span("prefill_chunk") if tr is not None else None
             piece = prompt[start:start + self.prefill_chunk]
-            self._cache = self.kernels.chunk(
-                self._cache, st.page_row, piece, start, self.prefill_chunk,
-                self._pool.trash)
-            if self.speculative:
-                # the draft needs the prompt in its own cache to propose
-                self._dcache = self.kernels.draft_write(
-                    self._dcache, st.dpage_row, piece, start,
-                    self.prefill_chunk, self._pool.trash)
+            with self._stage.call() as put:
+                self._cache = self.kernels.chunk(
+                    self._cache, st.page_row, piece, start,
+                    self.prefill_chunk, self._pool.trash, upload=put)
+                if self.speculative:
+                    # the draft needs the prompt in its own cache to
+                    # propose
+                    self._dcache = self.kernels.draft_write(
+                        self._dcache, st.dpage_row, piece, start,
+                        self.prefill_chunk, self._pool.trash, upload=put)
             st.prefill_pos += self.prefill_chunk
             st.position = st.prefill_pos
-            self.metrics.record_chunk()
+            self.metrics.record_chunk(self.prefill_chunk, self.prefill_chunk)
+            if tr is not None:
+                tr.end_span(sp, tokens=self.prefill_chunk, final=False)
             return
+        final_sp = tr.begin_span("prefill_chunk") if tr is not None else None
         bucket = next(b for b in self.prompt_buckets if b >= remaining)
         padded = np.full((bucket,), self.pad_id, np.int32)
         padded[:remaining] = prompt[start:]
@@ -1557,36 +2109,43 @@ class GenerationEngine:
         self._top_ps[slot] = req.top_p
         # a constrained slot's mask row at the automaton's start state,
         # armed before the first token is sampled
-        bias1 = None
         if req.grammar is not None:
             self._grammar_arm(slot, st)
-            bias1 = self._bias_stage.upload(self._bias[slot:slot + 1])
         # the request's key, fresh here: token i draws from split i (or,
         # speculative, from output position i) whatever decode traffic
         # ran during the prefill
         key = self._request_key(req)
         sampling = (self._temps[slot], self._top_ks[slot],
                     self._top_ps[slot], key)
-        if self.speculative:
-            tok_dev, self._cache = self.kernels.prefill(
-                self._cache, st.page_row, padded, start, remaining,
-                self._pool.trash, *sampling, **_masked(bias1))
-            self._dcache = self.kernels.draft_write(
-                self._dcache, st.dpage_row, padded, start, remaining,
-                self._pool.trash)
-            self._keys[slot] = key
-            self._dpage_map[slot] = st.dpage_row
-        else:
-            tok_dev, new_key, self._cache = self.kernels.prefill(
-                self._cache, st.page_row, padded, start, remaining,
-                self._pool.trash, *sampling, **_masked(bias1))
-            self._keys[slot] = new_key[0]
+        with self._stage.call() as put:
+            bias1 = (None if req.grammar is None
+                     else put(self._bias[slot:slot + 1]))
+            if self.speculative:
+                tok_dev, self._cache = self.kernels.prefill(
+                    self._cache, st.page_row, padded, start, remaining,
+                    self._pool.trash, *sampling, upload=put,
+                    **_masked(bias1))
+                self._dcache = self.kernels.draft_write(
+                    self._dcache, st.dpage_row, padded, start, remaining,
+                    self._pool.trash, upload=put)
+                self._keys[slot] = key
+                self._dpage_map[slot] = st.dpage_row
+            else:
+                tok_dev, new_key, self._cache = self.kernels.prefill(
+                    self._cache, st.page_row, padded, start, remaining,
+                    self._pool.trash, *sampling, upload=put,
+                    **_masked(bias1))
+                self._keys[slot] = new_key[0]
         tok = int(tok_dev.item())
         self._page_map[slot] = st.page_row   # K/V written: go live
         now = time.monotonic()
-        self.metrics.record_prefill(now - req.stream.t_submit)
+        self.metrics.record_prefill(remaining, bucket,
+                                    now - req.stream.t_submit)
         if req.sampled:
             self.metrics.record_sampled(1)
+        if tr is not None:
+            tr.end_span(final_sp, tokens=remaining, final=True)
+            tr.event("first_token")
         req.stream._push(tok, now)
         st.phase = "decode"
         st.last_token = tok
@@ -1594,6 +2153,7 @@ class GenerationEngine:
         st.generated = 1
         st.t_last = now
         self._grammar_step(slot, st, tok)
+        self._arm_async_slot(slot, st)
         why = self._grammar_why(st, self._retire_why(st, req, now))
         if why is not None:
             self._release_slot(slot, st)
@@ -1604,8 +2164,11 @@ class GenerationEngine:
             # tokens: hand its pages to the decode role. The callback
             # gathers the block on this thread while the pages are still
             # this slot's; only after it returns do they export and the
-            # slot free. A failure there fails this stream only
+            # slot free. A failure there (the ``engine.page_handoff``
+            # site, stage ``export``, included) fails this stream only
             try:
+                faults.fire("engine.page_handoff", engine=self,
+                            stage="export")
                 cb = self._handoff_cb
                 if cb is None:
                     raise RuntimeError(
@@ -1616,7 +2179,7 @@ class GenerationEngine:
                 self._abort_handoff(slot, st, e)
                 return
             self._handoff_slot(slot, st)
-            self._finish_request(req, "done", now)
+            self._finish_slot(st, "done", now)
 
     def _handoff_payload(self, slot: int, st: _SlotState, tok: int) -> dict:
         """What a decode-role engine needs to go on with ``st``'s stream:
@@ -1696,6 +2259,9 @@ class GenerationEngine:
         self._report_pages()
         self.metrics.record_failed()
         st.req.stream._finish(err, time.monotonic())
+        tr = st.req.stream.trace
+        if tr is not None:
+            tr.finish(outcome="failed", tokens=st.generated)
 
     def _step_inputs(self, active) -> Tuple[np.ndarray, ...]:
         """Each active slot's last token, its position and its tokens so
@@ -1708,24 +2274,30 @@ class GenerationEngine:
             generated[slot] = st.generated
         return tokens, positions, generated
 
-    def _step_bias(self, active) -> Optional[torch.Tensor]:
-        """Every slot's mask row on the device when some active slot is
-        constrained; otherwise None, and the step adds no launch and no
-        upload (a zero row would be a bitwise no-op anyway)."""
+    def _step_bias(self, active, put) -> Optional[torch.Tensor]:
+        """Every slot's mask row on the device (through ``put``) when some
+        active slot is constrained; otherwise None, and the step adds no
+        launch and no upload (a zero row would be a bitwise no-op
+        anyway)."""
         if self._bias is None or all(st.req.grammar is None
                                      for _, st in active):
             return None
-        return self._bias_stage.upload(self._bias)
+        return put(self._bias)
 
     def _decode_once(self, active: List[Tuple[int, _SlotState]]) -> None:
+        # an armed exception here is a step failure (every stream fails,
+        # the loop stops); armed latency is a slow or hung device for the
+        # stall watchdog
+        faults.fire("engine.decode", engine=self)
         tokens, positions, _ = self._step_inputs(active)
-        toks_dev, self._keys, self._cache = self.kernels.decode(
-            self._cache, tokens, positions, self._page_map, self._temps,
-            self._top_ks, self._top_ps, self._keys,
-            **_masked(self._step_bias(active)))
+        with self._stage.call() as put:
+            toks_dev, self._keys, self._cache = self.kernels.decode(
+                self._cache, tokens, positions, self._page_map, self._temps,
+                self._top_ks, self._top_ps, self._keys, upload=put,
+                **_masked(self._step_bias(active, put)))
         toks = toks_dev.cpu().numpy()
         now = time.monotonic()
-        self.metrics.record_decode_step(len(active))
+        self.metrics.record_decode_step(len(active), self.max_slots)
         sampled = 0
         retired = []
         for slot, st in active:
@@ -1733,6 +2305,9 @@ class GenerationEngine:
             st.last_token = tok
             st.position += 1
             st.generated += 1
+            tr = st.req.stream.trace
+            if tr is not None:
+                tr.tick("decode")
             if st.t_last:
                 # the gap since this stream's previous token
                 self.metrics.record_itl(now - st.t_last)
@@ -1767,6 +2342,7 @@ class GenerationEngine:
         tokens, so a rejected proposal never moves it; the accepted prefix
         is the draft prefix, so the residual pick at the first rejection
         is masked by its true predecessor state."""
+        faults.fire("engine.draft", engine=self)
         k = self.spec_k
         tokens, positions, out_base = self._step_inputs(active)
         sampling = (self._temps, self._top_ks, self._top_ps, self._keys)
@@ -1781,7 +2357,7 @@ class GenerationEngine:
                 rows = self._bias.copy()
                 for slot, st in gslots:
                     rows[slot] = st.req.grammar.bias_row(scratch[slot])
-                bias_i = self._bias_stage.upload(rows)
+                bias_i = self._stage.upload(rows)
                 biases.append(bias_i)
             # positions clamp at the lane end: a slot about to retire at
             # max_len keeps its shapes (its proposals there are rejected
@@ -1798,6 +2374,7 @@ class GenerationEngine:
             if i < k:
                 d_tokens.append(cur)
                 d_dists.append(dist)
+        faults.fire("engine.verify", engine=self)
         n_dev, out_dev, self._cache = self.kernels.verify(
             self._cache, tokens, d_tokens, positions, self._page_map,
             self._pool.trash, *sampling, out_base, d_dists,
@@ -1805,7 +2382,7 @@ class GenerationEngine:
         n_acc = n_dev.cpu().numpy()
         outs = out_dev.cpu().numpy()
         now = time.monotonic()
-        self.metrics.record_decode_step(len(active))
+        self.metrics.record_decode_step(len(active), self.max_slots)
         accepted = pushed_total = sampled = 0
         retired = []
         for slot, st in active:
@@ -1826,6 +2403,9 @@ class GenerationEngine:
                     break
             accepted += min(int(n_acc[slot]), pushed)
             pushed_total += pushed
+            tr = st.req.stream.trace
+            if tr is not None:
+                tr.tick("verify_round")
             if st.t_last:
                 # the round's gap spread over the tokens it pushed
                 self.metrics.record_itl((now - st.t_last) / pushed, pushed)
@@ -2008,24 +2588,38 @@ class GenerationEngine:
         if why == "grammar":
             self.metrics.record_failed()
             st.req.stream._finish(st.grammar_error, now)
+            tr = st.req.stream.trace
+            if tr is not None:
+                tr.finish(outcome="grammar_violation", tokens=st.generated)
             return
-        self._finish_request(st.req, why, now)
+        self._finish_request(st.req, why, now,
+                             queue_wait=st.t_admit - st.req.stream.t_submit,
+                             generated=st.generated)
 
     def _finish_request(self, req: _GenRequest, why: str,
-                        now: Optional[float] = None) -> None:
+                        now: Optional[float] = None, *,
+                        queue_wait: Optional[float] = None,
+                        generated: int = 0) -> None:
+        """End ``req``'s stream with disposition ``why``; a served stream
+        records its latency, its queue wait (submit to admission) and its
+        token rate."""
         stream = req.stream
         now = time.monotonic() if now is None else now
+        dur = now - stream.t_submit
         if why == "expired":
             self.metrics.record_expired()
             stream._finish(DeadlineExceeded(
-                now - stream.t_submit,
-                req.deadline - stream.t_submit), now)
+                dur, req.deadline - stream.t_submit), now)
         elif why == "cancelled":
             stream._finish(StreamCancelled(
                 "generation stream cancelled by its consumer"), now)
         else:
-            self.metrics.record_served()
+            self.metrics.record_served(dur, queue_wait or 0.0)
+            self.metrics.record_stream(generated, dur)
             stream._finish(None, now)
+        tr = stream.trace
+        if tr is not None:
+            tr.finish(outcome=why, tokens=generated)
 
     def _report_pages(self) -> None:
         """Page occupancy, the prefix index's and the host tier's pages,
@@ -2070,21 +2664,24 @@ class GenerationEngine:
             passes.append((self._temps, True))          # under a mask
         for temps, masked in passes if self.role != "prefill" else ():
             sampling = (temps, self._top_ks, self._top_ps, self._keys)
-            bias = self._bias_stage.upload(self._bias) if masked else None
-            if self.speculative:
-                tok, dist, self._dcache = kernels.draft(
-                    self._dcache, zeros, zeros, self._dpage_map, *sampling,
-                    zeros, **_masked(bias))
-                _, _, self._cache = kernels.verify(
-                    self._cache, zeros, [tok] * self.spec_k, zeros,
-                    self._page_map, trash, *sampling, zeros,
-                    [dist] * self.spec_k,
-                    **_masked(None if bias is None else torch.stack(
-                        [bias] * (self.spec_k + 1), dim=1)))
-            else:
-                _, _, self._cache = kernels.decode(
-                    self._cache, zeros, zeros, self._page_map, *sampling,
-                    **_masked(bias))
+            with self._stage.call() as put:
+                bias = put(self._bias) if masked else None
+                if self.speculative:
+                    tok, dist, self._dcache = kernels.draft(
+                        self._dcache, zeros, zeros, self._dpage_map,
+                        *sampling, zeros, **_masked(bias))
+                    _, _, self._cache = kernels.verify(
+                        self._cache, zeros, [tok] * self.spec_k, zeros,
+                        self._page_map, trash, *sampling, zeros,
+                        [dist] * self.spec_k,
+                        **_masked(None if bias is None else torch.stack(
+                            [bias] * (self.spec_k + 1), dim=1)))
+                else:
+                    toks, _, self._cache = kernels.decode(
+                        self._cache, zeros, zeros, self._page_map,
+                        *sampling, upload=put, **_masked(bias))
+                    if self._land_tokens is not None:
+                        self._land_tokens.copy_(toks, non_blocking=True)
         chunks = [(self.prefill_chunk, 0.0, False)] \
             if self.max_prompt_len > self.prefill_chunk else []
         finals = [(b, 0.0, True) for b in self.prompt_buckets]
@@ -2092,15 +2689,18 @@ class GenerationEngine:
         for width, temperature, final in (prompts if self.role != "decode"
                                           else ()):
             pad = np.full((width,), self.pad_id, np.int32)
-            if final:
-                self._cache = kernels.prefill(self._cache, trash_row, pad, 0,
-                                              width, trash, temperature)[-1]
-            else:
-                self._cache = kernels.chunk(self._cache, trash_row, pad, 0,
-                                            width, trash)
-            if self.speculative:
-                self._dcache = kernels.draft_write(
-                    self._dcache, trash_row, pad, 0, width, trash)
+            with self._stage.call() as put:
+                if final:
+                    self._cache = kernels.prefill(
+                        self._cache, trash_row, pad, 0, width, trash,
+                        temperature, upload=put)[-1]
+                else:
+                    self._cache = kernels.chunk(self._cache, trash_row, pad,
+                                                0, width, trash, upload=put)
+                if self.speculative:
+                    self._dcache = kernels.draft_write(
+                        self._dcache, trash_row, pad, 0, width, trash,
+                        upload=put)
         if self.role == "prefill":
             # the handoff's gather, off the trash page
             self._mover.gather(self._cache, [trash])
@@ -2135,11 +2735,26 @@ class GenerationEngine:
             core.drain = drain
             core.wake.put(None)
         self._thread.join(timeout)
+        if self._profile_state == 1:
+            # a profile bracket wider than the traffic: close it rather
+            # than leave the profiler recording
+            try:
+                self._stop_profile()
+            except Exception:
+                log.exception("stopping the engine profiler failed")
+        if self._watchdog is not None and not self._thread.is_alive():
+            self._watchdog.close()
         if not self._thread.is_alive():
             # a request that raced the close flag in must fail rather than
             # strand its consumer (never while the loop still runs)
             _fail_streams(core, RuntimeError(
                 "generation engine closed before request ran"), self)
+
+    def __enter__(self) -> "GenerationEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     # --------------------------------------------------------- queries ----
 
@@ -2147,6 +2762,16 @@ class GenerationEngine:
     def failed(self) -> Optional[BaseException]:
         with self._core.lock:
             return self._failed
+
+    @property
+    def pending_requests(self) -> int:
+        with self._core.lock:
+            return len(self._core.pending)
+
+    @property
+    def free_slots(self) -> List[int]:
+        with self._core.lock:
+            return sorted(self._core.free)
 
     @property
     def pages_in_use(self) -> int:
@@ -2308,8 +2933,11 @@ class _StaticGroup:
         vocab = getattr(model, "vocab_size", None)
         self.bias = (np.zeros((max_slots, int(vocab)), np.float32)
                      if vocab else None)
-        self.stage = (_BiasStage(max_slots, int(vocab), kernels.device)
-                      if vocab else None)
+        self.stage = _HostStage(
+            kernels.device,
+            _stage_bytes(max_slots, self.pool.pages_per_slot, vocab,
+                         max(self.chunk, self.buckets[-1])),
+            depth=max_slots + 3 + (0 if draft_model is None else 8))
         self.constrained = False    # some slot of the group has a grammar
 
     def params(self):

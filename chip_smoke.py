@@ -152,13 +152,44 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              validity) against its plain version with kernel, plain, SDPA
              and bound times, and the arm through ``Attention``: a zero
              bias (B2) against no bias (B3).
-15. B1     — the residual-add kernel against its plain version at the
+15. engine-async — async scheduling (``async_scheduling=True``) against
+             the synchronous engine, in turns on the same warmed kernels,
+             every request submitted at once: the serving mix float and
+             int8, greedy and with the odd requests sampled, under the
+             regex grammar (48 new tokens, EOS 3), the host-tier family
+             workload with the prefix cache (one slot, a 4-page pool, 64
+             host pages), and the disaggregation mix through a
+             ``DisaggregatedEngine``. Checks every variant's 32 (or 40)
+             streams equal both ways, B2 on every layer of every prompt
+             call and the paged kernel on every layer of every decode step
+             dispatched (a last step of riders included), steps overlapped
+             only under async, the pools drained. Prints tokens/s, TTFT p50,
+             ITL p50/p99 and the engine's own timeline split (host, decode
+             and prefill ms, ``step_gap_ms``, ``host_overlapped_ms``,
+             ``step_host_frac``, ``step_overlap_frac``) for each leg (float
+             greedy sync, async, async, sync); the card's busy share over
+             the first 10 iterations of each scheduler, from the engine's
+             own ``profile_dir`` torch.profiler trace, beside
+             ``step_device_ms`` (kernel-call wall, not device time); and
+             that an async dispatch with ~1 s of kernel queued ahead of it
+             returns at once with its ticket's event pending.
+16. engine-obs — the async engine with a ``Tracer`` and a 60 s stall
+             watchdog: a ``MetricsRegistry`` over its metrics, timeline,
+             tracer, pool, the fault injector and the flight recorder
+             gives finite, non-zero ``step_host_ms`` and
+             ``step_device_ms``; ``/metrics`` scraped on 127.0.0.1 is the
+             registry's Prometheus text and ``/healthz`` answers 200; one
+             finished trace per request with its decode steps counted (the
+             longest printed). Tokens/s in turns with neither, the tracer,
+             both, the watchdog, neither, and the host µs of a disarmed
+             fault site and of the ``tracer=None`` submit hook.
+17. B1     — the residual-add kernel against its plain version at the
              four residual-add shapes of ResNet-50 at batch 128, bf16 and
              fp32: bitwise equal; the dispatch cases that take the plain
              add (small, mixed dtype, broadcast, CPU tensors); kernel and
              ``torch.add`` times at the layer1 bf16 shape in alternating
              pairs with their median ratio, plain time and the bound.
-16. train  — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
+18. train  — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
              NCHW) at batch 128 under the bf16 mixed policy, SGD lr 0.1 /
              momentum 0.9, through ``optimizer(...).optimize()`` on 4 x 128
              samples from numpy seed 0; two legs from the same seeded
@@ -169,7 +200,7 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              memory; then one fp32 step of ``build_cifar(8)`` at batch 8 on
              the card against the CPU, and (``[trace]``) a torch.profiler
              window over 3 training steps of the second leg.
-17. train-lm — a Transformer language model at the width of the JAX
+19. train-lm — a Transformer language model at the width of the JAX
              package's ``bench.py --mode lm`` (vocab 8192, hidden 512, 8
              heads, filter 2048, 4 layers), batch 8 x 128 tokens, fp32,
              embedding/residual and FFN dropout 0.1 (threefry-keyed),
@@ -192,7 +223,7 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              a stated tolerance; a full-width mask card vs CPU, bitwise;
              and B2 at the training shape (8, 8, 128, 64), causal, fp32
              and bf16 x bf16: error, kernel, plain, SDPA and bound times.
-18. a ``{"kernels": [...]}`` line (each row counts its launches on every
+20. a ``{"kernels": [...]}`` line (each row counts its launches on every
     path, by path; B2's carries its training-shape, verify-shape and
     external-bias decode-shape times), the card's name and power limit,
     and the last line
@@ -213,13 +244,16 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bigdl_tpu_torch import faults, obs
 from bigdl_tpu_torch.core import DtypePolicy, EngineConfig, RandomGenerator
 from bigdl_tpu_torch.core import threefry
 from bigdl_tpu_torch.core.rng import split_keys, threefry_key_data, uniform_keys
@@ -344,6 +378,8 @@ GR_SCHEMA = {"type": "object",
              "properties": {"tool": {"enum": ["search", "calc"]},
                             "ok": {"type": "boolean"}},
              "required": ["tool", "ok"]}
+# the async-scheduling run: engine iterations in each profiled window
+ASYNC_PROFILE_ITERS = 10
 
 # the training run: ResNet-50 as the JAX package's bench trains it
 # (bench.py run_bench: batch 128, SGD lr 0.1 / momentum 0.9)
@@ -2207,6 +2243,355 @@ def phase_engine_grammar(card, model, narrow, verify_tol):
     return path, row, launches
 
 
+# ------------------------------------- async scheduling, observability ----
+
+
+def async_leg(make, reqs, profile_dir=None):
+    """One leg of ``[engine-async]`` / ``[engine-obs]``: ``make(**extra)``
+    builds the engine (a ``GenerationEngine`` or a
+    ``DisaggregatedEngine``), warmed before the traffic; every request
+    ``(prompt, new tokens, knobs)`` is submitted at once, with the launch
+    counts zeroed just before the traffic and read just after the close.
+    Checks B2 on every layer of every prompt call and the paged kernel of
+    the pools' dtype on every layer of every decode step the engine
+    dispatched: those it landed, plus a last step of riders an async
+    engine may leave in flight when its streams are done (its tokens are
+    discarded), the other kernel never; and every pool drained."""
+    extra = {} if profile_dir is None else dict(
+        profile_dir=profile_dir, profile_iters=ASYNC_PROFILE_ITERS)
+    engine = make(**extra)
+    engine.warmup()
+    gc.collect()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.monotonic()
+    streams = [engine.submit(p, max_new_tokens=m, **kw) for p, m, kw in reqs]
+    outs = [s.result(600) for s in streams]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    engine.close()
+    launches = read_launches()
+    decode = getattr(engine, "decode_engine", engine)
+    prefill = getattr(engine, "prefill_engine", engine)
+    snap, psnap = decode.metrics.snapshot(), prefill.metrics.snapshot()
+    riders = int(decode._inflight is not None)
+    prompt_calls = psnap["prefills"] + psnap["prefill_chunks"]
+    assert [len(o) for o in outs] == [m for _, m, _ in reqs] \
+        or decode.eos_id is not None, "a stream ended early"
+    assert launches["flash_attention"] == prompt_calls * LAYERS > 0, \
+        (launches, psnap)
+    paged, other = (("paged_attention_int8", "paged_attention")
+                    if decode.cache_dtype_name == "int8"
+                    else ("paged_attention", "paged_attention_int8"))
+    assert launches[paged] == (snap["decode_steps"] + riders) * LAYERS > 0, \
+        (launches, snap, riders)
+    assert launches[other] == 0, launches
+    for e in {id(decode): decode, id(prefill): prefill}.values():
+        assert e.pages_in_use == e.shared_pages == e.host_pages_in_use == 0
+    # a decode role reports no TTFT: the first token is the prefill role's
+    ttft = snap["ttft_ms"] or psnap["ttft_ms"]
+    return dict(engine=engine, outs=outs, wall=wall, snap=snap,
+                timeline=decode.timeline.snapshot(), launches=launches,
+                riders=riders, tokens=sum(len(o) for o in outs),
+                ttft_p50=ttft["p50"])
+
+
+def async_line(r) -> str:
+    """A leg's end-to-end numbers and its engine's own timeline split."""
+    snap, tl = r["snap"], r["timeline"]
+    itl = snap["itl_ms"] or {}
+    return (f"tokens/s={r['tokens'] / r['wall']:.1f} ({r['tokens']} tokens "
+            f"in {r['wall']:.3f} s) ttft_p50_ms={r['ttft_p50']} "
+            f"itl_p50_ms={itl.get('p50')} itl_p99_ms={itl.get('p99')}; "
+            f"timeline: {tl['iterations']} iterations, host_ms="
+            f"{tl['host_ms_total']} decode_ms={tl['decode_ms_total']} "
+            f"prefill_ms={tl['prefill_ms_total']} step_gap_ms="
+            f"{tl['step_gap_ms']} host_overlapped_ms="
+            f"{tl['host_overlapped_ms']}; step_host_ms="
+            f"{snap['step_host_ms']} step_device_ms={snap['step_device_ms']}"
+            f" step_host_frac={snap['step_host_frac']:.4f} "
+            f"step_overlap_frac={snap['step_overlap_frac']:.4f} "
+            f"overlapped_steps={snap['overlapped_steps']} "
+            f"decode_steps={snap['decode_steps']}")
+
+
+def trace_busy_share(directory):
+    """The card's busy share over an engine's ``profile_dir`` trace (its
+    first ``ASYNC_PROFILE_ITERS`` iterations): the union of kernel, copy
+    and memset intervals over the window from the trace's first event to
+    its last; with the device ms and the kernel count per iteration."""
+    (name,) = [f for f in os.listdir(directory)
+               if f.endswith(".pt.trace.json")]
+    with open(os.path.join(directory, name)) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, cur_s, cur_e = 0.0, None, None
+    for s_, e_ in device:
+        if cur_e is None or s_ > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    return (busy / (end - start), busy / 1e3 / ASYNC_PROFILE_ITERS,
+            kernels / ASYNC_PROFILE_ITERS)
+
+
+def phase_engine_async(card, model):
+    """Async scheduling against sync, in turn on the same warmed kernels:
+    the serving mix float and int8, greedy and with the odd requests
+    sampled, under a grammar, with the prefix cache and the host tier, and
+    disaggregated; every variant's 32 streams equal both ways. Then a
+    profiled window of each scheduler and the dispatch check."""
+    from bigdl_tpu_torch.grammar import compile_grammar, regex_grammar
+
+    base = dict(device="cuda", max_slots=SLOTS, max_len=MAX_LEN,
+                max_prompt_len=MAX_PROMPT, page_size=PAGE, seed=SAMPLE_SEED)
+    int8 = dict(quantize="int8", cache_dtype=torch.int8)
+    bench = bench_requests()
+    greedy = [(p, m, {}) for p, m in bench]
+    sampled = [(p, m, kw) for (p, m), kw in zip(bench, sampled_requests())]
+    g = compile_grammar(regex_grammar(GR_REGEX), grammar_vocab(),
+                        eos_id=GR_EOS)
+    constrained = [(p, GR_NEW, dict(kw, grammar=g))
+                   for (p, _), kw in zip(bench, sampled_requests())]
+    rs = np.random.RandomState(6)
+    fam_len = KV_FAMILY_PAGES * PAGE
+    families = [rs.randint(1, 8000, (fam_len,)).tolist()
+                for _ in range(KV_FAMILIES)]
+    tiered = [(f + rs.randint(1, 8000, (3,)).tolist(), PFX_NEW, {})
+              for _ in range(2) for f in families]
+    tier_kw = dict(device="cuda", max_slots=1, max_len=MAX_LEN,
+                   max_prompt_len=fam_len + 8, prefill_chunk=PAGE,
+                   page_size=PAGE, prefix_cache=True,
+                   num_pages=KV_DEVICE_PAGES, host_pages=KV_HOST_PAGES)
+    dz_prompts, dz_sampling = disagg_requests()
+    dz_reqs = [(p, DZ_NEW, kw) for p, kw in zip(dz_prompts, dz_sampling)]
+
+    def mono(**knobs):
+        return lambda **extra: GenerationEngine(model, **base, **knobs,
+                                                **extra)
+
+    variants = (
+        ("float greedy", mono(), greedy),
+        ("float sampled", mono(), sampled),
+        ("int8 greedy", mono(**int8), greedy),
+        ("int8 sampled", mono(**int8), sampled),
+        ("grammar", mono(eos_id=GR_EOS), constrained),
+        ("prefix cache + host tier",
+         lambda **extra: GenerationEngine(model, **tier_kw, **extra), tiered),
+        ("disaggregated",
+         lambda **extra: DisaggregatedEngine(model, **dz_engine_kw(**extra)),
+         dz_reqs),
+    )
+    path = {}
+    for label, make, reqs in variants:
+        # float greedy runs sync, async, async, sync: the two schedulers'
+        # times are compared within one call, in turns
+        order = ((False, True, True, False) if label == "float greedy"
+                 else (False, True))
+        legs = {False: [], True: []}
+        for async_sched in order:
+            run = async_leg(
+                lambda **extra: make(async_scheduling=async_sched, **extra),
+                reqs)
+            legs[async_sched].append(run)
+            add_launches(path, run["launches"])
+        want = legs[False][0]["outs"]
+        equal = [sum(a == b for a, b in zip(r["outs"], want))
+                 for r in legs[True] + legs[False][1:]]
+        if label == "grammar":
+            assert all(g.matches(o) for o in want), "a stream does not parse"
+        if label == "prefix cache + host tier":
+            snap = legs[True][0]["snap"]
+            assert snap["kv_offload_pages"] > 0 and \
+                snap["kv_restore_pages"] > 0, snap
+        print(f"[engine-async] {label}: async streams equal to sync "
+              f"{min(equal)}/{len(reqs)}; B2 launches sync "
+              f"{legs[False][0]['launches']['flash_attention']} async "
+              f"{legs[True][0]['launches']['flash_attention']}; paged "
+              f"kernel launches sync "
+              f"{legs[False][0]['launches'][paged_name(legs[False][0])]} "
+              f"async {legs[True][0]['launches'][paged_name(legs[True][0])]}"
+              f" (riders {legs[True][0]['riders']})")
+        for async_sched in (False, True):
+            for i, run in enumerate(legs[async_sched]):
+                print(f"[engine-async] {label} "
+                      f"{'async' if async_sched else 'sync '} #{i + 1}: "
+                      f"{async_line(run)} on {card}")
+        assert min(equal) == len(reqs), (label, equal)
+        assert legs[True][0]["snap"]["overlapped_steps"] > 0, label
+        assert all(r["snap"]["overlapped_steps"] == 0 for r in legs[False])
+    for async_sched in (False, True):
+        with tempfile.TemporaryDirectory() as out_dir:
+            run = async_leg(lambda **extra: GenerationEngine(
+                model, **base, async_scheduling=async_sched, **extra),
+                greedy, profile_dir=out_dir)
+            share, dev_ms, kernels = trace_busy_share(out_dir)
+        add_launches(path, run["launches"])
+        assert kernels > 0, "the engine's profiler trace holds no kernel"
+        snap = run["snap"]
+        print(f"[engine-async] profiled window, "
+              f"{'async' if async_sched else 'sync'}: the first "
+              f"{ASYNC_PROFILE_ITERS} iterations of the float greedy run "
+              f"(torch.profiler through profile_dir): busy share "
+              f"{share * 100:.1f}% of the window, device ms "
+              f"{dev_ms:.3f} and {kernels:.0f} kernels an iteration; the "
+              f"run's step_device_ms {snap['step_device_ms']} over "
+              f"{snap['engine_steps']} iterations = "
+              f"{snap['step_device_ms'] / snap['engine_steps']:.3f} ms "
+              f"an iteration of kernel-call wall, not device time, on "
+              f"{card}")
+    dispatch_does_not_wait(model, card)
+    return path
+
+
+def paged_name(run) -> str:
+    return ("paged_attention_int8" if run["launches"]["paged_attention_int8"]
+            else "paged_attention")
+
+
+def dispatch_does_not_wait(model, card):
+    """With ~1 s of kernel planted on the stream, an async dispatch of the
+    serving width (greedy, then sampled under a grammar mask) returns at
+    once and its ticket's event has not completed: nothing in it waited
+    for the card."""
+    from bigdl_tpu_torch.grammar import compile_grammar, regex_grammar
+    from bigdl_tpu_torch.serving.engine import (
+        GenerationStream,
+        _GenRequest,
+        _SlotState,
+    )
+
+    engine = GenerationEngine(model, device="cuda", max_slots=SLOTS,
+                              max_len=MAX_LEN, max_prompt_len=MAX_PROMPT,
+                              page_size=PAGE, async_scheduling=True)
+    engine.warmup()
+    g = compile_grammar(regex_grammar(GR_REGEX), grammar_vocab(),
+                        eos_id=GR_EOS)
+    for label, temperature, grammar in (("greedy", 0.0, None),
+                                        ("sampled under a mask", 0.8, g)):
+        req = _GenRequest([5, 6, 7], 8, None, GenerationStream(),
+                          temperature=temperature, grammar=grammar)
+        st = _SlotState(req, [0], np.zeros(MAX_LEN // PAGE, np.int32), 0)
+        st.phase = "decode"
+        engine._temps[1] = temperature
+        if grammar is not None:
+            engine._bias[1] = g.bias_row(g.start_state)
+        engine._step_tokens[1], engine._step_positions[1] = 9, 3
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)
+        t0 = time.monotonic()
+        engine._dispatch_decode([(1, st)])
+        host_ms = (time.monotonic() - t0) * 1e3
+        ticket = engine._inflight
+        pending = not ticket.event.query()
+        t0 = time.monotonic()
+        ticket.land()
+        land_ms = (time.monotonic() - t0) * 1e3
+        engine._inflight = None
+        print(f"[engine-async] dispatch check, {label}: "
+              f"_dispatch_decode returned in {host_ms:.3f} ms with ~1 s of "
+              f"kernel queued ahead of it, ticket event pending={pending}; "
+              f"the landing then waited {land_ms:.1f} ms on {card}")
+        assert pending and host_ms < 200, (label, host_ms)
+    engine.close()
+
+
+def site_and_hook_us(iters=100_000):
+    """Host µs a call of a disarmed fault site and of the tracer=None
+    submit hook (best of three runs of ``iters`` calls)."""
+    out = []
+    for call in (lambda: faults.fire("engine.decode", engine=None),
+                 lambda: obs.submit_trace(None, "generate", prompt_len=7,
+                                          max_new_tokens=8, sampled=False)):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                call()
+            runs.append((time.perf_counter() - t0) / iters * 1e6)
+        out.append(min(runs))
+    return out
+
+
+def phase_engine_obs(card, model):
+    """The async engine with a tracer and a stall watchdog on the card:
+    a registry over its metrics, timeline, tracer, pool, the fault
+    injector and the flight recorder, scraped through ``/metrics`` and
+    ``/healthz`` on 127.0.0.1; tokens/s with neither, the tracer, both,
+    the watchdog, neither again (in turns, to read each one's cost); the
+    host cost of a disarmed fault site and of ``tracer=None``."""
+    base = dict(device="cuda", max_slots=SLOTS, max_len=MAX_LEN,
+                max_prompt_len=MAX_PROMPT, page_size=PAGE,
+                async_scheduling=True)
+    greedy = [(p, m, {}) for p, m in bench_requests()]
+    path = {}
+    runs = []
+    for label, traced, stall in (("plain", False, None),
+                                 ("tracer", True, None),
+                                 ("tracer + watchdog", True, 60.0),
+                                 ("watchdog", False, 60.0),
+                                 ("plain", False, None)):
+        tracer = obs.Tracer() if traced else None
+        run = async_leg(lambda **extra: GenerationEngine(
+            model, tracer=tracer, stall_timeout=stall, **base, **extra),
+            greedy)
+        run["tracer"], run["label"] = tracer, label
+        runs.append(run)
+        add_launches(path, run["launches"])
+    run = runs[2]
+    engine, tracer = run["engine"], run["tracer"]
+    reg = (obs.MetricsRegistry().register("serving", engine.metrics)
+           .register("timeline", engine.timeline).register("tracer", tracer)
+           .register("pages", engine._pool)
+           .register("faults", faults.default())
+           .register("recorder", obs.flight_recorder()))
+    flat = reg.collect()
+    for key in ("serving.step_host_ms", "serving.step_device_ms"):
+        assert math.isfinite(flat[key]) and flat[key] > 0, (key, flat[key])
+    assert flat["serving.served"] == N_REQUESTS == flat["tracer.finished"]
+    traces = sorted(tracer.finished(), key=lambda t: t.trace_id)
+    assert all(t.outcome == "done" for t in traces)
+    assert [t.spans[-1].count for t in traces] == \
+        [m - 1 for _, m, _ in greedy]
+    with obs.MetricsEndpoint(reg, health={
+            "engine": obs.engine_health(engine)}) as ep:
+        with urllib.request.urlopen(ep.url("/metrics"), timeout=10) as r:
+            body = r.read().decode()
+        with urllib.request.urlopen(ep.url("/healthz"), timeout=10) as r:
+            health = (r.status, json.loads(r.read().decode()))
+    assert body == obs.to_prometheus(flat), "the scrape is not the collect"
+    assert health[0] == 200 and health[1]["ok"], health
+    assert not [t for t in threading.enumerate()
+                if t.name == "bigdl-obs-endpoint"]
+    site_us, hook_us = site_and_hook_us()
+    longest = max(traces, key=lambda t: t.spans[-1].count)
+    print(f"[engine-obs] async engine with a tracer and a 60 s stall "
+          f"watchdog: {len(flat)} registry keys, {body.count(chr(10)) // 3} "
+          f"Prometheus gauges scraped from /metrics on 127.0.0.1, /healthz "
+          f"{health[0]}; step_host_ms={flat['serving.step_host_ms']} "
+          f"step_device_ms={flat['serving.step_device_ms']} "
+          f"step_host_frac={flat['serving.step_host_frac']:.4f} over "
+          f"{flat['serving.engine_steps']} iterations; {len(traces)} traces "
+          f"finished, watchdog stalls {engine._watchdog.stalls}")
+    print("[engine-obs] the longest request's trace:\n"
+          + obs.format_trace(longest))
+    print("[engine-obs] tokens/s of the async engine, in turns: " + ", ".join(
+        f"{r['label']} {r['tokens'] / r['wall']:.1f}" for r in runs)
+        + f"; a disarmed fault site {site_us:.3f} us and the tracer=None "
+        f"submit hook {hook_us:.3f} us a call on the card's host; {card}")
+    assert engine._watchdog.stalls == 0
+    return path
+
+
 def check_int8_logits(model, requests):
     """Card vs CPU teacher-forced logits of the int8 path, held under
     ``INT8_NOISE_FACTOR`` times the card's own noise reading (mean
@@ -3001,6 +3386,8 @@ def main() -> int:
     (paths["engine_grammar"], b2["external_bias"],
      paths["attention_external_bias"]) = phase_engine_grammar(
         card, model, narrow, verify_tol)
+    paths["engine_async"] = phase_engine_async(card, model)
+    paths["engine_obs"] = phase_engine_obs(card, model)
     del model, narrow, float_run, int8_run
     b1 = phase_b1(card)
     residual_launches = phase_train(card)

@@ -38,6 +38,33 @@ def jax_paged_kernels(jax_lm):
     return fast_kernels(PagedDecodeKernels(jax_lm[0]))
 
 
+@pytest.fixture(scope="session")
+def jax_spec(jax_lm):
+    """The speculative tests' JAX draft, ``Transformer(64, 16, 2, 32, 1)``
+    with seeded weights (``_jax_trees.seeded_trees``, seed 1), and one
+    JAX ``SpeculativeKernels`` over ``jax_lm`` and it, compiled at XLA
+    level 0 and shared by the speculative engine, trace and fault tests:
+    its four steps compile once. -> ``(draft, draft params, kernels)``."""
+    from _jax_trees import fast_kernels, seeded_trees
+    from bigdl_tpu.nn.layers.attention import Transformer
+    from bigdl_tpu.serving import SpeculativeKernels
+
+    draft = Transformer(64, 16, 2, 32, 1)
+    dparams, _ = seeded_trees(draft, seed=1)
+    return draft, dparams, fast_kernels(SpeculativeKernels(jax_lm[0], draft))
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_faults():
+    """The port's fault injector is process-global by design: a site one
+    test leaves armed must never fire inside another."""
+    from bigdl_tpu_torch import faults
+
+    faults.reset()
+    yield
+    faults.reset()
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _collect_module_garbage():
     """Collect each module's garbage (models, engines, autograd graphs)

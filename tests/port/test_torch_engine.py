@@ -248,21 +248,22 @@ class _GatedKernels(PagedDecodeKernels):
         self.fail = fail
         self.log = []
 
-    def chunk(self, cache, pages, *a):
+    def chunk(self, cache, pages, *a, **kw):
         self.log.append(("chunk", np.array(pages)))
-        return super().chunk(cache, pages, *a)
+        return super().chunk(cache, pages, *a, **kw)
 
-    def prefill(self, cache, pages, *a):
+    def prefill(self, cache, pages, *a, **kw):
         self.log.append(("prefill", np.array(pages)))
-        return super().prefill(cache, pages, *a)
+        return super().prefill(cache, pages, *a, **kw)
 
-    def decode(self, cache, tokens, positions, page_map, *sampling):
+    def decode(self, cache, tokens, positions, page_map, *sampling, **kw):
         self.log.append(("decode", np.array(page_map)))
         self.entered.set()
         assert self.gate.wait(RESULT_TIMEOUT)
         if self.fail is not None:
             raise self.fail
-        return super().decode(cache, tokens, positions, page_map, *sampling)
+        return super().decode(cache, tokens, positions, page_map, *sampling,
+                              **kw)
 
 
 def _engine(tm, kernels=None, **kw):

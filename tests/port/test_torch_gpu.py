@@ -42,7 +42,13 @@ CPU's bytes, and a scatter on another stream waits for its gather's
 event. Grammar-constrained decoding: B2 at the external-bias decode shape
 against its plain version (fp32 1e-4), the zero-bias arm (B2) against the
 unbiased one (B3) within the same 1e-4, a mask upload that does not wait
-for queued kernels, and constrained engine == static on the card.
+for queued kernels, and constrained engine == static on the card. Async
+scheduling: the async engine's streams equal the synchronous engine's
+exactly on the card (float and int8, greedy and sampled), an async
+dispatch with ~1 s of kernel queued ahead of it returns with its ticket's
+event pending (every input went up from pinned memory), and the async
+engine with a tracer reports finite, non-zero host and kernel-call
+milliseconds through a metrics registry.
 """
 
 import math
@@ -1240,9 +1246,9 @@ def test_a_grammar_mask_upload_does_not_wait_for_queued_kernels(cuda):
     """The engine's mask rows go up from a pinned stage without blocking:
     with ~1 s of kernel queued, the upload returns at once, and the rows
     land intact once the card is done."""
-    from bigdl_tpu_torch.serving.engine import _BiasStage
+    from bigdl_tpu_torch.serving.engine import _HostStage, _stage_bytes
 
-    stage = _BiasStage(8, 8192, cuda)
+    stage = _HostStage(cuda, _stage_bytes(8, 16, 8192, 16), depth=3)
     rows = np.random.RandomState(0).randn(8, 8192).astype(np.float32)
     stage.upload(np.zeros_like(rows))
     torch.cuda.synchronize()
@@ -1284,3 +1290,115 @@ def test_grammar_engine_on_card(cuda):
         page_size=8, eos_id=3,
         sampling=[dict(kw, grammar=gr) for _, gr, kw in specs])
     assert static == outs
+
+
+def _async_workload():
+    rs = np.random.RandomState(11)
+    return [(rs.randint(1, 128, (int(rs.randint(2, 12)),)).tolist(),
+             int(rs.choice([4, 20])),
+             dict(temperature=0.8, top_k=20, seed=i) if i % 2 else {})
+            for i in range(12)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [{}, dict(quantize="int8",
+                                            cache_dtype=torch.int8)],
+                         ids=["float", "int8"])
+def test_async_scheduling_on_card_keeps_the_streams(cuda, quant):
+    """Async dispatch on the card gives the synchronous engine's streams,
+    greedy and sampled, float and int8, chunked prompts included; its
+    steps overlapped, and its pools drain."""
+    model = Transformer(128, 64, 4, 128, 2, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    cfg = dict(max_slots=4, max_len=48, page_size=8, prefill_chunk=8,
+               **quant)
+    outs, snaps = [], []
+    for async_sched in (False, True):
+        engine = GenerationEngine(model, async_scheduling=async_sched, **cfg)
+        engine.warmup()
+        streams = [engine.submit(p, max_new_tokens=m, **kw)
+                   for p, m, kw in _async_workload()]
+        outs.append([s.result(120) for s in streams])
+        engine.close()
+        snaps.append(engine.metrics.snapshot())
+        assert engine.pages_in_use == 0
+    assert outs[1] == outs[0]
+    assert snaps[0]["overlapped_steps"] == 0 < snaps[1]["overlapped_steps"]
+
+
+@pytest.mark.gpu
+def test_async_dispatch_does_not_wait_for_the_card(cuda):
+    """With ~1 s of kernel planted on the stream, an async dispatch, greedy
+    and then sampled under a grammar mask, returns at once and its
+    ticket's event has not completed: every input went up from pinned
+    memory without blocking. The tokens it lands are the synchronous
+    step's."""
+    from bigdl_tpu_torch.grammar import compile_grammar, regex_grammar
+    from bigdl_tpu_torch.serving.engine import (
+        GenerationStream,
+        _GenRequest,
+        _SlotState,
+    )
+
+    model = Transformer(128, 64, 4, 128, 2, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    engine = GenerationEngine(model, max_slots=4, max_len=48, page_size=8,
+                              async_scheduling=True)
+    engine.warmup()
+    vocab = [chr(i) if 32 <= i < 127 else f"<tok{i}>" for i in range(128)]
+    g = compile_grammar(regex_grammar("id-[0-9][0-9][0-9]"), vocab)
+    for temperature, grammar in ((0.0, None), (0.8, g)):
+        req = _GenRequest([5, 6, 7], 8, None, GenerationStream(),
+                          temperature=temperature, grammar=grammar)
+        st = _SlotState(req, [0], np.zeros(6, np.int32), 0)
+        st.phase = "decode"
+        engine._temps[1] = temperature
+        if grammar is not None:
+            engine._bias[1] = g.bias_row(g.start_state)
+        engine._step_tokens[1], engine._step_positions[1] = 9, 3
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)
+        t0 = time.monotonic()
+        engine._dispatch_decode([(1, st)])
+        host_s = time.monotonic() - t0
+        ticket = engine._inflight
+        assert not ticket.event.query(), "the dispatch waited for the card"
+        assert host_s < 0.2, host_s
+        landed = ticket.land()
+        engine._inflight = None
+        assert landed.shape == (4,)
+    engine.close()
+
+
+@pytest.mark.gpu
+def test_async_engine_with_a_tracer_reports_its_split(cuda):
+    """The async engine with a tracer, scraped through a registry: finite,
+    non-zero host and kernel-call milliseconds, one trace per request with
+    its decode steps counted, and a Prometheus text that names them."""
+    from bigdl_tpu_torch import obs
+
+    model = Transformer(128, 64, 4, 128, 2, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    tracer = obs.Tracer()
+    engine = GenerationEngine(model, max_slots=4, max_len=48, page_size=8,
+                              async_scheduling=True, tracer=tracer,
+                              stall_timeout=60.0)
+    engine.warmup()
+    reg = (obs.MetricsRegistry().register("serving", engine.metrics)
+           .register("timeline", engine.timeline).register("tracer", tracer))
+    streams = [engine.submit(p, max_new_tokens=m)
+               for p, m, _ in _async_workload()]
+    for s in streams:
+        s.result(120)
+    engine.close()
+    flat = reg.collect()
+    for key in ("serving.step_host_ms", "serving.step_device_ms",
+                "timeline.host_ms_total", "timeline.decode_ms_total"):
+        assert math.isfinite(flat[key]) and flat[key] > 0, key
+    assert flat["serving.overlapped_steps"] > 0
+    assert flat["tracer.finished"] == len(streams)
+    traces = sorted(tracer.finished(), key=lambda t: t.trace_id)
+    assert all(t.outcome == "done" for t in traces)
+    assert [t.spans[-1].count for t in traces] == \
+        [m - 1 for _, m, _ in _async_workload()]
+    assert "bigdl_serving_step_device_ms" in obs.to_prometheus(flat)

@@ -630,10 +630,13 @@ def test_itl_and_grammar_metrics_rows_append_after_the_kv_tier_block():
     m.record_masked_frac(1.0)
     snap = m.snapshot()
     keys = list(snap)
-    at = keys.index("host_pages_peak") + 1
-    assert keys[at:] == ["itl_ms", "itl_samples", "failed",
-                         "constrained_streams", "grammar_compile_cache_hits",
+    # the JAX package's order: ITL after the prefix block, failed after
+    # expired, the grammar block last
+    at = keys.index("prefill_chunks_skipped") + 1
+    assert keys[at:at + 2] == ["itl_ms", "itl_samples"]
+    assert keys[keys.index("expired") + 1] == "failed"
+    assert keys[-3:] == ["constrained_streams", "grammar_compile_cache_hits",
                          "masked_vocab_frac"]
     assert snap["itl_samples"] == 5
     assert snap["itl_ms"]["p50"] == pytest.approx(5.0, abs=1.0)
-    assert [snap[k] for k in keys[at + 2:]] == [1, 1, 1, 0.75]
+    assert [snap[k] for k in ["failed"] + keys[-3:]] == [1, 1, 1, 0.75]

@@ -25,9 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _jax_trees import fast_kernels
 from bigdl_tpu.serving import GenerationEngine as JaxEngine
-from bigdl_tpu.serving import PagedDecodeKernels as JaxPagedDecodeKernels
 from bigdl_tpu_torch.interop import export_params, load_jax_params
 from bigdl_tpu_torch.nn import Transformer
 from bigdl_tpu_torch.nn.module import flatten_tree
@@ -74,11 +72,13 @@ def int8_streams(lm):
 
 
 @pytest.fixture(scope="module")
-def jax_int8_streams(lm):
+def jax_int8_streams(lm, jax_paged_kernels):
+    """The JAX int8 engine's streams, through the session's shared JAX
+    kernel set: its int8 executables serve the async-scheduling parity
+    test's JAX int8 engines too."""
     jm, params, _, requests = lm
     outs = _run(JaxEngine(jm, params, quantize="int8", cache_dtype="int8",
-                          kernels=fast_kernels(JaxPagedDecodeKernels(jm)),
-                          **CFG), requests)
+                          kernels=jax_paged_kernels, **CFG), requests)
     # the JAX engine's finalizer takes a lock: collect the engine here,
     # on this thread, and not wherever the collector next runs
     gc.collect()
@@ -192,10 +192,10 @@ class _GatedKernels(PagedDecodeKernels):
         self.gate = threading.Event()
         self.entered = threading.Event()
 
-    def decode(self, *args):
+    def decode(self, *args, **kw):
         self.entered.set()
         assert self.gate.wait(RESULT_TIMEOUT)
-        return super().decode(*args)
+        return super().decode(*args, **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float32])

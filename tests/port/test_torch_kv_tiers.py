@@ -463,7 +463,9 @@ def test_kv_tier_metrics_rows_follow_the_prefix_block():
     m.set_host_pages(1, 100)
     snap = m.snapshot()
     keys = list(snap)
-    at = keys.index("prefill_chunks_skipped") + 1
+    # the JAX package's order: prefix block, ITL block, then the tier's
+    at = keys.index("itl_samples") + 1
+    assert keys[at - 3] == "prefill_chunks_skipped"
     assert keys[at:at + 8] == ["kv_offload_pages", "kv_restore_pages",
                                "kv_offload_dropped", "kv_swaps_out",
                                "kv_swaps_in", "host_pages", "host_bytes",

@@ -109,16 +109,20 @@ def test_errors_carry_jax_messages():
 def test_metrics_snapshot_counts():
     m = ServingMetrics()
     assert m.snapshot()["ttft_ms"] is None
-    m.record_prefill(0.010)
-    m.record_prefill(0.030)
-    m.record_chunk()
-    m.record_decode_step(2)
+    m.record_prefill(3, 4, 0.010)
+    m.record_prefill(5, 8, 0.030)
+    m.record_chunk(4, 4)
+    m.record_decode_step(2, 4)
     m.set_pages(6, 10)
     m.set_pages(2, 10)
-    m.record_served()
+    m.record_served(0.05, 0.01)
     snap = m.snapshot()
     assert snap["prefills"] == 2 and snap["prefill_chunks"] == 1
     assert snap["decode_steps"] == 1 and snap["tokens_out"] == 4
+    assert snap["slot_occupancy"] == pytest.approx(0.5)
+    assert snap["prompt_padding_waste"] == pytest.approx(4 / 16)
+    assert snap["latency_ms"]["p50"] == pytest.approx(50.0)
+    assert snap["queue_wait_ms"]["p50"] == pytest.approx(10.0)
     assert snap["pages_in_use"] == 2 and snap["pages_peak"] == 6
     assert snap["ttft_ms"]["p50"] == pytest.approx(20.0)
     assert snap["ttft_ms"]["p99"] == pytest.approx(29.8)
@@ -135,20 +139,24 @@ def test_metrics_quantized_serving_gauges():
     snap = m.snapshot()
     assert (snap["kv_bytes_in_use"], snap["kv_cache_dtype"],
             snap["quantized_gemms"]) == (4096, "int8", 25)
-    # the quantized block follows the page gauges; the sampled,
-    # speculative, prefix-cache, KV-tier, ITL and grammar rows of later
-    # slices append after it
+    # the quantized block follows the page gauges; the speculative,
+    # step-timeline, prefix-cache, ITL, KV-tier, async and grammar rows
+    # append after it, in the JAX package's order
     keys = list(snap)
-    at = keys.index("pages_peak") + 1
+    at = keys.index("page_occupancy") + 1
+    assert keys[at - 2] == "pages_peak"
     assert keys[at:at + 3] == ["kv_bytes_in_use", "kv_cache_dtype",
                                "quantized_gemms"]
-    assert keys[at + 3:] == ["sampled_tokens", "draft_tokens",
+    assert keys[at + 3:] == ["draft_tokens",
                              "accepted_tokens", "acceptance_rate",
-                             "verify_steps"] + ["prefix_hits", "prefix_misses",
-        "prefix_hit_rate", "shared_pages", "prefill_chunks_skipped",
+                             "verify_steps"] + ["engine_steps",
+        "step_host_ms", "step_device_ms", "step_host_frac"] + [
+        "prefix_hits", "prefix_misses",
+        "prefix_hit_rate", "shared_pages", "prefill_chunks_skipped"] + [
+        "itl_ms", "itl_samples"] + [
         "kv_offload_pages", "kv_restore_pages", "kv_offload_dropped",
         "kv_swaps_out", "kv_swaps_in", "host_pages", "host_bytes",
-        "host_pages_peak"] + ["itl_ms", "itl_samples", "failed",
+        "host_pages_peak"] + ["overlapped_steps", "step_overlap_frac"] + [
         "constrained_streams", "grammar_compile_cache_hits",
         "masked_vocab_frac"]
 
@@ -158,6 +166,6 @@ def test_metrics_reservoir_is_bounded_and_replays():
     for _ in range(2):
         m = ServingMetrics(reservoir_size=8)
         for i in range(100):
-            m.record_prefill(i / 1000)
+            m.record_prefill(1, 1, i / 1000)
         runs.append(m.snapshot()["ttft_ms"])
     assert runs[0] == runs[1] and len(m._ttft.values) == 8

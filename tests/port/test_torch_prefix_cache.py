@@ -540,7 +540,10 @@ def test_prefix_metrics_rows_follow_the_speculative_block():
     m.set_shared_pages(6)
     snap = m.snapshot()
     keys = list(snap)
-    at = keys.index("verify_steps") + 1
+    # the JAX package's order: speculative block, step-timeline block,
+    # then the prefix block
+    assert keys[keys.index("verify_steps") + 1] == "engine_steps"
+    at = keys.index("step_host_frac") + 1
     assert keys[at:at + 5] == ["prefix_hits", "prefix_misses",
                                "prefix_hit_rate", "shared_pages",
                                "prefill_chunks_skipped"]

@@ -30,11 +30,9 @@ import numpy as np
 import pytest
 import torch
 
-from _jax_trees import compile_fast, fast_kernels, seeded_trees
-from bigdl_tpu.nn.layers.attention import Transformer as JaxTransformer
+from _jax_trees import compile_fast
 from bigdl_tpu.nn.quantized import quantize_for_serving as jax_quantize
 from bigdl_tpu.serving import GenerationEngine as JaxEngine
-from bigdl_tpu.serving import SpeculativeKernels as JaxSpeculativeKernels
 from bigdl_tpu_torch.interop import export_params, load_jax_params
 from bigdl_tpu_torch.nn import Transformer
 from bigdl_tpu_torch.nn.layers import attention as attention_layers
@@ -60,10 +58,9 @@ RESULT_TIMEOUT = 60
 
 
 @pytest.fixture(scope="module")
-def lm(jax_lm):
+def lm(jax_lm, jax_spec):
     jm, params = jax_lm       # JaxTransformer(64, 32, 4, 64, 2), key(2)
-    jd = JaxTransformer(64, 16, 2, 32, 1)
-    dparams, _ = seeded_trees(jd, seed=1)
+    jd, dparams, _ = jax_spec  # JaxTransformer(64, 16, 2, 32, 1), seed 1
     tm = load_jax_params(Transformer(64, 32, 4, 64, 2, device="cpu"),
                          jax.device_get(params))
     td = load_jax_params(Transformer(64, 16, 2, 32, 1, device="cpu"),
@@ -488,9 +485,9 @@ def test_speculate_knob_validation(lm):
 
 def test_speculative_metrics_rows_append_after_existing():
     m = ServingMetrics()
-    m.record_prefill(0.002)
-    m.record_decode_step(3)
-    m.record_chunk()
+    m.record_prefill(2, 2, 0.002)
+    m.record_decode_step(3, 4)
+    m.record_chunk(4, 4)
     m.set_pages(5, 32)
     m.set_kv_cache(4096, "int8")
     m.set_quantized_gemms(13)
@@ -499,19 +496,26 @@ def test_speculative_metrics_rows_append_after_existing():
     snap = m.snapshot()
     keys = list(snap)
     assert keys[:keys.index("quantized_gemms") + 1] == [
-        "served", "rejected", "expired", "prefills", "decode_steps",
-        "tokens_out", "ttft_ms", "prefill_chunks", "pages_in_use",
-        "pages_total", "pages_peak", "kv_bytes_in_use", "kv_cache_dtype",
-        "quantized_gemms"]
-    # the prefix-cache, KV-tier, ITL and grammar rows append after the
-    # speculative block
+        "served", "rejected", "expired", "failed", "forwards",
+        "queue_depth", "batch_size_dist", "mean_batch_size",
+        "padding_waste", "latency_ms", "queue_wait_ms", "latency_samples",
+        "prefills", "decode_steps", "tokens_out", "slot_occupancy",
+        "prompt_padding_waste", "ttft_ms", "stream_tokens_per_sec",
+        "prefill_chunks", "sampled_tokens", "pages_in_use", "pages_total",
+        "pages_peak", "page_occupancy", "kv_bytes_in_use",
+        "kv_cache_dtype", "quantized_gemms"]
+    # the step-timeline, prefix-cache, ITL, KV-tier, async and grammar
+    # rows append after the speculative block, in the JAX package's order
     assert keys[keys.index("quantized_gemms") + 1:] == [
-        "sampled_tokens", "draft_tokens", "accepted_tokens",
-        "acceptance_rate", "verify_steps"] + ["prefix_hits", "prefix_misses",
-        "prefix_hit_rate", "shared_pages", "prefill_chunks_skipped",
+        "draft_tokens", "accepted_tokens",
+        "acceptance_rate", "verify_steps"] + ["engine_steps",
+        "step_host_ms", "step_device_ms", "step_host_frac"] + [
+        "prefix_hits", "prefix_misses",
+        "prefix_hit_rate", "shared_pages", "prefill_chunks_skipped"] + [
+        "itl_ms", "itl_samples"] + [
         "kv_offload_pages", "kv_restore_pages", "kv_offload_dropped",
         "kv_swaps_out", "kv_swaps_in", "host_pages", "host_bytes",
-        "host_pages_peak"] + ["itl_ms", "itl_samples", "failed",
+        "host_pages_peak"] + ["overlapped_steps", "step_overlap_frac"] + [
         "constrained_streams", "grammar_compile_cache_hits",
         "masked_vocab_frac"]
     assert snap["draft_tokens"] == 8 and snap["accepted_tokens"] == 5
@@ -545,7 +549,7 @@ def test_page_pool_owner_tagging_unit():
 # ------------------------------------------------- against the JAX engine ----
 
 
-def test_sampled_streams_match_jax_speculative_engine(lm):
+def test_sampled_streams_match_jax_speculative_engine(lm, jax_spec):
     """Top-k sampled requests through the JAX speculative engine and the
     port's, on the same weights and seed: stream for stream. Every draw
     here is a pick from a top-k=8 set or an accept test; the logits agree
@@ -559,8 +563,7 @@ def test_sampled_streams_match_jax_speculative_engine(lm):
     knobs = dict(temperature=0.8, top_k=8)
     cfg = dict(max_slots=SLOTS, max_len=MAXLEN, page_size=PAGE, seed=5)
     jengine = JaxEngine(jm, params, speculate=(jd, dparams, 2),
-                        kernels=fast_kernels(JaxSpeculativeKernels(jm, jd)),
-                        **cfg)
+                        kernels=jax_spec[2], **cfg)
     want = _run(jengine, requests, **knobs)
     del jengine
     # the JAX engine's finalizer takes a lock: collect it on this thread
