@@ -16,7 +16,11 @@ speculative (``speculate=(draft_model, k)``), float or int8, with a
 prefix cache, a host KV tier, prefill/decode roles, grammar masks and
 async scheduling, observed through ``obs`` (step timeline, request
 traces, a metrics registry served as Prometheus text) and exercised
-through ``faults`` (fault sites, a stall watchdog);
+through ``faults`` (fault sites, a stall watchdog), over paged or dense
+K/V lanes, its weights hot-reloadable; request serving
+(``serving.InferenceService`` over a ``DynamicBatcher``, with B1 on a
+served ResNet, ``serving.ModelRouter``, ``optim.Predictor``) of float or
+``nn.quantized.quantize``-rewritten int8 models;
 single-device training (``optim.optimizer``, ``optim.SGD``,
 ``dataset.DataSet.tensors``) of the ResNets in ``models.resnet``, with
 kernel B1 (the residual add) under ``BIGDL_RESIDUAL_ADD=pallas``, and of

@@ -26,3 +26,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "card by default; pass device='cpu' to run the plain PyTorch "
             "path on the CPU")
     return dev
+
+
+def module_device(module, device: DeviceLike = None) -> torch.device:
+    """The device ``module``'s parameters live on, checked against the
+    entry point's ``device`` (default ``cuda``): a mismatch raises rather
+    than moving the weights behind the caller's back."""
+    dev = resolve_device(device)
+    have = next(module.parameters()).device
+    if have.type != dev.type or (dev.index is not None
+                                 and have.index != dev.index):
+        raise ValueError(f"model parameters live on {have}, the entry "
+                         f"point runs on {dev}: build the model with "
+                         f"device={str(dev)!r} or move it with .to()")
+    return have

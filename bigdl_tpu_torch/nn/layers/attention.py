@@ -15,15 +15,19 @@ differences from the JAX code:
   functionally: the port keeps one pool per layer for the engine's
   lifetime and never copies it, which is the memory the JAX package
   recovers by donating the cache to every jitted call;
-- the step API ported is the language model's paged one:
+- the step API has the language model's two caches. Paged:
   ``init_paged_cache``, ``prefill_paged`` (prompt chunks),
   ``decode_step_paged`` (one token per slot) and ``decode_verify_paged``
   (the speculative verify step: W candidate rows per slot, which takes
   no external bias), with float or int8 pools. ``Attention`` in its
   paged decode arm composes an external ``(S, 1, 1, L)`` bias with the
   validity mask over the gathered lanes (B2 on a card; the plain paged
-  attention's bits on the CPU for an all-zero bias). The dense
-  slot-table cache comes with a later slice.
+  attention's bits on the CPU for an all-zero bias). Dense (the slot
+  table, float lanes): ``init_cache``, ``prefill`` (one padded prompt
+  into a slot's lane) and ``decode_step``; the lanes, like the pools,
+  update in place, and every dense call attends through B2 on a card
+  under the -1e9 validity bias (column 0 is always valid, so B2's
+  zero-sum row is never reached there).
 
 In training mode the forward takes a threefry key (``model(ids,
 rng=key)``); every dropout draws its mask from it under its JAX module
@@ -116,19 +120,24 @@ class Attention(nn.Module):
         return t.transpose(1, 2).reshape(b, s, h * d)
 
     def forward(self, x, bias: Optional[torch.Tensor] = None,
-                causal: bool = False, cache_index=None, paged=None,
-                write_len: Optional[int] = None, rng=None):
+                causal: bool = False, cache=None, cache_index=None,
+                paged=None, write_len: Optional[int] = None, rng=None):
         x, y = x if isinstance(x, (tuple, list)) else (x, x)
         q = self._split_heads(self.q_layer(x))
         k = self._split_heads(self.k_layer(y))
         v = self._split_heads(self.v_layer(y))
         if paged is None:
+            if cache is not None:
+                k, v, validity = _write_lanes(cache, cache_index, k, v)
+                bias = validity if bias is None else bias + validity
+                causal = False
             drop = self.attention_dropout if self.training else 0.0
             key = (draw_key(RngContext.of(rng, self), self) if drop > 0.0
                    else None)
             out = dot_product_attention(q, k, v, bias, causal=causal,
                                         dropout_rate=drop, dropout_key=key)
-            return self.output_layer(self._join_heads(out))
+            out = self.output_layer(self._join_heads(out))
+            return out if cache is None else (out, cache)
 
         # Block-table KV cache: pools "k"/"v" (num_pages, H, page_size, D)
         # and "map", int32 physical-page ids. New K/V rows are scattered
@@ -241,6 +250,39 @@ class Attention(nn.Module):
         return out, ((pk, pv, pks, pvs) if int8_kv else (pk, pv))
 
 
+def _write_lanes(cache, cache_index, k, v):
+    """The dense slot-table cache's write: K/V rows (B, H, Sq, D) into the
+    lanes ``cache`` = (K, V), each (B, H, L, D), in place, at the row
+    offsets ``cache_index`` (a scalar, or (B,) per-slot offsets for
+    continuous batching); a write that would run past the lane end starts
+    where it fits, as ``dynamic_update_slice`` clamps. Returns the lanes
+    and the validity bias: key col j is valid for query row i iff
+    ``j <= cache_index + i``, 0 for valid and -1e9 otherwise, (1, 1, Sq,
+    L) or (B, 1, Sq, L)."""
+    ck, cv = cache
+    sq, lane = k.shape[2], ck.shape[2]
+    t = torch.arange(sq, device=k.device)
+    cols = torch.arange(lane, device=k.device)
+    if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
+        idx = cache_index.long()
+        at = idx.clamp(0, lane - sq)[:, None] + t[None, :]      # (B, Sq)
+        slots = torch.arange(ck.shape[0], device=k.device)[:, None]
+        ck[slots, :, at] = k.transpose(1, 2).to(ck.dtype)
+        cv[slots, :, at] = v.transpose(1, 2).to(cv.dtype)
+        rows = idx[:, None] + t[None, :]
+        validity = torch.where(cols[None, None, :] <= rows[:, :, None],
+                               0.0, -1e9)[:, None]              # (B,1,Sq,L)
+    else:
+        idx = 0 if cache_index is None else int(cache_index)
+        at = min(max(idx, 0), lane - sq)
+        ck[:, :, at:at + sq] = k.to(ck.dtype)
+        cv[:, :, at:at + sq] = v.to(cv.dtype)
+        rows = idx + t[:, None]
+        validity = torch.where(cols[None, :] <= rows, 0.0,
+                               -1e9)[None, None]                # (1,1,Sq,L)
+    return ck, cv, validity
+
+
 def _scatter_rows(pool, scales, pg, row, rows):
     """Write K or V ``rows`` (N, H, D) into ``pool`` at (page ``pg``, row
     ``row``) in place; for an int8 pool, quantize them and write their
@@ -327,9 +369,9 @@ class TransformerLayer(nn.Module):
             generator=gen))
 
     def forward(self, x, bias=None, causal=False, encoder_output=None,
-                encoder_bias=None, cache_index=None, paged=None,
+                encoder_bias=None, cache=None, cache_index=None, paged=None,
                 write_len=None, rng=None):
-        out = self.self_attention(x, bias=bias, causal=causal,
+        out = self.self_attention(x, bias=bias, causal=causal, cache=cache,
                                   cache_index=cache_index, paged=paged,
                                   write_len=write_len, rng=rng)
         new_cache = None
@@ -471,6 +513,71 @@ class Transformer(nn.Module):
             dec = layer(dec, causal=True, encoder_output=enc,
                         encoder_bias=src_bias, rng=rng)
         return self._logits(self.final_norm(dec))
+
+    # ------------------------------------------------- dense decoding ----
+    # The slot-table step API: one (max_slots, H, max_len, D) K/V lane
+    # table per layer, a slot per sequence. The JAX package keeps it as
+    # the paged engine's baseline; a lane's valid rows hold the bits a
+    # page map would gather, so dense and paged steps give the same
+    # logits.
+
+    def init_cache(self, max_slots: int, max_len: int,
+                   dtype: torch.dtype = torch.float32) -> Cache:
+        """Zeroed per-layer K/V slot table ``{layer: (K, V)}`` with K/V of
+        shape ``(max_slots, num_heads, max_len, head_dim)`` on the
+        model's device. A lane is read only through the validity mask, so
+        a freed slot's stale rows stay invisible until a prefill
+        overwrites them."""
+        if self.transformer_type != LANGUAGE_MODEL:
+            raise ValueError("incremental decoding needs a language_model "
+                             "transformer (decoder-only)")
+        if not dtype.is_floating_point:
+            raise ValueError(f"cache dtype {dtype}: the dense lanes are "
+                             f"float (int8 KV lives in the paged pools)")
+        shape = (max_slots, self.num_heads, max_len,
+                 self.hidden_size // self.num_heads)
+        return {name: (torch.zeros(shape, dtype=dtype, device=self.device),
+                       torch.zeros(shape, dtype=dtype, device=self.device))
+                for name, _ in self._decoders()}
+
+    def prefill(self, cache: Cache, slot: int, tokens, length: int):
+        """Run one padded prompt ``tokens`` (P,) through the decoder,
+        writing its K/V into rows 0..P-1 of ``slot``'s lanes (the padding
+        rows too: they stay masked until decode steps overwrite them).
+        Returns ``(next-token logits (vocab,), cache)``, the logits read
+        at row ``length - 1``, the last real token. The lanes update in
+        place."""
+        tokens = self._as_ids(tokens)
+        slot, n = int(slot), tokens.shape[0]
+        max_len = next(iter(cache.values()))[0].shape[2]
+        x = self.embedding[tokens][None] * (self.hidden_size ** 0.5)
+        x = self.embed_drop(x + self._positions(max_len, x.dtype)[:n][None])
+        for name, layer in self._decoders():
+            ck, cv = cache[name]
+            x, _ = layer(x, cache=(ck[slot:slot + 1], cv[slot:slot + 1]),
+                         cache_index=0)
+        h = self.final_norm(x[:, int(length) - 1:int(length)])
+        return self._logits(h)[0, 0], cache
+
+    def decode_step(self, cache: Cache, tokens, positions):
+        """One decode step for every slot: ``tokens``/``positions`` (S,)
+        each slot's current token and the lane row it writes. Returns
+        ``(logits (S, vocab), cache)``; rows are independent of each
+        other, and the lanes update in place."""
+        tokens = self._as_ids(tokens)
+        positions = torch.as_tensor(positions, device=self.device).to(
+            torch.int32)
+        max_len = next(iter(cache.values()))[0].shape[2]
+        x = self.embedding[tokens][:, None, :] * (self.hidden_size ** 0.5)
+        # a finished slot of a static batch steps on at max_len: its row
+        # reads the last position (a JAX gather clamps) and is discarded
+        at = positions.long().clamp(0, max_len - 1)
+        x = x + self._positions(max_len, x.dtype)[at][:, None, :]
+        for name, layer in self._decoders():
+            x, cache[name] = layer(x, cache=cache[name],
+                                   cache_index=positions)
+        x = self.final_norm(x)
+        return self._logits(x)[:, 0, :], cache
 
     # ------------------------------------------------- paged decoding ----
     # The serving step API: a shared pool of fixed-size KV pages per layer

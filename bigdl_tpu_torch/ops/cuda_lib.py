@@ -88,6 +88,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildResult]:
         return _build_locked(names)
 
 
+# nvcc processes started in this process: a hot reload, for one, must
+# leave it where it was
+build.count = 0
+
+
 def _build_locked(names) -> Dict[str, BuildResult]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     results: Dict[str, BuildResult] = {}
@@ -106,6 +111,7 @@ def _build_locked(names) -> Dict[str, BuildResult]:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, so, log)
+        build.count += 1
     failures = []
     for name, (proc, tmp, so, log) in running.items():
         output, _ = proc.communicate()

@@ -381,6 +381,11 @@ class PrefillWorker:
         inner.add_done_callback(relay)
         return fut
 
+    def reload(self, params, state=None) -> None:
+        """Hot-swap the prefill engine's weights
+        (:meth:`GenerationEngine.reload`)."""
+        self.engine.reload(params, state)
+
     def _on_handoff(self, payload: dict) -> None:
         ctx = payload.pop("tag")
         block = _gather_handoff(self.engine, payload)

@@ -1,5 +1,5 @@
 """GenerationEngine — continuous-batching generation over a paged KV cache
-(``bigdl_tpu/serving/engine.py``, paged greedy path).
+or dense K/V lanes (``bigdl_tpu/serving/engine.py``).
 
 The unit of scheduling is ONE decode step. A loop thread admits pending
 prompts into free slots between steps, advances one prompt chunk per
@@ -111,12 +111,27 @@ is discarded. The streams are the synchronous engine's, bit for bit. A
 speculative engine keeps the synchronous path (the verify round's accept
 count is a host decision the next round's first draft step needs).
 
+Dense lanes: ``page_size=0``, ``kernels=DecodeKernels(model)`` or a model
+without the paged API gives the JAX package's baseline engine: one
+``(max_slots, H, max_len, D)`` K/V lane per slot and layer
+(``Transformer.init_cache``), a whole prompt per call (``max_prompt_len``
+defaults to ``max_len // 2``), greedy, with B2 on every prompt call and
+every decode step on a card. It refuses, in the JAX engine's words,
+sampling, grammars, int8 lanes, roles, the host tier, the prefix cache
+and speculation; int8 weights on float lanes are served. Its greedy
+streams are the paged engine's.
+
+Hot reload: ``reload(params)`` swaps in a float parameter tree between
+iterations (re-quantized for a ``quantize="int8"`` engine) and, with the
+prefix cache, drops the pages the old weights wrote.
+
 Tensor parallelism comes with a later slice.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import logging
 import os
 import queue as _queue
@@ -131,12 +146,13 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch import faults
-from bigdl_tpu_torch.core.device import DeviceLike, resolve_device
+from bigdl_tpu_torch.core.device import DeviceLike, module_device
 from bigdl_tpu_torch.core.rng import request_seed, threefry_key_data
 from bigdl_tpu_torch.faults import StallError, Watchdog
 from bigdl_tpu_torch.nn.quantized import (
     count_quantized_gemms,
     quantize_for_serving,
+    quantize_tree_for_serving,
 )
 from bigdl_tpu_torch.obs.timeline import StepTimeline
 from bigdl_tpu_torch.obs.trace import submit_trace
@@ -145,6 +161,7 @@ from bigdl_tpu_torch.ops.sampling import (
     biased_logits,
     check_temperature,
     draft_sample,
+    greedy_tokens,
     position_sample,
     sample_tokens,
     speculative_sample,
@@ -164,31 +181,33 @@ from bigdl_tpu_torch.serving.paging import (
     pages_per_lane,
 )
 from bigdl_tpu_torch.serving.prefix_cache import PrefixCache
+from bigdl_tpu_torch.serving.service import (
+    apply_staged,
+    require_matching_signature,
+    stage,
+)
 
 log = logging.getLogger("bigdl_tpu_torch.serving")
 
 _SENTINEL = object()
 
-
-def _model_device(model, device: DeviceLike) -> torch.device:
-    dev = resolve_device(device)
-    have = next(model.parameters()).device
-    if have.type != dev.type or (dev.index is not None
-                                 and have.index != dev.index):
-        raise ValueError(f"model parameters live on {have}, the engine "
-                         f"runs on {dev}: build the model with "
-                         f"device={str(dev)!r} or move it with .to()")
-    return have
+# the modules that engines given a caller's kernels serve in place, each
+# with those engines: a reload copies into the module, so it is refused
+# while another live engine serves the same one (whose steps would read
+# a mix of old and new layers)
+_SERVED_IN_PLACE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _serving_model(model, quantize: Optional[str], kernels):
-    """The model the kernels run: ``model`` itself, or for
-    ``quantize="int8"`` its ``quantize_for_serving`` copy."""
+    """The model the kernels run: the engine's own copy of ``model`` (a
+    reload writes its tensors and no one else's), ``model`` itself when
+    the caller built the kernels over it, or for ``quantize="int8"`` its
+    ``quantize_for_serving`` copy."""
     if quantize not in (None, "int8"):
         raise ValueError(f"quantize must be None or 'int8', "
                          f"got {quantize!r}")
     if quantize is None:
-        return model
+        return model if kernels is not None else copy.deepcopy(model)
     if kernels is not None:
         raise ValueError(
             "quantize='int8' builds its kernels over the quantized copy of "
@@ -294,9 +313,8 @@ def _stage_bytes(max_slots: int, pages_per_slot: int, vocab: Optional[int],
     return 4 * max(rows, prompt) + 8 * _HostStage._ALIGN
 
 
-class _PagedKernels:
-    """What both kernel sets share: the target ``model``, its device, and
-    the non-final prompt chunk.
+class _Kernels:
+    """What every kernel set shares: the target ``model`` and its device.
 
     Every method that takes ``upload`` moves its host inputs to the
     device through it: a function from a numpy array to a device tensor
@@ -318,6 +336,35 @@ class _PagedKernels:
         if upload is not None:
             return upload(a)
         return torch.as_tensor(a, device=self.device)
+
+
+class DecodeKernels(_Kernels):
+    """The greedy ``(prefill, decode)`` pair over a dense model
+    (``init_cache`` / ``prefill`` / ``decode_step``: a K/V lane per slot,
+    no pages). The argmax runs on the device, so only the int32 tokens
+    come back. Every prompt call and every decode step attends through
+    kernel B2 on a card, under the validity bias."""
+
+    @torch.inference_mode()
+    def prefill(self, cache, slot: int, tokens, length: int, upload=None):
+        """One padded prompt into ``slot``'s lanes -> ``(first token
+        (device int32 scalar), cache)``."""
+        logits, cache = self.model.prefill(cache, int(slot),
+                                           self._ids(tokens, upload),
+                                           int(length))
+        return greedy_tokens(logits), cache
+
+    @torch.inference_mode()
+    def decode(self, cache, tokens, positions, upload=None):
+        """One decode step for every slot -> ``(next token per slot (S,)
+        device int32, cache)``."""
+        logits, cache = self.model.decode_step(
+            cache, self._ids(tokens, upload), self._ids(positions, upload))
+        return greedy_tokens(logits), cache
+
+
+class _PagedKernels(_Kernels):
+    """What both paged kernel sets share: the non-final prompt chunk."""
 
     @torch.inference_mode()
     def chunk(self, cache, pages, tokens, start: int, length: int,
@@ -679,7 +726,7 @@ class _Core:
     even after the facade (model, cache) has been collected."""
 
     __slots__ = ("lock", "wake", "pending", "active", "free", "closed",
-                 "drain")
+                 "drain", "staged")
 
     def __init__(self, max_slots: int):
         self.lock = threading.RLock()
@@ -695,6 +742,9 @@ class _Core:
         self.free: List[int] = list(range(max_slots))
         self.closed = False
         self.drain = True
+        # a reload's new weights, staged on the device: the loop copies
+        # them in at the top of its next iteration
+        self.staged: Optional[Tuple[Dict[str, torch.Tensor], Any]] = None
 
 
 def _fail_streams(core: _Core, error: BaseException,
@@ -722,10 +772,14 @@ def _fail_streams(core: _Core, error: BaseException,
             engine._host.clear()
         engine._report_pages()
     for r in reqs:
-        r.stream._finish(error)
-        tr = r.stream.trace
-        if tr is not None and not tr.done:
-            tr.finish(outcome="failed", error=type(error).__name__)
+        _fail_request(r, error)
+
+
+def _fail_request(req: _GenRequest, error: BaseException) -> None:
+    req.stream._finish(error)
+    tr = req.stream.trace
+    if tr is not None and not tr.done:
+        tr.finish(outcome="failed", error=type(error).__name__)
 
 
 def _engine_loop(engine_ref: "weakref.ref[GenerationEngine]",
@@ -747,7 +801,8 @@ def _engine_loop_body(engine_ref: "weakref.ref[GenerationEngine]",
                       core: _Core) -> None:
     while True:
         with core.lock:
-            idle = not core.pending and not core.active and not core.closed
+            idle = (not core.pending and not core.active and not core.closed
+                    and core.staged is None)
         if idle and engine_ref() is not None:
             core.wake.get()   # submit, close and GC each put a token
             continue
@@ -776,7 +831,14 @@ def _engine_loop_body(engine_ref: "weakref.ref[GenerationEngine]",
         if wd is not None:
             wd.arm("decode step")
         try:
-            engine._step()
+            # a reload's weights and its prefix flush land between
+            # iterations, before any admission probes the index
+            engine._apply_reload()
+            engine._maybe_flush_prefix()
+            with core.lock:
+                work = bool(core.pending or core.active)
+            if work:
+                engine._step()
         except Exception as e:
             # a broken step cannot be retried (the cache may be half
             # written): fail every stream loudly and stop the loop
@@ -807,8 +869,9 @@ class GenerationEngine:
     ``warmup()`` runs every kernel shape once (and, on a card, builds the
     CUDA kernels) before traffic. ``device`` defaults to ``"cuda"`` and
     must be where the model's parameters are. ``quantize="int8"`` serves
-    an int8 copy of ``model`` (and of the draft; the caller's models are
-    untouched); ``cache_dtype=torch.int8`` keeps int8 KV pages with
+    an int8 copy of ``model`` (and of the draft); without it the engine
+    serves its own copy, unless ``kernels`` are given (they run the model
+    they were built over), so the caller's models are untouched; ``cache_dtype=torch.int8`` keeps int8 KV pages with
     per-token fp32 scales. ``seed`` is the engine's base seed for the
     requests that name none. ``speculate=(draft_model, k)`` serves
     draft-verified: k candidates per round from ``draft_model``, one
@@ -869,11 +932,22 @@ class GenerationEngine:
         if role not in ("both", "prefill", "decode"):
             raise ValueError(
                 f"role must be 'both', 'prefill' or 'decode', got {role!r}")
-        self.device = _model_device(model, device)
+        self.device = module_device(model, device)
         self.speculative = speculate is not None
         self.draft_model, self.spec_k = _speculate_knob(speculate)
         self.prefix_caching = bool(prefix_cache)
         self.cache_aware_admission = bool(cache_aware_admission)
+        # paged unless the kernels or the model say dense: given kernels
+        # pick by their chunk step; otherwise paged whenever the model
+        # speaks the paged API and page_size is set (the dense lanes are
+        # the JAX package's baseline, kept for bit-identity and for
+        # models with a plain cache)
+        self.paged = (hasattr(kernels, "chunk") if kernels is not None
+                      else bool(page_size)
+                      and hasattr(model, "decode_step_paged"))
+        if not self.paged:
+            _check_dense_knobs(self.speculative, cache_dtype, role,
+                               host_pages, self.prefix_caching)
         # prefill/decode disaggregation: role="prefill" runs only the
         # prompt calls, and a prompt's final chunk hands the finished
         # pages to ``_handoff_cb`` (set by DisaggregatedEngine or
@@ -916,8 +990,12 @@ class GenerationEngine:
                 "speculate=(draft_model, k) and SpeculativeKernels go "
                 "together: pass both or neither")
         model = _serving_model(model, quantize, kernels)
+        self.quantize = quantize
+        # reload() sets it; the loop clears the prefix index and the host
+        # tier before its next admission
+        self._prefix_flush = False
         if self.speculative:
-            _model_device(self.draft_model, device)
+            module_device(self.draft_model, device)
             self.draft_model = _serving_model(self.draft_model, quantize,
                                               kernels)
         self.model = model
@@ -928,70 +1006,39 @@ class GenerationEngine:
         self.max_queue = int(max_queue)
         self.seed = int(seed)
         self.metrics = metrics if metrics is not None else ServingMetrics()
-        self.max_prompt_len = int(max_prompt_len or (max_len - 1))
+        # chunked prefill lifts the paged engine's prompt-length wall;
+        # dense lanes take a prompt in one call
+        self.max_prompt_len = int(max_prompt_len or (
+            max_len - 1 if self.paged else max(1, max_len // 2)))
         if not 1 <= self.max_prompt_len < self.max_len:
             raise ValueError(
                 f"max_prompt_len {self.max_prompt_len} must be in "
                 f"[1, max_len) = [1, {self.max_len})")
-        self.page_size = int(page_size)
-        self.prefill_chunk = int(prefill_chunk or min(64, self.max_prompt_len))
-        if self.prefill_chunk < 1:
-            raise ValueError("prefill_chunk must be >= 1")
-        self.prompt_buckets = bucket_sizes_for(
-            min(self.max_prompt_len, self.prefill_chunk))
-        ppn = pages_per_lane(self.max_len, self.page_size)
+        self.cache_dtype_name = _dtype_name(cache_dtype)
         # a speculative slot reserves a target lane and a draft lane
         self._lanes = 2 if self.speculative else 1
-        self.num_pages = int(num_pages or self.max_slots * ppn * self._lanes)
-        self._pool = PagePool(self.num_pages, self.page_size, self.max_len)
-        if kernels is None:
-            kernels = (SpeculativeKernels(model, self.draft_model)
-                       if self.speculative else PagedDecodeKernels(model))
-        self.kernels = kernels
+        self._pool: Optional[PagePool] = None
+        self._bias: Optional[np.ndarray] = None
+        self._keys = np.zeros((self.max_slots, 2), np.uint32)
+        vocab = getattr(model, "vocab_size", None)
+        if self.paged:
+            self._init_paged(model, kernels, page_size, num_pages,
+                             prefill_chunk, cache_dtype, vocab)
+        else:
+            self.prompt_buckets = bucket_sizes_for(self.max_prompt_len)
+            self.kernels = kernels or DecodeKernels(model)
+            self._cache = model.init_cache(self.max_slots, self.max_len,
+                                           cache_dtype)
+            self._stage = _HostStage(
+                self.device,
+                _stage_bytes(self.max_slots, 0, None,
+                             self.prompt_buckets[-1]),
+                depth=self.max_slots + 3)
         self.metrics.set_quantized_gemms(
             count_quantized_gemms(self.kernels.model))
-        self._cache = model.init_paged_cache(self.num_pages + 1,
-                                             self.page_size, cache_dtype)
-        # what one reserved page costs across all layers, scale pools
-        # included: the kv_bytes_in_use gauge
-        self.cache_dtype_name = _dtype_name(cache_dtype)
-        self._kv_page_bytes = _lane_page_bytes(model, self.page_size,
-                                               cache_dtype)
-        # the decode step's inputs; rows change on admission/retirement.
-        # A plain engine's keys evolve by one split per step; a
-        # speculative engine's stay each slot's request key (its draws
-        # fold in the output position)
-        self._page_map = np.full((self.max_slots, ppn), self._pool.trash,
-                                 np.int32)
-        self._temps = np.zeros((self.max_slots,), np.float32)
-        self._top_ks = np.zeros((self.max_slots,), np.int32)
-        self._top_ps = np.ones((self.max_slots,), np.float32)
-        self._keys = np.zeros((self.max_slots, 2), np.uint32)
-        # grammar-constrained decoding: one additive mask row per slot,
-        # all-zero (a no-op) for unconstrained and idle slots. A step
-        # with no constrained slot passes no bias at all
-        vocab = getattr(model, "vocab_size", None)
-        self._bias = (np.zeros((self.max_slots, int(vocab)), np.float32)
-                      if vocab else None)
-        # every kernel call's host inputs go up through this ring; one
-        # iteration makes at most a prompt call per slot and a decode step
-        # (or k+1 draft steps), so a slot is refilled only after its
-        # copies have run
-        self._stage = _HostStage(
-            self.device,
-            _stage_bytes(self.max_slots, ppn, vocab,
-                         max(self.prefill_chunk, self.prompt_buckets[-1])),
-            depth=self.max_slots + self.spec_k + 3)
         # the grammar keys this engine has served: a submit whose key is
         # here reused the compiled automaton (grammar_compile_cache_hits)
         self._grammars: set = set()
-        if self.speculative:
-            self._dcache = self.draft_model.init_paged_cache(
-                self.num_pages + 1, self.page_size, cache_dtype)
-            self._dpage_map = np.full((self.max_slots, ppn),
-                                      self._pool.trash, np.int32)
-            self._kv_dpage_bytes = _lane_page_bytes(
-                self.draft_model, self.page_size, cache_dtype)
         # the prefix index, one per lane: the draft's pages hold other K/V
         # for the same tokens and are never shared across lanes
         self._prefix: Optional[PrefixCache] = None
@@ -1027,6 +1074,7 @@ class GenerationEngine:
             from bigdl_tpu_torch.serving.disagg import PageBlockMover
 
             self._mover = PageBlockMover()
+        ppn = self._pool.pages_per_slot if self.paged else 0
         if host_pages is not None:
             self._host = HostPageStore(int(host_pages),
                                        page_bytes=self._kv_page_bytes)
@@ -1069,11 +1117,70 @@ class GenerationEngine:
                                             dtype=torch.int32,
                                             pin_memory=True)
             self._land_event = torch.cuda.Event()
+        if kernels is not None:
+            _SERVED_IN_PLACE.setdefault(self.kernels.model,
+                                        weakref.WeakSet()).add(self)
         weakref.finalize(self, _notify_core, self._core)
         self._thread = threading.Thread(
             target=_engine_loop, args=(weakref.ref(self), self._core),
             name="bigdl-serving-engine", daemon=True)
         self._thread.start()
+
+    def _init_paged(self, model, kernels, page_size, num_pages,
+                    prefill_chunk, cache_dtype, vocab) -> None:
+        """The paged engine's pool, kernels, pages and per-slot step
+        inputs."""
+        self.page_size = int(page_size)
+        self.prefill_chunk = int(prefill_chunk
+                                 or min(64, self.max_prompt_len))
+        if self.prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        self.prompt_buckets = bucket_sizes_for(
+            min(self.max_prompt_len, self.prefill_chunk))
+        ppn = pages_per_lane(self.max_len, self.page_size)
+        self.num_pages = int(num_pages
+                             or self.max_slots * ppn * self._lanes)
+        self._pool = PagePool(self.num_pages, self.page_size, self.max_len)
+        if kernels is None:
+            kernels = (SpeculativeKernels(model, self.draft_model)
+                       if self.speculative else PagedDecodeKernels(model))
+        self.kernels = kernels
+        self._cache = model.init_paged_cache(self.num_pages + 1,
+                                             self.page_size, cache_dtype)
+        # what one reserved page costs across all layers, scale pools
+        # included: the kv_bytes_in_use gauge
+        self._kv_page_bytes = _lane_page_bytes(model, self.page_size,
+                                               cache_dtype)
+        # the decode step's inputs; rows change on admission/retirement.
+        # A plain engine's keys evolve by one split per step; a
+        # speculative engine's stay each slot's request key (its draws
+        # fold in the output position)
+        self._page_map = np.full((self.max_slots, ppn), self._pool.trash,
+                                 np.int32)
+        self._temps = np.zeros((self.max_slots,), np.float32)
+        self._top_ks = np.zeros((self.max_slots,), np.int32)
+        self._top_ps = np.ones((self.max_slots,), np.float32)
+        # grammar-constrained decoding: one additive mask row per slot,
+        # all-zero (a no-op) for unconstrained and idle slots. A step
+        # with no constrained slot passes no bias at all
+        if vocab:
+            self._bias = np.zeros((self.max_slots, int(vocab)), np.float32)
+        # every kernel call's host inputs go up through this ring; one
+        # iteration makes at most a prompt call per slot and a decode step
+        # (or k+1 draft steps), so a slot is refilled only after its
+        # copies have run
+        self._stage = _HostStage(
+            self.device,
+            _stage_bytes(self.max_slots, ppn, vocab,
+                         max(self.prefill_chunk, self.prompt_buckets[-1])),
+            depth=self.max_slots + self.spec_k + 3)
+        if self.speculative:
+            self._dcache = self.draft_model.init_paged_cache(
+                self.num_pages + 1, self.page_size, cache_dtype)
+            self._dpage_map = np.full((self.max_slots, ppn),
+                                      self._pool.trash, np.int32)
+            self._kv_dpage_bytes = _lane_page_bytes(
+                self.draft_model, self.page_size, cache_dtype)
 
     # ------------------------------------------------------ submission ----
 
@@ -1116,6 +1223,10 @@ class GenerationEngine:
                 "(pages already materialized) — use submit_prefilled()")
         temperature = float(temperature)
         check_temperature(temperature)
+        if temperature > 0.0 and not self.paged:
+            raise ValueError(
+                "sampling (temperature > 0) needs the paged engine — the "
+                "dense DecodeKernels path is the greedy baseline")
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -1129,18 +1240,19 @@ class GenerationEngine:
                                                       room)
         if mnt < 1:
             raise ValueError("no room to generate even one token")
-        # a prefill-role engine reserves prompt pages only: the generation
-        # budget is the decode pool's
-        need = self._lanes * self._pool.pages_for(
-            len(prompt) if self.role == "prefill"
-            else min(len(prompt) + mnt - 1, self.max_len))
-        if need > self.num_pages:
-            # a reservation the pool can never satisfy would block the FIFO
-            # head forever: reject it on the caller's thread instead
-            raise ValueError(
-                f"request needs {need} KV pages but the pool holds "
-                f"{self.num_pages}; shrink the prompt/max_new_tokens or "
-                f"grow num_pages")
+        if self.paged:
+            # a prefill-role engine reserves prompt pages only: the
+            # generation budget is the decode pool's
+            need = self._lanes * self._pool.pages_for(
+                len(prompt) if self.role == "prefill"
+                else min(len(prompt) + mnt - 1, self.max_len))
+            if need > self.num_pages:
+                # a reservation the pool can never satisfy would block the
+                # FIFO head forever: reject it on the caller's thread
+                raise ValueError(
+                    f"request needs {need} KV pages but the pool holds "
+                    f"{self.num_pages}; shrink the prompt/max_new_tokens "
+                    f"or grow num_pages")
         stream = GenerationStream()
         # the trace attaches before the request can reach the loop thread
         # (admission reads stream.trace); tracer=None costs this test only
@@ -1159,6 +1271,10 @@ class GenerationEngine:
         return stream
 
     def _check_grammar(self, grammar) -> None:
+        if not self.paged:
+            raise ValueError(
+                "grammar-constrained decoding needs the paged engine "
+                "(the mask rides the in-step sampler)")
         if self._bias is None:
             raise ValueError(
                 "grammar-constrained decoding needs a model exposing "
@@ -1343,7 +1459,7 @@ class GenerationEngine:
             verify_s=verify_s, step_gap_s=step_gap_s,
             host_overlapped_s=overlapped_s, active=n_active,
             queue_depth=depth, occupancy=n_active / self.max_slots,
-            pages_in_use=self._pool.in_use)
+            pages_in_use=self._pool.in_use if self.paged else 0)
 
     def _step_async(self) -> None:
         """One async scheduler iteration:
@@ -1390,7 +1506,8 @@ class GenerationEngine:
                     continue
                 self._step_tokens[slot] = toks[slot]
                 self._step_positions[slot] = ticket.positions[slot] + 1
-                self._keys[slot] = ticket.keys[slot]
+                if ticket.keys is not None:
+                    self._keys[slot] = ticket.keys[slot]
                 if slot in live:
                     # the mask of the next step follows this token; a
                     # retired rider's automaton is left alone
@@ -1444,11 +1561,16 @@ class GenerationEngine:
             tokens[slot] = self._step_tokens[slot]
             positions[slot] = min(int(self._step_positions[slot]),
                                   self.max_len - 1)
+        keys = None
         with self._stage.call() as put:
-            toks_dev, keys, self._cache = self.kernels.decode(
-                self._cache, tokens, positions, self._page_map, self._temps,
-                self._top_ks, self._top_ps, self._keys, upload=put,
-                **_masked(self._step_bias(active, put)))
+            if self.paged:
+                toks_dev, keys, self._cache = self.kernels.decode(
+                    self._cache, tokens, positions, self._page_map,
+                    self._temps, self._top_ks, self._top_ps, self._keys,
+                    upload=put, **_masked(self._step_bias(active, put)))
+            else:
+                toks_dev, self._cache = self.kernels.decode(
+                    self._cache, tokens, positions, upload=put)
         event = None
         if self._land_tokens is not None:
             self._land_tokens.copy_(toks_dev, non_blocking=True)
@@ -1459,8 +1581,8 @@ class GenerationEngine:
 
     def _arm_async_slot(self, slot: int, st: _SlotState) -> None:
         """Arm a slot's live dispatch inputs (async path) wherever it gets
-        its first decodable token: the final prompt chunk, a handoff or
-        swap-resume admission. The dispatch reads only these rows (the
+        its first decodable token: a dense admission, the final prompt
+        chunk, a handoff or swap-resume admission. The dispatch reads only these rows (the
         slot state is updated by the landing one step late); marking the
         row dirty keeps an in-flight ticket's landing from folding stale
         output over it."""
@@ -1559,6 +1681,8 @@ class GenerationEngine:
         reorder). In an async iteration this runs in the overlap
         window."""
         core = self._core
+        if not self.paged:
+            return self._admit_dense_all()
         while True:
             swap_head = None
             swap_need = 0
@@ -1603,6 +1727,82 @@ class GenerationEngine:
         for slot, st in prefilling:
             self._prefill_chunk_once(slot, st)
         return time.monotonic() - t0
+
+    def _admit_dense_all(self) -> float:
+        """The dense engine's admission: FIFO into free slots, each prompt
+        run whole at once (no pages, no chunks). Returns the prompt calls'
+        wall time."""
+        core = self._core
+        t0 = time.monotonic()
+        while True:
+            with core.lock:
+                if not core.pending or not core.free:
+                    break
+                req = core.pending.popleft()
+                depth = len(core.pending)
+            self.metrics.set_queue_depth(depth)
+            self._admit_dense(req)
+        return time.monotonic() - t0
+
+    def _admit_dense(self, req: _GenRequest) -> None:
+        """Prefill ``req``'s bucket-padded prompt into the lowest free
+        slot's lanes and push its first token; the slot decodes from the
+        next step on."""
+        now = time.monotonic()
+        why = self._retire_why(None, req, now)
+        if why is not None:
+            self._finish_request(req, why, now)
+            return
+        core = self._core
+        slot = None
+        try:
+            faults.fire("engine.prefill", engine=self)
+            with core.lock:
+                core.free.sort()
+                slot = core.free.pop(0)
+            tr = req.stream.trace
+            sp = None
+            if tr is not None:
+                tr.span("queue_wait", tr.t0)
+                sp = tr.begin_span("prefill_chunk", slot=slot)
+            n = len(req.prompt)
+            bucket = next(b for b in self.prompt_buckets if b >= n)
+            padded = np.full((bucket,), self.pad_id, np.int32)
+            padded[:n] = req.prompt
+            with self._stage.call() as put:
+                tok_dev, self._cache = self.kernels.prefill(
+                    self._cache, slot, padded, n, upload=put)
+            tok = int(tok_dev.item())
+        except Exception as e:
+            # the request is off the queue and not yet active, out of
+            # reach of the loop's failure sweep: it fails here, with the
+            # error the sweep gives every other stream
+            if slot is not None:
+                with core.lock:
+                    core.free.append(slot)
+            _fail_request(req, e)
+            raise
+        now = time.monotonic()
+        self.metrics.record_prefill(n, bucket, now - req.stream.t_submit)
+        if tr is not None:
+            tr.end_span(sp, tokens=n, final=True)
+            tr.event("first_token")
+        req.stream._push(tok, now)
+        st = _SlotState(req, None, None, self.pad_id, t_admit=now)
+        st.phase = "decode"
+        st.last_token = tok
+        st.position = n
+        st.generated = 1
+        st.t_last = now
+        why = self._retire_why(st, req, now)
+        if why is None:
+            with core.lock:
+                core.active[slot] = st
+            self._arm_async_slot(slot, st)
+        else:
+            with core.lock:
+                core.free.append(slot)
+            self._finish_slot(st, why, now)
 
     # ----------------------------------------------------- prefix cache ----
 
@@ -2291,10 +2491,14 @@ class GenerationEngine:
         faults.fire("engine.decode", engine=self)
         tokens, positions, _ = self._step_inputs(active)
         with self._stage.call() as put:
-            toks_dev, self._keys, self._cache = self.kernels.decode(
-                self._cache, tokens, positions, self._page_map, self._temps,
-                self._top_ks, self._top_ps, self._keys, upload=put,
-                **_masked(self._step_bias(active, put)))
+            if self.paged:
+                toks_dev, self._keys, self._cache = self.kernels.decode(
+                    self._cache, tokens, positions, self._page_map,
+                    self._temps, self._top_ks, self._top_ps, self._keys,
+                    upload=put, **_masked(self._step_bias(active, put)))
+            else:
+                toks_dev, self._cache = self.kernels.decode(
+                    self._cache, tokens, positions, upload=put)
         toks = toks_dev.cpu().numpy()
         now = time.monotonic()
         self.metrics.record_decode_step(len(active), self.max_slots)
@@ -2428,7 +2632,12 @@ class GenerationEngine:
     def _release_lanes(self, slot: int, st: _SlotState) -> None:
         """Return a slot's pages (both lanes) to the pool, park its map
         rows on the trash page so the next step can neither read nor
-        clobber a page the next owner gets, and disarm its sampling row."""
+        clobber a page the next owner gets, and disarm its sampling row.
+        A dense slot has no pages: its lanes are rewritten by the next
+        prefill."""
+        st.grammar_state = None
+        if not self.paged:
+            return
         self._pool.release(st.pages or ())
         st.pages = None
         if self.speculative:
@@ -2436,7 +2645,6 @@ class GenerationEngine:
             st.draft_pages = None
             self._dpage_map[slot] = self._pool.trash
         self._disarm_slot(slot)    # released pages: a re-scan is live
-        st.grammar_state = None
 
     def _release_slot(self, slot: int, st: _SlotState) -> None:
         """Free the slot and its lanes. With the prefix cache, a sequence
@@ -2624,7 +2832,9 @@ class GenerationEngine:
     def _report_pages(self) -> None:
         """Page occupancy, the prefix index's and the host tier's pages,
         and the bytes the reserved pages cost: each lane priced at its own
-        model's per-page cost."""
+        model's per-page cost. A dense engine has none of these."""
+        if not self.paged:
+            return
         self.metrics.set_pages(self._pool.in_use, self._pool.num_pages)
         if self._prefix is not None:
             self.metrics.set_shared_pages(self.shared_pages)
@@ -2654,6 +2864,9 @@ class GenerationEngine:
         with core.lock:
             if core.pending or core.active:
                 raise RuntimeError("warmup() must run before traffic")
+        if not self.paged:
+            self._warmup_dense()
+            return
         trash = self._pool.trash
         trash_row = np.full((self._pool.pages_per_slot,), trash, np.int32)
         zeros = np.zeros((self.max_slots,), np.int32)
@@ -2724,6 +2937,98 @@ class GenerationEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _warmup_dense(self) -> None:
+        """The dense engine's warmup: one decode step and a prompt call
+        per bucket, into slot 0 (rows a real admission overwrites or
+        masks)."""
+        zeros = np.zeros((self.max_slots,), np.int32)
+        with self._stage.call() as put:
+            toks, self._cache = self.kernels.decode(self._cache, zeros,
+                                                    zeros, upload=put)
+            if self._land_tokens is not None:
+                self._land_tokens.copy_(toks, non_blocking=True)
+        for bucket in self.prompt_buckets:
+            with self._stage.call() as put:
+                _, self._cache = self.kernels.prefill(
+                    self._cache, 0, np.full((bucket,), self.pad_id, np.int32),
+                    bucket, upload=put)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def reload(self, params, state: Any = None) -> None:
+        """Swap the serving weights between steps. ``params`` is the
+        float parameter tree in the weight bridge's layout (a nested dict
+        keyed by module path, numpy or torch leaves, as
+        ``interop.load_jax_params`` takes); a ``quantize="int8"`` engine
+        quantizes it on the way in. The tree must match the serving
+        model's leaf paths, shapes and dtypes, or this raises
+        ``ValueError`` naming the signature and the old weights keep
+        serving. The new tensors are built here, on the device
+        (``service.stage``), and the loop copies them into the model it
+        serves at the top of its next iteration on its own stream: after
+        any step in flight, before the next one, so no step sees a mix of
+        old and new layers. That model is the engine's own copy, unless
+        the caller passed ``kernels``: then it is theirs, and a reload is
+        refused while another live engine serves it too. Nothing is
+        warmed up or built again. With the prefix cache, the loop also
+        drops every cached page (the old weights wrote them) and the host
+        tier before its next admission. ``state`` is accepted for
+        symmetry with the service and must be empty: decoding keeps no
+        module state."""
+        if state:
+            raise ValueError(
+                "GenerationEngine.reload takes params only: incremental "
+                "decode runs stateless (no BN-style buffers)")
+        model = self.kernels.model
+        if any(e is not self and not e._core.closed
+               for e in _SERVED_IN_PLACE.get(model, ())):
+            raise ValueError(
+                "reload writes the served model in place, and another live "
+                "engine serves the same model through the kernels given to "
+                "both; give each engine kernels of its own")
+        if self.quantize == "int8":
+            params = quantize_tree_for_serving(model, params)
+        require_matching_signature("params", dict(model.named_parameters()),
+                                   params)
+        staged = stage(params, self.device)
+        core = self._core
+        with core.lock:
+            core.staged = staged
+            if self._prefix is not None:
+                self._prefix_flush = True
+            core.wake.put(None)
+        self.metrics.record_reload()
+
+    def _apply_reload(self) -> None:
+        """Copy a staged reload into the served model's parameters (loop
+        thread, between iterations)."""
+        core = self._core
+        with core.lock:
+            staged, core.staged = core.staged, None
+        if staged is not None:
+            apply_staged(dict(self.kernels.model.named_parameters()), staged,
+                         self.device)
+
+    def _maybe_flush_prefix(self) -> None:
+        """Apply a reload's prefix flush on the loop thread, the only one
+        that may touch the pool: cached pages hold K/V the old weights
+        wrote, so the index (both lanes) drops them before any admission
+        can probe it, and the host tier drops its entries and the copies
+        in flight, keyed by the old index version."""
+        with self._core.lock:
+            if not self._prefix_flush:
+                return
+            self._prefix_flush = False
+        self._prefix.clear()
+        if self._dprefix is not None:
+            self._dprefix.clear()
+        if self._host is not None:
+            self._pending_offloads.clear()
+            self._copier.reset()
+            self._host.clear()
+        self._evict_stale = False
+        self._report_pages()
+
     def close(self, drain: bool = True,
               timeout: Optional[float] = None) -> None:
         """Stop admitting; with ``drain`` (default) the loop keeps stepping
@@ -2775,11 +3080,11 @@ class GenerationEngine:
 
     @property
     def pages_in_use(self) -> int:
-        return self._pool.in_use
+        return self._pool.in_use if self.paged else 0
 
     @property
     def free_pages(self) -> int:
-        return self._pool.free_pages
+        return self._pool.free_pages if self.paged else 0
 
     @property
     def active_slots(self) -> int:
@@ -2803,6 +3108,35 @@ class GenerationEngine:
     def host_store(self) -> Optional[HostPageStore]:
         """The host tier (None without ``host_pages``)."""
         return self._host
+
+
+def _check_dense_knobs(speculative: bool, cache_dtype, role: str,
+                       host_pages, prefix_caching: bool) -> None:
+    """The dense engine's refusals, in the JAX engine's order and words."""
+    if speculative:
+        raise ValueError(
+            "speculative decoding needs the paged engine (the draft "
+            "and target caches live side by side in one PagePool)")
+    if cache_dtype == torch.int8:
+        raise ValueError(
+            "cache_dtype='int8' needs the paged engine (int8 KV lives "
+            "in the page pools with per-token scale pools; the dense "
+            "slot-lane path is the float baseline, kept bitwise "
+            "untouched)")
+    if role != "both":
+        raise ValueError(
+            "role='prefill'/'decode' needs the paged engine — the "
+            "handoff moves physical KV pages between pools")
+    if host_pages is not None:
+        raise ValueError(
+            "host_pages needs the paged engine (the host tier "
+            "stores physical KV pages; the dense slot-lane path "
+            "has none)")
+    if prefix_caching:
+        raise ValueError(
+            "prefix_cache=True needs the paged engine (shared "
+            "prefixes live in refcounted KV pages; the dense "
+            "slot-lane path has no pages to share)")
 
 
 def _speculate_knob(speculate) -> Tuple[object, int]:
@@ -2835,11 +3169,15 @@ def static_generate(model, requests, *, max_slots: int, max_len: int,
                     quantize: Optional[str] = None, seed: int = 0,
                     sampling: Optional[Sequence[dict]] = None,
                     speculate: Optional[tuple] = None):
-    """Run-to-completion static batching over the same paged kernels the
+    """Run-to-completion static batching over the same kernels the
     engine uses: admit ``max_slots`` requests, decode until every one of
     them finishes, only then admit the next group. ``requests`` is a
     sequence of ``(prompt, max_new_tokens)``; returns ``(token lists,
-    decode steps (or verify rounds) executed)``. ``quantize``,
+    decode steps (or verify rounds) executed)``. The kernels are paged
+    unless ``kernels`` is a dense :class:`DecodeKernels`, ``page_size``
+    is 0 or the model has no paged API; then the run is greedy over
+    dense lanes, with prompt buckets up to the longest prompt by
+    default. ``quantize``,
     ``cache_dtype``, ``seed`` and ``speculate`` are the engine's knobs;
     ``sampling`` is an optional per-request list of dicts
     (``temperature`` / ``top_k`` / ``top_p`` / ``seed`` / ``grammar``).
@@ -2847,20 +3185,36 @@ def static_generate(model, requests, *, max_slots: int, max_len: int,
     do, so the engine and a static run emit the same streams, greedy or
     sampled, plain or speculative, constrained or not. A constrained
     stream that cannot parse raises :class:`GrammarViolation`."""
-    _model_device(model, device)
+    module_device(model, device)
     draft_model, spec_k = _speculate_knob(speculate)
     if kernels is not None and hasattr(kernels, "verify") != (
             speculate is not None):
         raise ValueError(
             "speculate=(draft_model, k) and SpeculativeKernels go "
             "together: pass both or neither")
+    paged = (hasattr(kernels, "chunk") if kernels is not None
+             else bool(page_size) and hasattr(model, "decode_step_paged"))
+    if not paged and cache_dtype == torch.int8:
+        # the engine's refusal: the dense lanes have no scale pools, so an
+        # int8 cache there would truncate K/V to zeros without an error
+        raise ValueError(
+            "cache_dtype='int8' needs the paged kernels (int8 KV lives in "
+            "the page pools with per-token scale pools)")
     model = _serving_model(model, quantize, kernels)
     if speculate is not None:
-        _model_device(draft_model, device)
+        module_device(draft_model, device)
         draft_model = _serving_model(draft_model, quantize, kernels)
         kernels = kernels or SpeculativeKernels(model, draft_model)
-    kernels = kernels or PagedDecodeKernels(model)
     requests = [([int(t) for t in p], int(m)) for p, m in requests]
+    if not paged:
+        if sampling is not None:
+            raise ValueError("sampling needs PagedDecodeKernels")
+        return _static_generate_dense(
+            model, requests, kernels or DecodeKernels(model),
+            max_slots=max_slots, max_len=max_len, eos_id=eos_id,
+            pad_id=pad_id, cache_dtype=cache_dtype,
+            prompt_buckets=prompt_buckets)
+    kernels = kernels or PagedDecodeKernels(model)
     run = _static_generate_spec if speculate is not None \
         else _static_generate_paged
     return run(model, requests, kernels, max_slots=max_slots,
@@ -2869,6 +3223,51 @@ def static_generate(model, requests, *, max_slots: int, max_len: int,
                page_size=page_size, num_pages=num_pages,
                prefill_chunk=prefill_chunk, seed=seed, sampling=sampling,
                draft_model=draft_model, spec_k=spec_k)
+
+
+def _static_generate_dense(model, requests, kernels, *, max_slots, max_len,
+                           eos_id, pad_id, cache_dtype, prompt_buckets):
+    """Greedy body of :func:`static_generate` over dense lanes: each group
+    of ``max_slots`` prompts into slots 0.., then decode steps over every
+    slot until each is done."""
+    buckets = list(prompt_buckets
+                   or bucket_sizes_for(max(len(p) for p, _ in requests)))
+    cache = model.init_cache(max_slots, max_len, cache_dtype)
+    outputs: List[Optional[List[int]]] = [None] * len(requests)
+    total_steps = 0
+    for base in range(0, len(requests), max_slots):
+        states = []
+        for slot, (prompt, mnt) in enumerate(requests[base:base + max_slots]):
+            n = len(prompt)
+            padded = np.full((next(b for b in buckets if b >= n),), pad_id,
+                             np.int32)
+            padded[:n] = prompt
+            tok, cache = kernels.prefill(cache, slot, padded, n)
+            tok = int(tok.item())
+            target = min(mnt, max_len - n)
+            states.append({"tokens": [tok], "last": tok, "pos": n,
+                           "target": target,
+                           "done": (eos_id is not None and tok == eos_id)
+                           or target <= 1})
+        while not all(s["done"] for s in states):
+            tokens = np.zeros((max_slots,), np.int32)
+            positions = np.zeros((max_slots,), np.int32)
+            for slot, s in enumerate(states):
+                tokens[slot] = s["last"]
+                positions[slot] = s["pos"]
+            toks_dev, cache = kernels.decode(cache, tokens, positions)
+            toks = toks_dev.cpu().numpy()
+            total_steps += 1
+            for slot, s in enumerate(states):
+                if s["done"]:
+                    continue
+                s["last"] = int(toks[slot])
+                s["tokens"].append(s["last"])
+                s["pos"] += 1
+                s["done"] = _finished(s, eos_id, max_len)
+        for i, s in enumerate(states):
+            outputs[base + i] = s["tokens"]
+    return outputs, total_steps
 
 
 def _static_grammar_step(g, state, tok, eos_id, n_out):

@@ -1,7 +1,7 @@
 """Typed serving failures (``bigdl_tpu/serving/errors.py``).
 
-Admission-time failures (:class:`Overloaded`) raise on the caller's
-thread before a queue slot is taken; in-flight failures
+Admission-time failures (:class:`Overloaded`, :class:`UnknownModel`)
+raise on the caller's thread before a queue slot is taken; in-flight failures
 (:class:`DeadlineExceeded`, :class:`StreamCancelled`,
 :class:`GrammarViolation`) end the request's stream.
 """
@@ -25,6 +25,17 @@ class Overloaded(ServingError):
         self.queue_depth = queue_depth
         self.max_queue = max_queue
         self.model = model
+
+
+class UnknownModel(ServingError):
+    """A router request named a model no backend is registered under."""
+
+    def __init__(self, name: str, available):
+        avail = ", ".join(sorted(available)) or "<none>"
+        super().__init__(
+            f"no model '{name}' registered (available: {avail})")
+        self.name = name
+        self.available = sorted(available)
 
 
 class StreamCancelled(ServingError):

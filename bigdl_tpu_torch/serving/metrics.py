@@ -7,9 +7,8 @@ The snapshot keeps the JAX package's keys in its order, each block after
 the ones before it, without the keys of tiers this package has not
 ported: the replica group (``replicas_total``, ``replicas_healthy``,
 ``replica_evictions``, ``replica_rejoins``, ``rolling_reloads``,
-``replica_inflight``), hot reload (``reloads``) and the autoscaler's
-recent-window views (``ttft_recent_ms``, ``itl_recent_ms``,
-``recent_window_s``).
+``replica_inflight``) and the autoscaler's recent-window views
+(``ttft_recent_ms``, ``itl_recent_ms``, ``recent_window_s``).
 """
 
 from __future__ import annotations
@@ -83,6 +82,7 @@ class ServingMetrics:
         self.decode_active = 0    # sum over steps of slots serving
         self.decode_slot_rows = 0  # sum over steps of all slots
         self.tokens_out = 0
+        self.reloads = 0          # hot weight swaps (service and engine)
         self._ttft = _Reservoir(reservoir_size)         # submit -> 1st token
         self._stream_rate = _Reservoir(reservoir_size)  # per-stream tokens/s
         self.prefill_chunks = 0   # non-final chunk forwards
@@ -173,6 +173,11 @@ class ServingMetrics:
             self.tokens_out += 1
             if ttft_s is not None:
                 self._ttft.add(ttft_s)
+
+    def record_reload(self) -> None:
+        """One hot swap of the serving weights."""
+        with self._lock:
+            self.reloads += 1
 
     def record_chunk(self, n_real: int, n_padded: int) -> None:
         """One non-final prompt chunk forward (no token); its tokens count
@@ -356,6 +361,7 @@ class ServingMetrics:
                 "prefills": self.prefills,
                 "decode_steps": self.decode_steps,
                 "tokens_out": self.tokens_out,
+                "reloads": self.reloads,
                 "slot_occupancy": (self.decode_active / self.decode_slot_rows
                                    if self.decode_slot_rows else 0.0),
                 "prompt_padding_waste": (self.prefill_padded / prompt_total
@@ -416,8 +422,8 @@ class ServingMetrics:
     def format_table(self) -> str:
         """Fixed-width dump of the snapshot. A block of rows appears only
         when its tier reported something, each after the ones before it,
-        as in the JAX package (whose replica and reload rows this package
-        does not have)."""
+        as in the JAX package (whose replica rows this package does not
+        have)."""
         s = self.snapshot()
         lines = [f"{'metric':<26} {'value':>18}"]
 
@@ -454,6 +460,8 @@ class ServingMetrics:
             row("page_occupancy", f"{s['page_occupancy'] * 100:.1f}%")
             row("prefill_chunks", s["prefill_chunks"])
             row("sampled_tokens", s["sampled_tokens"])
+        if s["reloads"]:
+            row("reloads", s["reloads"])
         if s["kv_cache_dtype"] or s["quantized_gemms"]:
             row("kv_bytes_in_use", s["kv_bytes_in_use"])
             row("kv_cache_dtype", s["kv_cache_dtype"] or "-")

@@ -183,13 +183,59 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              longest printed). Tokens/s in turns with neither, the tracer,
              both, the watchdog, neither, and the host µs of a disarmed
              fault site and of the ``tracer=None`` submit hook.
-17. B1     — the residual-add kernel against its plain version at the
+17. engine-dense — the dense engine (``page_size=0``: a K/V lane per
+             slot, ``DecodeKernels``) over the 32 requests of ``[engine]``,
+             greedy: streams == ``static_generate``'s (dense, bitwise) and
+             == the paged engine's except at a near-tie below the measured
+             dense-vs-paged logit difference (each counted and printed); B2
+             on every layer of every prompt call and decode step, B3
+             never. Tokens/s, TTFT p50, decode-step ms and the engine's
+             own peak memory beside the paged engine's, in turns (paged,
+             dense, dense, paged); B2 at the dense
+             prefill shapes (the ``[B2]`` chunk rows) and at the dense
+             decode shape, q (8, 8, 1, 64) under an (8, 1, 1, 256)
+             validity bias, with kernel, plain, SDPA and bound times.
+18. reload — an ``InferenceService`` under a reload hammer on the card
+             (300 requests, no torn pair, none dropped); the paged engine,
+             float and int8 (``quantize="int8"``, int8 KV), reloaded from
+             a second model's float tree: streams == ``static_generate``
+             over the new weights, a mismatched tree refused with the new
+             weights still serving, no kernel call but the traffic's and no
+             build, the host ms of the reload call; a prefix-cache engine
+             with the host tier (the ``[engine-tiers]`` shape) whose
+             reload empties both tiers before the next admission.
+19. serve-resnet — ResNet-50 (``build_imagenet(50)``, 1000 classes, fp32,
+             seeded weights) behind ``InferenceService`` as ``bench.py
+             --mode serving`` sets it up: max_batch_size 8, max_wait_ms
+             2.0, ``warmup(pool[0])``, 32 client threads sending 256
+             requests from a 64-image pool (``(rand - 0.5) * 2``,
+             RandomState(0)); the plain add and
+             ``BIGDL_RESIDUAL_ADD=pallas`` in turns (plain, B1, B1, plain).
+             Checks every request answered,
+             B1's launches per forward equal to the dispatch rule's for
+             that bucket, a batch-8 forward with B1 bitwise the plain
+             add's, every served row against the same image's batch-1
+             forward, and a batch-2 forward card vs CPU (TF32 off). Prints
+             requests/s, latency p50/p95/p99, forwards, mean batch size,
+             padding waste and peak memory per leg, and a ``[trace]`` of 5
+             batch-8 forwards (B1's device ms per launch).
+20. serve-int8 — ``InferenceService(quantize="int8")`` on the same
+             model, the float conv path and ``BIGDL_INT8_CONV=dot``: the
+             ``quantized_gemms`` gauge == ``count_executed_gemms``,
+             requests/s, top-1 agreement with the float model (printed);
+             the dot path's int32 accumulators of one conv of each shape
+             class (the K = 147 stem, 1x1, 3x3, 3x3/2, 1x1/2) card vs CPU,
+             bitwise.
+21. router — a ``ModelRouter`` over the ResNet-50 service (quota 2) and
+             the dense engine: a third held ResNet request rejected while
+             the language model answers, and the snapshot table.
+22. B1     — the residual-add kernel against its plain version at the
              four residual-add shapes of ResNet-50 at batch 128, bf16 and
              fp32: bitwise equal; the dispatch cases that take the plain
              add (small, mixed dtype, broadcast, CPU tensors); kernel and
              ``torch.add`` times at the layer1 bf16 shape in alternating
              pairs with their median ratio, plain time and the bound.
-18. train  — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
+23. train  — ResNet-50 (``build_imagenet(50)``, 1000 classes, 224x224,
              NCHW) at batch 128 under the bf16 mixed policy, SGD lr 0.1 /
              momentum 0.9, through ``optimizer(...).optimize()`` on 4 x 128
              samples from numpy seed 0; two legs from the same seeded
@@ -200,7 +246,7 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              memory; then one fp32 step of ``build_cifar(8)`` at batch 8 on
              the card against the CPU, and (``[trace]``) a torch.profiler
              window over 3 training steps of the second leg.
-19. train-lm — a Transformer language model at the width of the JAX
+24. train-lm — a Transformer language model at the width of the JAX
              package's ``bench.py --mode lm`` (vocab 8192, hidden 512, 8
              heads, filter 2048, 4 layers), batch 8 x 128 tokens, fp32,
              embedding/residual and FFN dropout 0.1 (threefry-keyed),
@@ -223,10 +269,10 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              a stated tolerance; a full-width mask card vs CPU, bitwise;
              and B2 at the training shape (8, 8, 128, 64), causal, fp32
              and bf16 x bf16: error, kernel, plain, SDPA and bound times.
-20. a ``{"kernels": [...]}`` line (each row counts its launches on every
-    path, by path; B2's carries its training-shape, verify-shape and
-    external-bias decode-shape times), the card's name and power limit,
-    and the last line
+25. a ``{"kernels": [...]}`` line (each row counts its launches on every
+    path, by path; B2's carries its training-shape, verify-shape,
+    external-bias and dense decode-shape times), the card's name and power
+    limit, and the last line
     ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time per launch: the launches are captured
@@ -258,6 +304,7 @@ from bigdl_tpu_torch.core import DtypePolicy, EngineConfig, RandomGenerator
 from bigdl_tpu_torch.core import threefry
 from bigdl_tpu_torch.core.rng import split_keys, threefry_key_data, uniform_keys
 from bigdl_tpu_torch.dataset import DataSet
+from bigdl_tpu_torch.interop import export_params
 from bigdl_tpu_torch.models.resnet import build_cifar, build_imagenet
 from bigdl_tpu_torch.nn import (
     CrossEntropyCriterion,
@@ -266,20 +313,29 @@ from bigdl_tpu_torch.nn import (
     int8,
 )
 from bigdl_tpu_torch.nn.layers import attention as attention_layers
-from bigdl_tpu_torch.nn.quantized import quantize_for_serving
+from bigdl_tpu_torch.nn.quantized import (
+    QuantizedSpatialConvolution,
+    count_executed_gemms,
+    quantize_for_serving,
+)
 from bigdl_tpu_torch.ops import cuda_lib
 from bigdl_tpu_torch.ops import flash_attention as fa
 from bigdl_tpu_torch.ops import residual_add as ra
 from bigdl_tpu_torch.ops import sampling
 from bigdl_tpu_torch.optim import SGD, Trigger, optimizer
 from bigdl_tpu_torch.serving import (
+    DecodeKernels,
     DisaggregatedEngine,
     GenerationEngine,
     HostCopier,
+    InferenceService,
+    ModelRouter,
+    Overloaded,
     PageBlockMover,
     PagedDecodeKernels,
     PrefillWorker,
     SpeculativeKernels,
+    bucket_sizes_for,
     static_generate,
 )
 
@@ -362,6 +418,17 @@ PFX_SYSTEM = 3 * PAGE
 # the host-tier run (bench.py --host-pages): 20 two-page families, two
 # rounds, one slot, a 4-page device pool, 64 host pages
 KV_FAMILIES, KV_FAMILY_PAGES, KV_DEVICE_PAGES, KV_HOST_PAGES = 20, 2, 4, 64
+# request serving, as bench.py --mode serving sets it up: ResNet-50 behind
+# the service, 32 clients, 256 requests over a 64-image pool (128 on each
+# int8 leg)
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_POOL = 32, 256, 64
+SERVE_INT8_REQUESTS = 128
+# fp32 ResNet-50 logits, TF32 off, relative to the row's largest logit:
+# a served row against the same image's batch-1 forward (cuDNN picks other
+# algorithms per batch shape), and a batch-2 forward card vs CPU; 53
+# convolutions deep, each summing in its own order
+SERVE_ROW_TOL = 1e-5
+SERVE_CPU_TOL = 1e-5
 # the swap case: a priority-0 stream of 96 new tokens in an 8-page pool
 SWAP_PAGES, SWAP_PROMPT, SWAP_NEW, SWAP_HIGH_NEW = 8, 16, 96, 16
 SWAP_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=7)
@@ -554,7 +621,7 @@ def phase_b2(card):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}   # by K/V dtype
-    timed = {}
+    timed, by_bucket = {}, {}
     for qdt, kvdt in DTYPES:
         cases = []
         for c in (1, 2, 4, 8, 16):   # the prompt buckets of max_prompt 16
@@ -598,10 +665,12 @@ def phase_b2(card):
               f" library_ms(sdpa)={row['library_ms']:.5f} bound_ms="
               f"{row['bound_ms']:.6f} ({row['bound_by']}) kernel/sdpa="
               f"{row['ms'] / row['library_ms']:.3f} on {card}")
-        if qdt == torch.float32 and label.startswith("chunk C=16"):
-            c16 = row
-    return dict(c16, max_abs_err=worst[torch.float32],
-                max_abs_err_bf16=worst[torch.bfloat16])
+        if qdt == torch.float32 and label.startswith("chunk"):
+            by_bucket[q.shape[2]] = row
+    # the C=16 row is the kernels line's; every bucket's is the dense
+    # engine's prefill shape too ([engine-dense])
+    return dict(by_bucket[16], max_abs_err=worst[torch.float32],
+                max_abs_err_bf16=worst[torch.bfloat16], by_bucket=by_bucket)
 
 
 def time_b2(q, k, v, bias, causal):
@@ -2592,6 +2661,680 @@ def phase_engine_obs(card, model):
     return path
 
 
+# ------------------------------------------- request serving (ResNet-50) ----
+
+
+def b1_rule(batch: int) -> int:
+    """B1's launches in one fp32 ResNet-50 forward at ``batch`` rows, by
+    the dispatch rule itself (``ops.residual_add.kernel_eligible`` on each
+    residual add's shape; on a card every eligible add launches)."""
+    n = 0
+    for _, shape, blocks in RESNET50_ADDS:
+        t = torch.empty((batch,) + shape[1:], device="meta")
+        n += blocks * int(ra.kernel_eligible(t, t))
+    return n
+
+
+def count_forwards(model, record):
+    """Record every forward of ``model`` (a service's own copy), its rows
+    and B1 launches, through forward hooks. The batcher runs one forward
+    at a time, so the counter's difference is that forward's own."""
+    start = []
+    model.register_forward_pre_hook(
+        lambda m, args: start.append(ra.residual_add.launches))
+    model.register_forward_hook(
+        lambda m, args, out: record.append(
+            (int(args[0].shape[0]), ra.residual_add.launches - start.pop())))
+
+
+def client_load(svc, pool, n_requests=SERVE_REQUESTS,
+                n_clients=SERVE_CLIENTS):
+    """``n_clients`` threads, each sending its share of ``n_requests``
+    images of ``pool`` one after another through ``svc.predict``. Returns
+    (outputs by request, wall seconds)."""
+    outs = [None] * n_requests
+    errors = []
+
+    def client(c):
+        for i in range(c, n_requests, n_clients):
+            try:
+                outs[i] = svc.predict(pool[i % len(pool)], timeout=600)
+            except Exception as e:     # reported below, never swallowed
+                errors.append((i, e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(n_clients)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.monotonic() - t0
+    assert not errors, errors[:3]
+    assert all(o is not None for o in outs), "a request was not answered"
+    return outs, wall
+
+
+def serve_leg(tag, svc, pool, card, n_requests=SERVE_REQUESTS, record=None):
+    """One service leg: warm over every bucket, then the client load with
+    the launch counts (and ``record``, a ``count_forwards``') cleared
+    just before it. Prints and returns the numbers."""
+    svc.warmup(pool[0])
+    if record is not None:
+        record.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ra.residual_add.launches = 0
+    outs, wall = client_load(svc, pool, n_requests)
+    torch.cuda.synchronize()
+    snap = svc.metrics.snapshot()
+    lat = snap["latency_ms"]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] {n_requests} requests from {SERVE_CLIENTS} clients: "
+          f"requests/s={n_requests / wall:.1f} latency p50/p95/p99 ms "
+          f"{lat['p50']:.3f}/{lat['p95']:.3f}/{lat['p99']:.3f} forwards="
+          f"{snap['forwards']} mean_batch_size={snap['mean_batch_size']:.3f}"
+          f" padding_waste={snap['padding_waste']:.4f} batch_size_dist="
+          f"{snap['batch_size_dist']} peak_mem_MiB={peak / 2**20:.1f} "
+          f"B1 launches={ra.residual_add.launches} on {card}")
+    assert snap["served"] == n_requests and snap["failed"] == 0, snap
+    return dict(outs=outs, wall=wall, snap=snap, peak=peak,
+                b1=ra.residual_add.launches)
+
+
+def resnet_forward(model, x, knob=None):
+    """One eval forward of ``model`` on ``x`` with ``BIGDL_RESIDUAL_ADD``
+    set to ``knob`` (unset for None)."""
+    prev = os.environ.pop("BIGDL_RESIDUAL_ADD", None)
+    if knob is not None:
+        os.environ["BIGDL_RESIDUAL_ADD"] = knob
+    try:
+        with torch.inference_mode():
+            return model(x)
+    finally:
+        os.environ.pop("BIGDL_RESIDUAL_ADD", None)
+        if prev is not None:
+            os.environ["BIGDL_RESIDUAL_ADD"] = prev
+
+
+def rel_err(got, want) -> float:
+    got, want = (torch.as_tensor(np.asarray(a)).double() for a in (got, want))
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_serve_resnet(card):
+    """ResNet-50 behind ``InferenceService`` as ``bench.py --mode serving``
+    sets it up: max_batch_size 8, max_wait_ms 2.0, warmup, 32 clients x
+    256 requests from a 64-image pool; the plain add and
+    ``BIGDL_RESIDUAL_ADD=pallas`` in turns (plain, B1, B1, plain). Returns
+    (model, pool, B1's serving launches, the batch-1 logits of the
+    pool)."""
+    model = build_imagenet(50, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    model.eval()
+    pool = ((np.random.RandomState(0).rand(SERVE_POOL, 3, 224, 224) - 0.5)
+            * 2).astype(np.float32)
+    x8 = torch.from_numpy(pool[:8]).cuda()
+    legs = []
+    for knob in (None, "pallas", "pallas", None):
+        label = "BIGDL_RESIDUAL_ADD=pallas" if knob else "plain add"
+        record = []
+        if knob:
+            os.environ["BIGDL_RESIDUAL_ADD"] = knob
+        try:
+            with InferenceService(model, device="cuda", max_batch_size=8,
+                                  max_wait_ms=2.0) as svc:
+                count_forwards(svc.model, record)
+                run = serve_leg(f"serve-resnet {label}", svc, pool, card,
+                                record=record)
+                run["record"] = list(record)
+        finally:
+            os.environ.pop("BIGDL_RESIDUAL_ADD", None)
+        legs.append(run)
+        per_bucket = {}
+        for rows, n in run["record"]:
+            per_bucket.setdefault(rows, set()).add(n)
+        want = {b: {b1_rule(b) if knob else 0} for b in per_bucket}
+        print(f"[serve-resnet] {label}: B1 launches per forward by bucket "
+              f"{ {b: sorted(v) for b, v in sorted(per_bucket.items())} } "
+              f"(the dispatch rule: { {b: sorted(v) for b, v in sorted(want.items())} })")
+        assert per_bucket == want, (label, per_bucket, want)
+        assert run["b1"] == sum(n for _, n in run["record"]), run["b1"]
+    # one batch-8 forward: B1 against the plain add, bitwise
+    with_b1 = resnet_forward(model, x8, "pallas")
+    without = resnet_forward(model, x8)
+    same = torch.equal(with_b1, without)
+    print(f"[serve-resnet] one batch-8 forward with B1 (launches "
+          f"{b1_rule(8)}) bitwise equal to the plain add's: {same}")
+    assert same
+    # every served row against the same image's batch-1 forward
+    single = torch.cat([resnet_forward(model, x8.new_tensor(pool[i:i + 1]))
+                        for i in range(SERVE_POOL)]).cpu().numpy()
+    worst = 0.0
+    for run in legs:
+        for i, out in enumerate(run["outs"]):
+            worst = max(worst, rel_err(out, single[i % SERVE_POOL]))
+    print(f"[serve-resnet] served rows against batch-1 forwards of the same "
+          f"image on the card: max error {worst:.3e} of the row's largest "
+          f"logit (tol {SERVE_ROW_TOL:g}; other batch shapes, other cuDNN "
+          f"algorithms)")
+    assert worst <= SERVE_ROW_TOL, worst
+    # a batch-2 forward on the card against the CPU's, TF32 off
+    cpu = copy.deepcopy(model).cpu()
+    cpu_out = resnet_forward(cpu, torch.from_numpy(pool[:2]))
+    err = rel_err(resnet_forward(model, x8[:2]).cpu(), cpu_out)
+    print(f"[serve-resnet] batch-2 forward card vs CPU (TF32 off): max error "
+          f"{err:.3e} of the largest logit (tol {SERVE_CPU_TOL:g}); logits "
+          f"finite: {bool(torch.isfinite(cpu_out).all())}")
+    assert err <= SERVE_CPU_TOL and torch.isfinite(cpu_out).all(), err
+    del cpu
+    print(f"[serve-resnet] requests/s in turns: plain "
+          f"{SERVE_REQUESTS / legs[0]['wall']:.1f}, B1 "
+          f"{SERVE_REQUESTS / legs[1]['wall']:.1f}, B1 "
+          f"{SERVE_REQUESTS / legs[2]['wall']:.1f}, plain "
+          f"{SERVE_REQUESTS / legs[3]['wall']:.1f} on {card}")
+    trace_resnet_forwards(model, x8, card)
+    return model, pool, legs[1]["b1"] + legs[2]["b1"], single
+
+
+def trace_resnet_forwards(model, x8, card, n=5):
+    """Host ms of a batch-8 forward with B1, then torch.profiler over
+    ``n`` of them: the busy share of an unprofiled forward, the top
+    kernels and B1's device ms per launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.environ["BIGDL_RESIDUAL_ADD"] = "pallas"
+    try:
+        with torch.inference_mode():
+            for _ in range(2):
+                model(x8)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(n):
+                model(x8)
+            torch.cuda.synchronize()
+        fwd_ms = (time.monotonic() - t0) / n * 1e3
+    finally:
+        os.environ.pop("BIGDL_RESIDUAL_ADD", None)
+    print(f"[serve-resnet] batch-8 forward with B1, host ms (mean of {n}, "
+          f"ending in a sync): {fwd_ms:.3f} on {card}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            resnet_forward(model, x8, "pallas")
+        torch.cuda.synchronize()
+    report_trace(prof, n, fwd_ms, card, "ResNet-50 batch-8 fp32 forward "
+                 "with B1", top_n=6, watch=("residual_add",))
+
+
+QCONV_CLASSES = (("stem 7x7/2, K=147", "conv1", (1, 3, 224, 224)),
+                 ("1x1", "layer1_0.0.0.0", (1, 64, 56, 56)),
+                 ("3x3", "layer1_0.0.0.3", (1, 64, 56, 56)),
+                 ("3x3/2", "layer2_0.0.0.3", (1, 128, 56, 56)),
+                 ("1x1/2 shortcut", "layer2_0.0.1.0", (1, 256, 56, 56)))
+
+
+def qconv_card_vs_cpu(qmodel):
+    """The int32 accumulators of the int8 dot path of one conv of each
+    shape class, card against the CPU, on the same int8 activations:
+    bitwise (integer sums)."""
+    modules = dict(qmodel.named_modules())
+    g = torch.Generator().manual_seed(11)
+    for label, name, shape in QCONV_CLASSES:
+        conv = modules[name]
+        assert isinstance(conv, QuantizedSpatialConvolution), name
+        xq = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        with torch.inference_mode():
+            card = conv._int8_dot_path(xq.cuda()).cpu()
+            cpu = copy.deepcopy(conv).cpu()._int8_dot_path(xq)
+        same = torch.equal(card, cpu)
+        k = conv.weight_q[0].numel()
+        print(f"[serve-int8] int8 dot conv {label} ({name}, K={k}, out "
+              f"{tuple(card.shape)}): int32 accumulators card vs CPU "
+              f"bitwise equal: {same}")
+        assert same, label
+
+
+def phase_serve_int8(card, model, pool, float_outs):
+    """``InferenceService(quantize="int8")`` on the served ResNet-50, the
+    float conv path and then ``BIGDL_INT8_CONV=dot``: requests/s, the
+    ``quantized_gemms`` gauge against ``count_executed_gemms``, top-1
+    agreement with the float model over the pool (printed), and the dot
+    path's accumulators card vs CPU."""
+    top1 = float_outs.argmax(-1)
+    for knob in (None, "dot"):
+        label = "dot path" if knob else "float conv path"
+        os.environ.pop("BIGDL_INT8_CONV", None)
+        if knob:
+            os.environ["BIGDL_INT8_CONV"] = knob
+        try:
+            with InferenceService(model, device="cuda", max_batch_size=8,
+                                  max_wait_ms=2.0, quantize="int8") as svc:
+                gauge = svc.metrics.snapshot()["quantized_gemms"]
+                executed = count_executed_gemms(svc.model)
+                run = serve_leg(f"serve-int8 {label}", svc, pool, card,
+                                SERVE_INT8_REQUESTS)
+                agree = np.mean([np.argmax(o) == top1[i % SERVE_POOL]
+                                 for i, o in enumerate(run["outs"])])
+                print(f"[serve-int8] {label}: quantized_gemms gauge {gauge} "
+                      f"== count_executed_gemms {executed}; top-1 agreement "
+                      f"with the float model {agree:.4f} over "
+                      f"{SERVE_INT8_REQUESTS} requests (printed, not "
+                      f"checked); requests/s "
+                      f"{SERVE_INT8_REQUESTS / run['wall']:.1f} on {card}")
+                assert gauge == executed == (54 if knob else 1), (gauge,
+                                                                  executed)
+                if knob:
+                    qconv_card_vs_cpu(svc.model)
+        finally:
+            os.environ.pop("BIGDL_INT8_CONV", None)
+
+
+# --------------------------------------------------------------- reload ----
+
+
+def reload_hammer(card, n=300):
+    """The service under a reload hammer on the card: two weights every
+    reload keeps equal, a forward that reports both; no response may see
+    a torn pair and none may be dropped."""
+    def forward(params, buffers, xb):
+        pair = torch.stack([params["a"], params["b"]])
+        return pair.expand(xb.shape[0], 2)
+
+    svc = InferenceService(None, {"a": np.float32(0.0), "b": np.float32(0.0)},
+                           device="cuda", max_batch_size=8, max_wait_ms=0.5,
+                           max_queue=512, forward_fn=forward)
+    stop = threading.Event()
+    count = [0]
+
+    def hammer():
+        v = 0.0
+        while not stop.is_set():
+            v += 1.0
+            svc.reload({"a": np.float32(v), "b": np.float32(v)})
+            count[0] += 1
+
+    t = threading.Thread(target=hammer)
+    t.start()
+    try:
+        outs = [svc.submit(np.float32(i)) for i in range(n)]
+        results = [np.asarray(f.result(timeout=60)) for f in outs]
+    finally:
+        stop.set()
+        t.join(timeout=60)
+        svc.close()
+    torn = sum(int(r[0] != r[1]) for r in results)
+    seen = len({float(r[0]) for r in results})
+    print(f"[reload] service hammer: {n} requests answered, {torn} torn "
+          f"pairs, {count[0]} reloads during the run, {seen} distinct "
+          f"weight versions served on {card}")
+    assert len(results) == n and torn == 0 and count[0] > 0
+
+
+RELOAD_EMBEDDING_SCALE = 1 / 64
+
+
+def engine_reload(card, model, model2, requests, **knobs):
+    """A warmed engine over ``model`` (its own copy) serves
+    ``static_generate``'s streams over ``model``, which differ from
+    ``model2``'s; reloaded from ``model2``'s float tree, its streams
+    equal ``static_generate`` over ``model2``; a tree of another shape is
+    refused and the new weights keep serving; no kernel call is added
+    beyond the traffic's and nothing is built. Returns the launches of
+    its traffic and the host ms of the reload call."""
+    engine = GenerationEngine(model, device="cuda", max_slots=SLOTS,
+                              max_len=MAX_LEN, max_prompt_len=MAX_PROMPT,
+                              page_size=PAGE, **knobs)
+    engine.warmup()
+    calls = time_calls(engine.kernels)
+    builds = cuda_lib.build.count
+    tree = export_params(model2)
+    zero_launches()
+    before = [s.result(600) for s in [engine.submit(p, max_new_tokens=m)
+                                      for p, m in requests[:8]]]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    engine.reload(tree)
+    reload_ms = (time.monotonic() - t0) * 1e3
+    streams = [engine.submit(p, max_new_tokens=m) for p, m in requests]
+    outs = [s.result(600) for s in streams]
+    try:
+        engine.reload({"embedding": np.zeros((1, HIDDEN), np.float32)})
+        refused = False
+    except ValueError as e:
+        refused = "signature" in str(e)
+    again = engine.generate(requests[0][0], max_new_tokens=requests[0][1],
+                            timeout=600)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    snap = engine.metrics.snapshot()
+    # every kernel call since the warmup is a prompt call or a decode
+    # step of the traffic: the reload ran none
+    traffic = sum(n for _, n in calls.values())
+    engine.close()
+    old, static = (static_generate(m, reqs, max_slots=SLOTS,
+                                   max_len=MAX_LEN, device="cuda",
+                                   page_size=PAGE,
+                                   prefill_chunk=engine.prefill_chunk,
+                                   prompt_buckets=engine.prompt_buckets,
+                                   **knobs)[0]
+                   for m, reqs in ((model, requests[:8]),
+                                   (model2, requests)))
+    label = "int8" if knobs else "float"
+    same = outs == static
+    print(f"[reload] {label} engine before the reload: streams == "
+          f"static_generate over the old weights "
+          f"{sum(a == b for a, b in zip(before, old))}/{len(old)}, equal to "
+          f"the new weights' {sum(a == b for a, b in zip(old, static))}"
+          f"/{len(old)}")
+    assert before == old and old != static[:len(old)]
+    print(f"[reload] {label} engine reloaded from a second float tree "
+          f"({sum(p.numel() for p in model2.parameters())} parameters): "
+          f"streams == static_generate over the new weights "
+          f"{sum(a == b for a, b in zip(outs, static))}/{len(requests)}; "
+          f"a mismatched tree refused naming the signature: {refused}, "
+          f"the new weights still serving: {again == outs[0]}; reloads "
+          f"{snap['reloads']}; kernel calls since the warmup "
+          f"{traffic} (all traffic), nvcc builds "
+          f"{cuda_lib.build.count - builds}; host ms of the reload call "
+          f"{reload_ms:.3f} on {card}")
+    assert same and refused and again == outs[0] and snap["reloads"] == 1
+    assert cuda_lib.build.count == builds
+    assert traffic == snap["prefills"] + snap["prefill_chunks"] \
+        + snap["decode_steps"], (traffic, snap)
+    return launches, reload_ms
+
+
+def reload_flushes_tiers(card, model, model2):
+    """A prefix-cache engine with the host tier (the ``[engine-tiers]``
+    shape): once pages sit in both tiers, a reload empties the index and
+    the host tier before the next admission; the next prompt of a cached
+    family misses and its stream is the new weights'."""
+    rs = np.random.RandomState(6)
+    fam_len = KV_FAMILY_PAGES * PAGE
+    families = [rs.randint(1, 8000, (fam_len,)).tolist()
+                for _ in range(KV_FAMILIES)]
+    engine = GenerationEngine(model, device="cuda", max_slots=1,
+                              max_len=MAX_LEN, max_prompt_len=fam_len + 8,
+                              page_size=PAGE, prefill_chunk=PAGE,
+                              prefix_cache=True, num_pages=KV_DEVICE_PAGES,
+                              host_pages=KV_HOST_PAGES)
+    engine.warmup()
+    for f in families[:6]:
+        engine.generate(f + [1, 2, 3], max_new_tokens=PFX_NEW, timeout=600)
+    shared, host = engine.shared_pages, engine.host_pages_in_use
+    assert shared > 0 and host > 0, (shared, host)
+    # a cached family's prompt whose stream tells the weights apart (a
+    # random model often echoes its last token whatever its weights)
+    for tail in ([4, 5, 6], [4100, 17, 2900], [77, 5123, 610], [3, 3000]):
+        prompt = families[0] + tail
+        old, want = (static_generate(m, [(prompt, PFX_NEW)], max_slots=1,
+                                     max_len=MAX_LEN, device="cuda",
+                                     page_size=PAGE, prefill_chunk=PAGE)[0]
+                     for m in (model, model2))
+        if old != want:
+            break
+    engine.reload(export_params(model2))
+    out = engine.generate(prompt, max_new_tokens=PFX_NEW, timeout=600)
+    snap = engine.metrics.snapshot()
+    after = (engine.shared_pages, engine.host_pages_in_use)
+    engine.close()
+    print(f"[reload] prefix cache + host tier: before the reload "
+          f"{shared} cached and {host} host pages; after it and one "
+          f"request {after[0]} cached, {after[1]} host pages; the cached "
+          f"family's prompt restored {snap['kv_restore_pages']} pages and "
+          f"its stream is the new weights': {out == want[0]} (the old "
+          f"weights' differs: {old != want}) on {card}")
+    assert after[1] == 0 and out == want[0] and old != want
+    assert snap["kv_restore_pages"] == 0
+
+
+def phase_reload(card, model, requests):
+    path = {}
+    reload_hammer(card)
+    model2 = Transformer(VOCAB, HIDDEN, HEADS, FILTER, LAYERS, device="cuda",
+                         generator=torch.Generator().manual_seed(1))
+    # a random model's greedy stream echoes the prompt's last token,
+    # whatever its weights: with the embedding scaled down, the layers
+    # set model2's streams, so a reload that did not take would show
+    with torch.no_grad():
+        model2.embedding.mul_(RELOAD_EMBEDDING_SCALE)
+    ms = {}
+    for label, knobs in (("float", {}),
+                         ("int8", dict(quantize="int8",
+                                       cache_dtype=torch.int8))):
+        launches, ms[label] = engine_reload(card, model, model2, requests,
+                                            **knobs)
+        add_launches(path, launches)
+    reload_flushes_tiers(card, model, model2)
+    del model2
+    return path, ms
+
+
+# --------------------------------------------------------- dense engine ----
+
+
+def dense_vs_paged(model, requests, steps=8):
+    """The largest difference between the dense path's logits (B2 on
+    every call) and the paged path's (B2 on the prompt, B3 on the steps)
+    over prefill + ``steps`` teacher-forced decode steps of the first 8
+    requests, on the card."""
+    ppn = MAX_LEN // PAGE
+    rows = np.arange(SLOTS * ppn, dtype=np.int32).reshape(SLOTS, ppn)
+    dense = model.init_cache(SLOTS, MAX_LEN)
+    paged = model.init_paged_cache(SLOTS * ppn + 1, PAGE)
+    worst = 0.0
+    prompts = [p for p, _ in requests[:SLOTS]]
+    firsts = []
+    with torch.inference_mode():
+        for s, p in enumerate(prompts):
+            bucket = next(b for b in bucket_sizes_for(MAX_PROMPT)
+                          if b >= len(p))
+            pad = np.zeros(bucket, np.int32)
+            pad[:len(p)] = p
+            a, dense = model.prefill(dense, s, pad, len(p))
+            b, paged = model.prefill_paged(paged, rows[s], pad, 0, len(p),
+                                           SLOTS * ppn)
+            worst = max(worst, max_err(a, b))
+            firsts.append(int(a.argmax()))
+        toks = np.asarray(firsts, np.int32)
+        pos = np.asarray([len(p) for p in prompts], np.int32)
+        for i in range(steps):
+            a, dense = model.decode_step(dense, toks, pos + i)
+            b, paged = model.decode_step_paged(paged, toks, pos + i, rows)
+            worst = max(worst, max_err(a, b))
+            toks = a.argmax(-1).to(torch.int32).cpu().numpy()
+    return worst
+
+
+def dense_step_ms(model, steps=50):
+    """Host-clock ms of one eager dense decode step over all 8 slots at
+    position ~100, ending in the token read the engine does."""
+    kernels = DecodeKernels(model)
+    cache = model.init_cache(SLOTS, MAX_LEN)
+    tokens = np.random.RandomState(2).randint(1, VOCAB, (SLOTS,)).astype(
+        np.int32)
+    positions = np.full((SLOTS,), TRACE_POSITION, np.int32)
+    for _ in range(5):
+        toks, cache = kernels.decode(cache, tokens, positions)
+        toks.cpu()
+    t0 = time.monotonic()
+    for i in range(steps):
+        toks, cache = kernels.decode(cache, tokens, positions + i)
+        toks.cpu()
+    return (time.monotonic() - t0) / steps * 1e3
+
+
+def b2_dense_decode_shape(card):
+    """B2 at the dense decode shape, q (8, 8, 1, 64) against the 256-key
+    lanes under the validity bias of slots at position 100."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn(SLOTS, HEADS, 1, HEAD_DIM, generator=g, device="cuda")
+    k, v = (torch.randn(SLOTS, HEADS, MAX_LEN, HEAD_DIM, generator=g,
+                        device="cuda") for _ in range(2))
+    cols = torch.arange(MAX_LEN, device="cuda")
+    bias = torch.where(cols[None, :] <= TRACE_POSITION, 0.0,
+                       -1e9)[:, None, None, :].expand(SLOTS, 1, 1,
+                                                      MAX_LEN).contiguous()
+    err = max_err(fa.flash_attention(q, k, v, bias),
+                  fa.plain_attention(q, k, v, bias))
+    row = dict(time_b2(q, k, v, bias, False), max_abs_err=err)
+    print(f"[engine-dense] B2 at the dense decode shape (8, 8, 1, 64), "
+          f"256-key lanes, (8, 1, 1, 256) validity bias: max_abs_err="
+          f"{err:.3e} (tol {TOL[torch.float32]:g}) kernel_ms={row['ms']:.5f}"
+          f" plain_ms={row['plain_ms']:.5f} library_ms(sdpa)="
+          f"{row['library_ms']:.5f} bound_ms={row['bound_ms']:.6f} "
+          f"({row['bound_by']}) on {card}")
+    assert err <= TOL[torch.float32], err
+    return row
+
+
+def generation_leg(model, requests, page_size):
+    """The requests through a warmed engine over ``model`` (paged with
+    ``page_size``, dense with 0), every launch count zeroed just before
+    the traffic: outputs, wall, snapshot, launches, kernel-call ms and the
+    engine's own peak memory (the caller's weights it serves included, as
+    ``serve()`` counts them)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    engine = GenerationEngine(model, device="cuda", max_slots=SLOTS,
+                              max_len=MAX_LEN, max_prompt_len=MAX_PROMPT,
+                              page_size=page_size)
+    engine.warmup()
+    spent = time_calls(engine.kernels)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.monotonic()
+    streams = [engine.submit(p, max_new_tokens=m) for p, m in requests]
+    outs = [s.result(600) for s in streams]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    engine.close()
+    peak = torch.cuda.max_memory_allocated()
+    assert [len(o) for o in outs] == [m for _, m in requests]
+    return dict(engine=engine, outs=outs, wall=wall, spent=spent,
+                snap=engine.metrics.snapshot(), launches=launches,
+                own_peak=peak - base + nbytes(*model.parameters()),
+                tokens=sum(map(len, outs)))
+
+
+def phase_engine_dense(card, model, requests, float_run, b2_prefill):
+    """The dense engine (``page_size=0``: a K/V lane per slot, B2 on every
+    prompt call and every decode step) over the 32 requests of
+    ``[engine]``, greedy, against the paged engine in turns (paged,
+    dense, dense, paged) on the same warmed model."""
+    legs = [generation_leg(model, requests, size)
+            for size in (PAGE, 0, 0, PAGE)]
+    dense, paged = legs[1:3], (legs[0], legs[3])
+    for run in dense:
+        snap, launches = run["snap"], run["launches"]
+        assert not run["engine"].paged
+        assert launches["flash_attention"] == LAYERS * (
+            snap["prefills"] + snap["decode_steps"]) > 0, (launches, snap)
+        assert launches["paged_attention"] == \
+            launches["paged_attention_int8"] == 0, launches
+    assert dense[0]["outs"] == dense[1]["outs"]
+    assert paged[0]["outs"] == paged[1]["outs"] == float_run["outs"]
+    snap, launches = dense[0]["snap"], dense[0]["launches"]
+    print(f"[engine-dense] {N_REQUESTS} streams done: ({snap['prefills']} "
+          f"prompt calls + {snap['decode_steps']} decode steps) x {LAYERS} "
+          f"layers = {launches['flash_attention']} B2 launches; B3 "
+          f"launches {launches['paged_attention']}")
+    static, steps = static_generate(
+        model, requests, max_slots=SLOTS, max_len=MAX_LEN, device="cuda",
+        page_size=0, prompt_buckets=dense[0]["engine"].prompt_buckets)
+    mismatches = sum(a != b for a, b in zip(static, dense[0]["outs"]))
+    print(f"[engine-dense] engine streams == static_generate streams "
+          f"({N_REQUESTS - mismatches}/{N_REQUESTS}; static ran {steps} "
+          f"decode steps)")
+    assert mismatches == 0, mismatches
+    tol = dense_vs_paged(model, requests)
+    print(f"[engine-dense] dense (B2) vs paged (B2 prompt, B3 steps) logits,"
+          f" prefill + 8 teacher-forced steps: max difference {tol:.3e}")
+    check_greedy_identity("engine-dense", dense[0], paged[0]["outs"], model,
+                          requests, max(tol, 1e-6))
+    step_ms = [decode_step_ms(model), dense_step_ms(model),
+               dense_step_ms(model), decode_step_ms(model)]
+    for run, label, ms in zip(legs, ("paged", "dense", "dense", "paged"),
+                              step_ms):
+        sp = run["spent"]
+        (prompt_ms, n_prompt), (decode_ms, n_steps) = (sp["prefill"],
+                                                       sp["decode"])
+        print(f"[engine-dense] {label:5s} tokens/s="
+              f"{run['tokens'] / run['wall']:.1f}; prompt calls "
+              f"{prompt_ms + sp.get('chunk', [0.0])[0]:.1f} ms = {n_prompt} x "
+              f"{prompt_ms / n_prompt:.3f}, decode steps {decode_ms:.1f} ms "
+              f"= {n_steps} x {decode_ms / n_steps:.3f}; ttft_p50_ms="
+              f"{run['snap']['ttft_ms']['p50']}; standalone decode_step_ms="
+              f"{ms:.3f}; the engine's own peak_mem_MiB="
+              f"{run['own_peak'] / 2**20:.1f} on {card}")
+    for c, row in sorted(b2_prefill.items()):
+        print(f"[engine-dense] B2 at the dense prefill shape q (1, 8, {c}, "
+              f"64), 256-key lane, (1, 1, {c}, 256) bias (the [B2] chunk "
+              f"case): kernel_ms={row['ms']:.5f} plain_ms="
+              f"{row['plain_ms']:.5f} library_ms(sdpa)="
+              f"{row['library_ms']:.5f} bound_ms={row['bound_ms']:.6f} "
+              f"({row['bound_by']})")
+    decode_row = b2_dense_decode_shape(card)
+    total = {}
+    for run in dense:
+        add_launches(total, run["launches"])
+    return total, decode_row
+
+
+# --------------------------------------------------------------- router ----
+
+
+def phase_router(card, resnet, pool, lm):
+    """A ``ModelRouter`` over the ResNet-50 service and the dense engine:
+    each model answers through it, a quota rejection on one while the
+    other serves, and a snapshot."""
+    gate = threading.Event()
+    svc = InferenceService(resnet, device="cuda", max_batch_size=8,
+                           max_wait_ms=2.0)
+    def hold(module, args):
+        # every forward waits for the gate: two requests stay in flight
+        gate.wait(timeout=60)
+
+    svc.model.register_forward_pre_hook(hold)
+    router = ModelRouter()
+    router.register("resnet50", svc, max_inflight=2)
+    engine = GenerationEngine(lm, device="cuda", max_slots=SLOTS,
+                              max_len=MAX_LEN, max_prompt_len=MAX_PROMPT,
+                              page_size=0)
+    engine.warmup()
+    router.register("lm", engine)
+    try:
+        held = [router.submit("resnet50", pool[i]) for i in range(2)]
+        try:
+            router.submit("resnet50", pool[2])
+            rejected = False
+        except Overloaded:
+            rejected = True
+        toks = router.predict("lm", [1, 5, 9], timeout=600,
+                              max_new_tokens=8)
+        gate.set()
+        logits = [f.result(timeout=600) for f in held]
+        snap = router.snapshot()
+        print(f"[router] resnet50 (quota 2) and the dense lm: a third "
+              f"resnet50 request rejected while two were held: {rejected}; "
+              f"the lm answered {len(toks)} tokens meanwhile; resnet50 "
+              f"answered {len(logits)} rows of {logits[0].shape[0]} logits; "
+              f"snapshot resnet50 served={snap['resnet50']['served']} "
+              f"rejected={snap['resnet50']['rejected']}, lm served="
+              f"{snap['lm']['served']} tokens_out={snap['lm']['tokens_out']}"
+              f" on {card}")
+        print("[router]\n" + router.format_table())
+        assert rejected and len(toks) == 8 and len(logits) == 2
+        assert snap["resnet50"]["rejected"] == 1
+        assert snap["lm"]["tokens_out"] == 8
+    finally:
+        gate.set()
+        router.close()
+
+
 def check_int8_logits(model, requests):
     """Card vs CPU teacher-forced logits of the int8 path, held under
     ``INT8_NOISE_FACTOR`` times the card's own noise reading (mean
@@ -3388,17 +4131,23 @@ def main() -> int:
         card, model, narrow, verify_tol)
     paths["engine_async"] = phase_engine_async(card, model)
     paths["engine_obs"] = phase_engine_obs(card, model)
-    del model, narrow, float_run, int8_run
+    paths["engine_dense"], b2["dense_decode"] = phase_engine_dense(
+        card, model, requests, float_run, b2.pop("by_bucket"))
+    paths["reload"], _ = phase_reload(card, model, requests)
+    resnet, pool, serve_b1, float_outs = phase_serve_resnet(card)
+    phase_serve_int8(card, resnet, pool, float_outs)
+    phase_router(card, resnet, pool, model)
+    del model, narrow, float_run, int8_run, resnet
+    paths["serve_resnet"] = {"residual_add": serve_b1}
     b1 = phase_b1(card)
-    residual_launches = phase_train(card)
+    paths["train"] = {"residual_add": phase_train(card)}
     lm_launches, lm_b2_rows = phase_train_lm(card)
     paths["train_lm"] = {"flash_attention": lm_launches}
     by_path = {name: {path: counts[name] for path, counts in paths.items()
                       if counts.get(name)}
                for name in ("flash_attention", "paged_attention",
-                            "paged_attention_int8")}
+                            "paged_attention_int8", "residual_add")}
     launches = {name: sum(p.values()) for name, p in by_path.items()}
-    launches["residual_add"] = residual_launches
     rows = []
     for name, src, replaces, res in (
             ("residual_add", "bigdl_tpu_torch/csrc/residual_add.cu",
@@ -3423,9 +4172,10 @@ def main() -> int:
             rows[-1]["launches_by_path"] = by_path[name]
         if name == "flash_attention":
             timed = dict(lm_b2_rows, verify=b2["verify_shape"],
-                         external_bias_decode=b2["external_bias"])
+                         external_bias_decode=b2["external_bias"],
+                         dense_decode=b2["dense_decode"])
             for label, row in timed.items():
-                rows[-1][label if label in ("verify", "external_bias_decode")
+                rows[-1][label if isinstance(label, str)
                          else f"train_lm_{str(label)[6:]}"] = {
                     key: row[key] for key in (
                         "ms", "plain_ms", "bound_ms", "bound_by",

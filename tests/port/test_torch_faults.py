@@ -276,6 +276,22 @@ def test_engine_step_sites_have_the_jax_outcome(lm, jax_paged_kernels, site):
     assert port[1] == "InjectedFault"
 
 
+def test_dense_prefill_fault_fails_every_stream(lm):
+    """On the dense engine the prompt call runs before its slot is
+    active: a fault there fails that request's stream too, with every
+    other one, and the engine stops (the paged engine's outcome)."""
+    _, _, tm = lm
+    engine = GenerationEngine(tm, device="cpu", max_slots=4, max_len=32,
+                              max_prompt_len=16, page_size=0)
+    faults.arm("engine.prefill", nth=2,
+               only=lambda engine=None, **_: engine is target)
+    target = engine
+    out = _outcomes([engine.submit(p, max_new_tokens=m) for p, m in REQS])
+    engine.close()
+    assert {o for o, _ in out} == {"InjectedFault"}
+    assert type(engine.failed).__name__ == "InjectedFault"
+
+
 @pytest.mark.parametrize("site", ["engine.draft", "engine.verify"])
 def test_speculative_sites_have_the_jax_outcome(lm, jax_spec, site):
     jm, params, tm = lm

@@ -48,10 +48,17 @@ exactly on the card (float and int8, greedy and sampled), an async
 dispatch with ~1 s of kernel queued ahead of it returns with its ticket's
 event pending (every input went up from pinned memory), and the async
 engine with a tracer reports finite, non-zero host and kernel-call
-milliseconds through a metrics registry.
+milliseconds through a metrics registry. Dense lanes and reload: B2 at the
+dense engine's prompt and decode shapes (fp32 1e-4), the dense engine on
+the card running B2 only and giving ``static_generate``'s and the CPU's
+streams, the int8 dot convolution's accumulators bitwise the CPU's (the
+K = 147 stem included), a service reload hammer with no torn pair, and a
+reloaded engine (float, int8) serving ``static_generate``'s streams over
+the new weights.
 """
 
 import math
+import threading
 import time
 
 import numpy as np
@@ -1402,3 +1409,152 @@ def test_async_engine_with_a_tracer_reports_its_split(cuda):
     assert [t.spans[-1].count for t in traces] == \
         [m - 1 for _, m, _ in _async_workload()]
     assert "bigdl_serving_step_device_ms" in obs.to_prometheus(flat)
+
+
+# ------------------------------------------- dense lanes, int8 convs, reload
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [1, 2, 4, 8, 16])
+def test_flash_kernel_at_the_dense_shapes(cuda, sq):
+    """B2 where the dense engine runs it: a prompt bucket of one slot (q
+    (1, 8, P, 64)) or a decode step of 8 slots (q (8, 8, 1, 64)), against
+    256-key lanes under the -1e9 validity bias."""
+    g = torch.Generator(device=cuda).manual_seed(sq)
+    b = 8 if sq == 1 else 1
+    q = torch.randn(b, 8, sq, 64, generator=g, device=cuda)
+    k, v = (torch.randn(b, 8, 256, 64, generator=g, device=cuda)
+            for _ in range(2))
+    pos = torch.arange(b, device=cuda)[:, None] * 30 + torch.arange(
+        sq, device=cuda)[None, :]
+    cols = torch.arange(256, device=cuda)
+    bias = torch.where(cols[None, None, :] <= pos[:, :, None], 0.0,
+                       -1e9)[:, None]
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v, bias)
+    assert tfa.flash_attention.launches == before + 1
+    assert _flash_err(q, k, v, bias, False) <= TOL[torch.float32]
+    assert out.shape == q.shape
+
+
+def _dense_requests():
+    rs = np.random.RandomState(0)
+    return [(rs.randint(1, 128, (rs.randint(2, 13),)).tolist(),
+             int(rs.choice([4, 20]))) for _ in range(12)]
+
+
+@pytest.mark.gpu
+def test_dense_engine_on_card_runs_b2_only_and_equals_static_and_cpu(cuda):
+    """The dense engine on the card: B2 on every layer of every prompt
+    call and decode step, B3 never; its streams equal ``static_generate``
+    on the card, and the same engine's on the CPU (greedy over a small
+    model whose top-2 logit gaps dwarf the two sides' difference)."""
+    requests = _dense_requests()
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = Transformer(128, 64, 4, 128, 2, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        engine = GenerationEngine(model, device=dev, max_slots=4, max_len=48,
+                                  max_prompt_len=12, page_size=0)
+        engine.warmup()
+        tfa.flash_attention.launches = 0
+        tfa.paged_flash_attention.launches = 0
+        outs[dev] = [s.result(120) for s in
+                     [engine.submit(p, max_new_tokens=m)
+                      for p, m in requests]]
+        engine.close()
+        snap = engine.metrics.snapshot()
+        if dev == "cuda":
+            assert tfa.flash_attention.launches == 2 * (
+                snap["prefills"] + snap["decode_steps"]) > 0
+            assert tfa.paged_flash_attention.launches == 0
+            static, _ = static_generate(model, requests, max_slots=4,
+                                        max_len=48, page_size=0,
+                                        prompt_buckets=engine.prompt_buckets)
+            assert static == outs["cuda"]
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, k, stride, pad", [
+    ((2, 3, 32, 32), 7, 2, 3),       # ResNet-50's stem: K = 147, padded
+    ((2, 16, 14, 14), 3, 1, 1),
+    ((2, 24, 14, 14), 1, 2, 0)])
+def test_int8_dot_conv_on_the_card_is_the_cpus_integers(cuda, shape, k,
+                                                        stride, pad):
+    from bigdl_tpu_torch.nn import SpatialConvolution
+    from bigdl_tpu_torch.nn.quantized import quantize
+
+    conv = SpatialConvolution(shape[1], 32, k, k, stride, stride, pad, pad,
+                              device="cpu",
+                              generator=torch.Generator().manual_seed(1))
+    qc = quantize(conv)
+    xq = torch.randint(-127, 128, shape,
+                       generator=torch.Generator().manual_seed(2),
+                       dtype=torch.int8)
+    with torch.inference_mode():
+        cpu = qc._int8_dot_path(xq)
+        card = qc.to(cuda)._int8_dot_path(xq.to(cuda)).cpu()
+    assert card.dtype == torch.int32
+    assert torch.equal(card, cpu)
+
+
+@pytest.mark.gpu
+def test_reload_hammer_on_the_card_never_tears(cuda):
+    from bigdl_tpu_torch.serving import InferenceService
+
+    def forward(params, buffers, xb):
+        pair = torch.stack([params["a"], params["b"]])
+        return pair.expand(xb.shape[0], 2)
+
+    svc = InferenceService(None, {"a": np.float32(0.0), "b": np.float32(0.0)},
+                           device=cuda, max_batch_size=8, max_wait_ms=0.5,
+                           max_queue=512, forward_fn=forward)
+    stop = threading.Event()
+
+    def hammer():
+        v = 0.0
+        while not stop.is_set():
+            v += 1.0
+            svc.reload({"a": np.float32(v), "b": np.float32(v)})
+
+    t = threading.Thread(target=hammer)
+    t.start()
+    try:
+        futures = [svc.submit(np.float32(i)) for i in range(300)]
+        results = [np.asarray(f.result(timeout=60)) for f in futures]
+    finally:
+        stop.set()
+        t.join(timeout=60)
+        svc.close()
+    assert len(results) == 300
+    assert all(r[0] == r[1] for r in results)
+    assert svc.metrics.snapshot()["reloads"] > 0
+
+
+@pytest.mark.gpu
+def test_engine_reload_on_the_card_serves_the_new_weights(cuda):
+    from bigdl_tpu_torch.interop import export_params
+
+    requests = _dense_requests()
+    model = Transformer(128, 64, 4, 128, 2, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    model2 = Transformer(128, 64, 4, 128, 2, device=cuda,
+                         generator=torch.Generator().manual_seed(1))
+    for knobs in ({}, dict(quantize="int8", cache_dtype=torch.int8)):
+        engine = GenerationEngine(model, max_slots=4, max_len=48,
+                                  max_prompt_len=12, page_size=8, **knobs)
+        engine.warmup()
+        before = [s.result(120) for s in [engine.submit(p, max_new_tokens=m)
+                                          for p, m in requests]]
+        engine.reload(export_params(model2))
+        outs = [s.result(120) for s in [engine.submit(p, max_new_tokens=m)
+                                        for p, m in requests]]
+        engine.close()
+        old, static = (static_generate(
+            m, requests, max_slots=4, max_len=48, page_size=8,
+            prompt_buckets=engine.prompt_buckets, **knobs)[0]
+            for m in (model, model2))
+        # each leg starts on the old weights: the engine's own copy
+        assert before == old and old != static
+        assert outs == static

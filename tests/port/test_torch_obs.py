@@ -42,8 +42,8 @@ CFG = dict(max_slots=4, max_len=32, max_prompt_len=8, page_size=4,
            prefill_chunk=4)
 RESULT_TIMEOUT = 60
 # ServingMetrics keys of the JAX package's tiers this package lacks: the
-# replica group, hot reload and the autoscaler's recent windows
-UNPORTED = ("reloads", "replicas_total", "replicas_healthy",
+# replica group and the autoscaler's recent windows
+UNPORTED = ("replicas_total", "replicas_healthy",
             "replica_evictions", "replica_rejoins", "rolling_reloads",
             "replica_inflight", "ttft_recent_ms", "itl_recent_ms",
             "recent_window_s")
@@ -170,6 +170,7 @@ def _drive_metrics(m):
     m.record_prefill(3, 4, 0.006)
     m.record_prefill(5, 8)
     m.record_chunk(4, 4)
+    m.record_reload()
     m.record_decode_step(3, 4)
     m.record_decode_step(1, 4)
     m.record_stream(12, 0.5)

@@ -499,11 +499,11 @@ def test_speculative_metrics_rows_append_after_existing():
         "served", "rejected", "expired", "failed", "forwards",
         "queue_depth", "batch_size_dist", "mean_batch_size",
         "padding_waste", "latency_ms", "queue_wait_ms", "latency_samples",
-        "prefills", "decode_steps", "tokens_out", "slot_occupancy",
-        "prompt_padding_waste", "ttft_ms", "stream_tokens_per_sec",
-        "prefill_chunks", "sampled_tokens", "pages_in_use", "pages_total",
-        "pages_peak", "page_occupancy", "kv_bytes_in_use",
-        "kv_cache_dtype", "quantized_gemms"]
+        "prefills", "decode_steps", "tokens_out", "reloads",
+        "slot_occupancy", "prompt_padding_waste", "ttft_ms",
+        "stream_tokens_per_sec", "prefill_chunks", "sampled_tokens",
+        "pages_in_use", "pages_total", "pages_peak", "page_occupancy",
+        "kv_bytes_in_use", "kv_cache_dtype", "quantized_gemms"]
     # the step-timeline, prefix-cache, ITL, KV-tier, async and grammar
     # rows append after the speculative block, in the JAX package's order
     assert keys[keys.index("quantized_gemms") + 1:] == [
