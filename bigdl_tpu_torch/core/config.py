@@ -1,7 +1,7 @@
 """Typed configuration (``bigdl_tpu/core/config.py`` counterpart).
 
 The fields the training loop reads: the seed, the default batch size, the
-log interval and the dtype policy. Each may be overridden from an
+retry budget after a failed step, the log interval and the dtype policy. Each may be overridden from an
 environment variable prefixed ``BIGDL_TPU_``, read when an instance is
 built, as in the JAX package.
 """
@@ -50,6 +50,12 @@ class EngineConfig:
     seed: int = dataclasses.field(default_factory=lambda: _env("SEED", 1, int))
     default_batch_size: int = dataclasses.field(
         default_factory=lambda: _env("BATCH_SIZE", 128, int))
+    # failure handling: how many times, and after how long, optimize()
+    # retries from the newest checkpoint
+    failure_retry_times: int = dataclasses.field(
+        default_factory=lambda: _env("FAILURE_RETRY_TIMES", 5, int))
+    failure_retry_interval_sec: float = dataclasses.field(
+        default_factory=lambda: _env("FAILURE_RETRY_INTERVAL", 120.0, float))
     log_every_n_steps: int = dataclasses.field(
         default_factory=lambda: _env("LOG_EVERY", 1, int))
     dtypes: DtypePolicy = dataclasses.field(

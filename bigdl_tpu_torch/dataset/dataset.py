@@ -1,29 +1,77 @@
-"""Datasets (``bigdl_tpu/dataset/dataset.py``): ``TensorDataSet`` over
-pre-stacked numpy arrays, made by ``DataSet.tensors``.
+"""Datasets (``bigdl_tpu/dataset/dataset.py``).
 
-The training stream is infinite: each epoch draws a fresh permutation from
-the dataset's ``RandomGenerator`` and yields drop-last batches of it; the
-evaluation stream walks the data in order once. For one seed the order is
-the JAX package's.
+- ``ArrayDataSet`` (``DataSet.array``): a list of elements, usually
+  ``Sample``s.
+- ``TensorDataSet`` (``DataSet.tensors``): pre-stacked numpy arrays,
+  batched by one fancy-index gather per batch.
+- ``TransformedDataSet`` (``dataset >> transformer``): a dataset's
+  elements through a transformer chain.
+
+``data(train=True)`` is infinite: each epoch draws a fresh permutation
+from the dataset's ``RandomGenerator``; ``data(train=False)`` walks the
+elements in order once. For one seed the order is the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+from typing import Any, Iterator, Optional, Sequence
 
 import numpy as np
 
 from bigdl_tpu_torch.core.rng import RandomGenerator
-from bigdl_tpu_torch.dataset.sample import MiniBatch
+from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
+from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch, Transformer
 
 
 class AbstractDataSet:
+    def data(self, train: bool) -> Iterator[Any]:
+        raise NotImplementedError
+
     def size(self) -> int:
         raise NotImplementedError
 
+    def shuffle(self) -> None:
+        pass
+
+    def transform(self, transformer: Transformer) -> "TransformedDataSet":
+        return TransformedDataSet(self, transformer)
+
+    def __rshift__(self, transformer: Transformer) -> "TransformedDataSet":
+        return self.transform(transformer)
+
     def batches(self, batch_size: int, train: bool,
-                partial_batch: bool = False) -> Iterator[MiniBatch]:
-        raise NotImplementedError
+                partial_batch: bool = False) -> Iterator[Any]:
+        """``MiniBatch``es of ``data(train)`` grouped by
+        ``SampleToMiniBatch``; array-backed datasets slice instead."""
+        return SampleToMiniBatch(batch_size, partial_batch=partial_batch
+                                 ).apply(self.data(train))
+
+
+class ArrayDataSet(AbstractDataSet):
+    """An in-memory list of elements."""
+
+    def __init__(self, elements: Sequence[Any],
+                 rng: Optional[RandomGenerator] = None):
+        self.elements = list(elements)
+        self.rng = rng or RandomGenerator.default()
+        self._perm = np.arange(len(self.elements))
+
+    def size(self) -> int:
+        return len(self.elements)
+
+    def shuffle(self) -> None:
+        self._perm = self.rng.permutation(len(self.elements))
+
+    def data(self, train: bool) -> Iterator[Any]:
+        if not train:
+            return iter(self.elements)
+
+        def infinite():
+            while True:
+                self.shuffle()
+                for i in self._perm:
+                    yield self.elements[i]
+        return infinite()
 
 
 class TensorDataSet(AbstractDataSet):
@@ -36,6 +84,19 @@ class TensorDataSet(AbstractDataSet):
 
     def size(self) -> int:
         return len(self.features)
+
+    def _sample(self, i) -> Sample:
+        return Sample(self.features[i],
+                      None if self.labels is None else self.labels[i])
+
+    def data(self, train: bool) -> Iterator[Sample]:
+        if not train:
+            for i in range(len(self.features)):
+                yield self._sample(i)
+            return
+        while True:
+            for i in self.rng.permutation(len(self.features)):
+                yield self._sample(i)
 
     def _batch(self, idx) -> MiniBatch:
         return MiniBatch(self.features[idx],
@@ -68,8 +129,28 @@ class TensorDataSet(AbstractDataSet):
         return train_batches() if train else eval_batches()
 
 
+class TransformedDataSet(AbstractDataSet):
+    def __init__(self, base: AbstractDataSet, transformer: Transformer):
+        self.base = base
+        self.transformer = transformer
+
+    def size(self) -> int:
+        return self.base.size()
+
+    def shuffle(self) -> None:
+        self.base.shuffle()
+
+    def data(self, train: bool) -> Iterator[Any]:
+        return self.transformer.apply(self.base.data(train))
+
+
 class DataSet:
     """Factory namespace."""
+
+    @staticmethod
+    def array(elements: Sequence[Any],
+              rng: Optional[RandomGenerator] = None) -> ArrayDataSet:
+        return ArrayDataSet(elements, rng)
 
     @staticmethod
     def tensors(features, labels=None, rng=None) -> TensorDataSet:

@@ -5,8 +5,9 @@ from bigdl_tpu_torch.interop.jax_params import (
     export_params,
     export_state,
     load_jax_params,
+    load_optim_state,
     to_numpy_tree,
 )
 
 __all__ = ["export_optim_state", "export_params", "export_state",
-           "load_jax_params", "to_numpy_tree"]
+           "load_jax_params", "load_optim_state", "to_numpy_tree"]

@@ -95,7 +95,34 @@ def export_state(module: nn.Module) -> Dict[str, Any]:
 
 def export_optim_state(state: Mapping[str, Any]) -> Dict[str, Any]:
     """An optim method's state (``step`` and per-parameter buffers such as
-    SGD's ``velocity``) in the JAX package's layout: each buffer a
-    params-shaped tree."""
-    return {key: np.asarray(value) if not isinstance(value, Mapping)
-            else to_numpy_tree(value) for key, value in state.items()}
+    SGD's ``velocity``) in the JAX package's layout: ``step`` an int32
+    0-d array, each buffer a params-shaped tree."""
+    return {key: np.asarray(value, np.int32) if key == "step"
+            else to_numpy_tree(value) if isinstance(value, Mapping)
+            else np.asarray(value) for key, value in state.items()}
+
+
+def load_optim_state(state: Dict[str, Any],
+                     tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`export_optim_state`: copy a JAX-layout optim
+    state (``step`` and params-shaped buffer trees, numpy leaves) into
+    ``state``, an optim method's state of the port, in place: each buffer
+    tensor keeps its identity, so whoever holds it sees the new values.
+    Returns ``state``. Raises ``ValueError`` on a missing or extra buffer
+    or leaf, or a shape or dtype mismatch, before copying anything."""
+    buffers = {k for k, v in state.items() if isinstance(v, Mapping)}
+    given = {k for k, v in tree.items() if isinstance(v, Mapping)}
+    if buffers != given or "step" not in tree:
+        raise ValueError(f"optim state does not match the method's: "
+                         f"buffers {sorted(given)} and step "
+                         f"{'step' in tree}, the method's "
+                         f"{sorted(buffers)}")
+    pairs = [(state[k], _match(f"optim {k}", state[k], tree[k]))
+             for k in sorted(buffers)]
+    with torch.no_grad():
+        for targets, arrays in pairs:
+            for name, arr in arrays.items():
+                t = targets[name]
+                t.copy_(torch.tensor(arr, dtype=t.dtype))
+    state["step"] = int(np.asarray(tree["step"]))
+    return state

@@ -11,7 +11,7 @@ from bigdl_tpu_torch.nn.criterion import (
     CrossEntropyCriterion,
     TimeDistributedCriterion,
 )
-from bigdl_tpu_torch.nn.layers.activation import ReLU
+from bigdl_tpu_torch.nn.layers.activation import LogSoftMax, ReLU
 from bigdl_tpu_torch.nn.layers.attention import (
     Attention,
     FeedForwardNetwork,
@@ -41,7 +41,7 @@ __all__ = ["Attention", "BatchNormalization", "CAddTable",
            "ClassNLLCriterion", "ConcatTable", "Container", "Criterion",
            "CrossEntropyCriterion", "Dropout", "FeedForwardNetwork",
            "GlobalAveragePooling2D", "Identity", "LayerNormalization",
-           "Linear", "LookupTable", "Padding", "ReLU", "Sequential",
+           "Linear", "LogSoftMax", "LookupTable", "Padding", "ReLU", "Sequential",
            "SpatialAveragePooling", "SpatialBatchNormalization",
            "SpatialConvolution", "SpatialMaxPooling",
            "TimeDistributedCriterion", "Transformer", "TransformerLayer",

@@ -14,3 +14,14 @@ class ReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(x)
+
+
+class LogSoftMax(nn.Module):
+    """``log_softmax`` along ``axis``."""
+
+    def __init__(self, axis: int = -1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.log_softmax(x, dim=self.axis)

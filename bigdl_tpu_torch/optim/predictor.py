@@ -1,5 +1,5 @@
-"""Inference tier (``bigdl_tpu/optim/predictor.py``): ``Predictor`` and
-``PredictionService``.
+"""Inference tier (``bigdl_tpu/optim/predictor.py``): ``Predictor``,
+``Evaluator`` and ``PredictionService``.
 
 ``Predictor`` runs a dataset through the model in eval mode in batches
 on its device and splits the outputs per sample (reference
@@ -7,21 +7,28 @@ on its device and splits the outputs per sample (reference
 reference's thread-safe front door (``PredictionService.scala:56``), here
 a shim over :class:`~bigdl_tpu_torch.serving.InferenceService`:
 concurrent callers are grouped into micro-batches, and a full queue
-raises ``Overloaded`` instead of blocking. Lists of ``Sample`` need the
-port's ``Sample`` and ``SampleToMiniBatch`` (ROADMAP A.3.7); the
-``Evaluator`` needs the validation methods (ROADMAP A.3.2).
+raises ``Overloaded`` instead of blocking. ``Evaluator`` runs validation
+methods over a dataset (reference ``Evaluator.scala:40``). Each takes a
+dataset, a list of ``Sample``s or an array of stacked features.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.device import DeviceLike, module_device
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet, DataSet
-from bigdl_tpu_torch.dataset.sample import MiniBatch
+from bigdl_tpu_torch.dataset.prefetch import device_prefetch
+from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample
+from bigdl_tpu_torch.optim.validation import (
+    ValidationMethod,
+    ValidationResult,
+    accumulate_batch,
+    results,
+)
 from bigdl_tpu_torch.serving.batcher import host_array, split_batch
 
 
@@ -29,11 +36,8 @@ def _as_dataset(data) -> AbstractDataSet:
     if isinstance(data, AbstractDataSet):
         return data
     if isinstance(data, (list, tuple)) and data \
-            and hasattr(data[0], "feature"):
-        raise NotImplementedError(
-            "a list of Samples needs the port's Sample and "
-            "SampleToMiniBatch, queued in ROADMAP A.3.7; pass the stacked "
-            "features as an array or a TensorDataSet")
+            and isinstance(data[0], Sample):
+        return DataSet.array(list(data))
     return DataSet.tensors(np.asarray(data))
 
 
@@ -82,6 +86,39 @@ class Predictor:
     def predict_class(self, data) -> np.ndarray:
         preds = self.predict(data, flatten=False)
         return np.concatenate([np.argmax(p, axis=-1) for p in preds])
+
+
+class Evaluator:
+    """Validation methods over a dataset (reference ``Evaluator.scala:40``):
+    the model in eval mode on its device (``device`` as in
+    ``Predictor``), batches of ``batch_size`` with the last one partial,
+    device methods summed on the device; the model is left in the mode it
+    was in."""
+
+    def __init__(self, model, *, device: DeviceLike = None,
+                 batch_size: int = 32):
+        self.model = model
+        self.device = module_device(model, device)
+        self.batch_size = batch_size
+
+    def test(self, data, methods: Sequence[ValidationMethod]
+             ) -> List[ValidationResult]:
+        methods = list(methods)
+        sums = [[0.0, 0] for _ in methods]
+        batches = _as_dataset(data).batches(self.batch_size, train=False,
+                                            partial_batch=True)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.inference_mode():
+                for x, y in device_prefetch(batches, self.device):
+                    if y is None:
+                        raise ValueError("evaluation data must carry "
+                                         "labels")
+                    accumulate_batch(sums, methods, self.model(x), y)
+        finally:
+            self.model.train(was_training)
+        return results(sums, methods)
 
 
 class PredictionService:

@@ -3,7 +3,7 @@
 generation over paged or dense KV lanes, greedy or sampled, plain or
 speculative, grammar-constrained or free, scheduled synchronously or
 async, with a prefix cache, a host KV tier, prefill/decode disaggregation
-and hot reload."""
+and hot reload, from a checkpoint directory too (``watch_checkpoints``)."""
 
 from bigdl_tpu_torch.serving.batcher import DynamicBatcher, bucket_sizes_for
 from bigdl_tpu_torch.serving.disagg import (
@@ -27,6 +27,10 @@ from bigdl_tpu_torch.serving.errors import (
     StreamCancelled,
     UnknownModel,
 )
+from bigdl_tpu_torch.serving.hot_reload import (
+    CheckpointWatcher,
+    watch_checkpoints,
+)
 from bigdl_tpu_torch.serving.kv_tiers import HostCopier, HostPageStore
 from bigdl_tpu_torch.serving.metrics import ServingMetrics
 from bigdl_tpu_torch.serving.paging import PagePool, page_bytes, pages_per_lane
@@ -38,7 +42,7 @@ from bigdl_tpu_torch.serving.service import (
     tree_signature,
 )
 
-__all__ = ["DeadlineExceeded", "DecodeKernels", "DisaggregatedEngine",
+__all__ = ["CheckpointWatcher", "DeadlineExceeded", "DecodeKernels", "DisaggregatedEngine",
            "DynamicBatcher", "GenerationEngine", "GenerationStream",
            "GrammarViolation", "HostCopier", "HostPageStore",
            "InferenceService", "ModelRouter", "Overloaded",
@@ -47,4 +51,4 @@ __all__ = ["DeadlineExceeded", "DecodeKernels", "DisaggregatedEngine",
            "ServingMetrics", "SpeculativeKernels", "StreamCancelled",
            "UnknownModel", "bucket_sizes_for", "page_bytes",
            "pages_per_lane", "require_matching_signature",
-           "static_generate", "tree_signature"]
+           "static_generate", "tree_signature", "watch_checkpoints"]

@@ -246,7 +246,37 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              memory; then one fp32 step of ``build_cifar(8)`` at batch 8 on
              the card against the CPU, and (``[trace]``) a torch.profiler
              window over 3 training steps of the second leg.
-24. train-lm — a Transformer language model at the width of the JAX
+24. train-runtime — the training runtime around ResNet-50's step, at
+             batch 64 under the bf16 mixed policy with B1: SGD 0.1 /
+             momentum 0.9 / weight decay 1e-4 under a 2-iteration warmup
+             then ``Poly(0.5, 8)``, L2 clipping at 1.0, validation every 4
+             iterations (Top-1, Top-5, loss over 160 images: 64, 64 and a
+             partial 32), async checkpoints every 2 keeping 2, train and
+             validation summaries, a 120 s watchdog and a metrics registry.
+             Leg A runs to iteration 4, takes a host copy of its tensors and
+             a copy of the directory, and goes on to 8, while an
+             ``InferenceService`` over a seed-1 fp32 ResNet-50 watches the
+             directory (``watch_checkpoints``); leg B, a fresh model, resumes
+             the copy with ``auto_resume`` and runs to 8. Checks the commits
+             (2, 4, 6, 8; 6 and 8 kept, each verified), the iteration-4 blob
+             bitwise against leg A's host copy at 4, the iteration-6 blob,
+             whose save is held behind a ~0.3 s spin on the training stream
+             so that its copies are still pending when step 7 launches its
+             first in-place write (checked), bitwise against card copies
+             taken on that stream just before the save (the snapshot not
+             torn by the next step), leg B's restored tensors bitwise against
+             the blob, its losses against leg A's (bitwise, or within the
+             stated tolerance, which is printed), validation counts, the
+             summaries read back and the logged rates equal to the
+             schedule's fp32 values, the service's reload to
+             ``model.iter8`` (its logits against a fresh model holding that
+             blob, and different before), and B1's launches against the
+             dispatch rule over the window's forwards. Prints images/s with
+             the triggers against none, save() host ms, the writer's ms per
+             commit (copy wait, serialize, write, hash), blob bytes, ms per
+             validation pass, host ms per reload, peak memory and the
+             phase's seconds.
+25. train-lm — a Transformer language model at the width of the JAX
              package's ``bench.py --mode lm`` (vocab 8192, hidden 512, 8
              heads, filter 2048, 4 layers), batch 8 x 128 tokens, fp32,
              embedding/residual and FFN dropout 0.1 (threefry-keyed),
@@ -269,7 +299,7 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              a stated tolerance; a full-width mask card vs CPU, bitwise;
              and B2 at the training shape (8, 8, 128, 64), causal, fp32
              and bf16 x bf16: error, kernel, plain, SDPA and bound times.
-25. a ``{"kernels": [...]}`` line (each row counts its launches on every
+26. a ``{"kernels": [...]}`` line (each row counts its launches on every
     path, by path; B2's carries its training-shape, verify-shape,
     external-bias and dense decode-shape times), the card's name and power
     limit, and the last line
@@ -287,6 +317,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -303,8 +334,10 @@ from bigdl_tpu_torch import faults, obs
 from bigdl_tpu_torch.core import DtypePolicy, EngineConfig, RandomGenerator
 from bigdl_tpu_torch.core import threefry
 from bigdl_tpu_torch.core.rng import split_keys, threefry_key_data, uniform_keys
+from bigdl_tpu_torch.ckpt import load_manifest
+from bigdl_tpu_torch.ckpt.manifest import verify_entry
 from bigdl_tpu_torch.dataset import DataSet
-from bigdl_tpu_torch.interop import export_params
+from bigdl_tpu_torch.interop import export_params, load_jax_params
 from bigdl_tpu_torch.models.resnet import build_cifar, build_imagenet
 from bigdl_tpu_torch.nn import (
     CrossEntropyCriterion,
@@ -313,6 +346,8 @@ from bigdl_tpu_torch.nn import (
     int8,
 )
 from bigdl_tpu_torch.nn.layers import attention as attention_layers
+from bigdl_tpu_torch.nn.layers.norm import BatchNormalization
+from bigdl_tpu_torch.nn.module import flatten_tree
 from bigdl_tpu_torch.nn.quantized import (
     QuantizedSpatialConvolution,
     count_executed_gemms,
@@ -322,7 +357,17 @@ from bigdl_tpu_torch.ops import cuda_lib
 from bigdl_tpu_torch.ops import flash_attention as fa
 from bigdl_tpu_torch.ops import residual_add as ra
 from bigdl_tpu_torch.ops import sampling
-from bigdl_tpu_torch.optim import SGD, Trigger, optimizer
+from bigdl_tpu_torch.optim import (
+    SGD,
+    Loss,
+    Poly,
+    SequentialSchedule,
+    Top1Accuracy,
+    Top5Accuracy,
+    Trigger,
+    Warmup,
+    optimizer,
+)
 from bigdl_tpu_torch.serving import (
     DecodeKernels,
     DisaggregatedEngine,
@@ -337,7 +382,10 @@ from bigdl_tpu_torch.serving import (
     SpeculativeKernels,
     bucket_sizes_for,
     static_generate,
+    watch_checkpoints,
 )
+from bigdl_tpu_torch.utils.checkpoint import deserialize_payload
+from bigdl_tpu_torch.visualization import TrainSummary, ValidationSummary
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -471,6 +519,30 @@ STEP_TOL = 1e-4
 # grads differ by 7.1 and 16.7 spacings for two data seeds; the same bf16
 # step against an fp32 one differs by 40-45, which this must fail
 BF16_STEP_ULPS = 24
+
+# the training runtime run: ResNet-50 at batch 64 under the bf16 mixed
+# policy with B1, SGD 0.1 / momentum 0.9 / weight decay 1e-4 under a
+# 2-iteration warmup then Poly(0.5, 8), L2 clipping at 1.0; validation
+# every 4 iterations over 160 images in batches of 64 (64, 64, 32), async
+# checkpoints every 2 keeping 2; leg A to iteration 4, then on to 8; leg B
+# resumes the copy of the directory taken at 4 and runs to 8
+TR_BATCH, TR_TRAIN, TR_VAL, TR_VAL_BATCH, TR_IMAGE = 64, 512, 160, 64, 224
+TR_STEPS, TR_HALF, TR_CKPT_EVERY, TR_VAL_EVERY = 8, 4, 2, 4
+TR_WARMUP_DELTA = 0.05
+# leg B's losses for steps 5-8 against leg A's, relative, where they are
+# not bitwise equal: the same weights, batches and kernels, so only a
+# reduction whose order cuDNN does not fix (a weight-gradient sum split
+# across blocks) can move them: an fp32 ulp or so per step, grown through
+# bf16 layers over at most 4 steps, far below the 0.4% of one bf16 spacing
+TR_LOSS_REL = 1e-3
+# the service's poll interval over leg A's directory, and how long to wait
+# for the last commit's reload
+TR_POLL_S, TR_RELOAD_WAIT_S = 0.2, 60.0
+# leg A's save of iteration TR_MID is held behind a spin on the training
+# stream (~0.3 s at the H100's clock, far longer than that save's host
+# time), so that its snapshot copies are still queued when step TR_MID + 1
+# launches its first in-place writes
+TR_MID, TR_SPIN_CYCLES = TR_STEPS - TR_CKPT_EVERY, 600_000_000
 
 # the LM training run: a Transformer LM at the width of the JAX package's
 # bench.py --mode lm (vocab 8192, hidden 512, 8 heads, filter 2048, 4
@@ -3897,6 +3969,408 @@ class _Recorded:
         threefry.bernoulli = self.fn
 
 
+# ------------------------------------------ the training runtime (ResNet-50) ----
+
+
+def tr_resnet():
+    """The phase's ResNet-50 (1000 classes, 224x224) from seed 1."""
+    return build_imagenet(50, device="cuda",
+                          generator=torch.Generator().manual_seed(1))
+
+
+def tr_schedule():
+    return SequentialSchedule([(Warmup(TR_WARMUP_DELTA), 2),
+                               (Poly(0.5, TR_STEPS), None)])
+
+
+def tr_optimizer(model, x, y, rng):
+    """The phase's optimizer over ``model``: SGD under the schedule,
+    L2 clipping, the bf16 mixed policy, batch ``TR_BATCH``."""
+    opt = optimizer(model, DataSet.tensors(x, y, rng), CrossEntropyCriterion(),
+                    TR_BATCH, EngineConfig(dtypes=DtypePolicy.mixed()))
+    opt.set_optim_method(SGD(0.1, momentum=0.9, weight_decay=1e-4,
+                             schedule=tr_schedule()))
+    opt.set_gradclip_l2norm(1.0)
+    return opt
+
+
+def tr_live(opt):
+    """The model's parameters and buffers and the velocity
+    (``velocity.<name>``), by dotted name: the live tensors."""
+    out = dict(opt.model.state_dict())
+    out.update({f"velocity.{k}": v
+                for k, v in opt.optim_state["velocity"].items()})
+    return out
+
+
+def tr_host(opt):
+    """Host copies of :func:`tr_live`'s tensors."""
+    return {k: v.detach().cpu().clone() for k, v in tr_live(opt).items()}
+
+
+def tr_blob(directory, tag):
+    """The committed blob ``tag`` of ``directory``, verified by size and
+    sha256 against its manifest entry and decoded: its tensors by the
+    names ``tr_host`` uses, and the payload."""
+    entry = next(e for e in load_manifest(directory) if e.tag == tag)
+    blob = verify_entry(directory, entry)
+    assert blob is not None, f"{tag} does not verify"
+    payload = deserialize_payload(blob)
+    flat = {**flatten_tree(payload["params"]),
+            **flatten_tree(payload["module_state"])}
+    velocity = payload["optim_state"]["__all__"]["velocity"]
+    flat.update({f"velocity.{k}": v
+                 for k, v in flatten_tree(velocity).items()})
+    return flat, payload, entry
+
+
+def tr_bitwise(got, want) -> list:
+    """Names whose tensors differ in any bit (or are missing)."""
+    return sorted(k for k in set(got) | set(want)
+                  if k not in got or k not in want
+                  or not torch.equal(torch.as_tensor(np.asarray(got[k])),
+                                     torch.as_tensor(np.asarray(want[k]))))
+
+
+def tr_served(svc, images):
+    """``images`` submitted to ``svc`` at once (the batcher groups them);
+    their logits, in order."""
+    futures = [svc.submit(img) for img in images]
+    return np.stack([np.asarray(f.result(timeout=120)) for f in futures])
+
+
+def tr_images_per_s(records, skip=()):
+    """Images/s over the intervals between consecutive iterations' log
+    records (each holds a step and the triggers of the iteration before),
+    the first interval and those ending at ``skip`` left out."""
+    times = {r.args[1]: r.created for r in records}
+    ends = [i for i in sorted(times)[1:] if i - 1 in times and i not in skip]
+    return TR_BATCH * len(ends) / sum(times[i] - times[i - 1] for i in ends)
+
+
+def tr_hold_save(opt, held):
+    """Hold ``opt``'s save of iteration ``TR_MID`` behind a spin on the
+    training stream, timed by two events (``held["spin"]``). Just before
+    the spin, card copies of that iteration's tensors go into
+    ``held["tensors"]`` (the loop has read the step's loss: the step is
+    done). Records whether the snapshot's copies were still pending when
+    step ``TR_MID + 1`` launched its first in-place write (the first BN
+    layer's running statistics: ``held["pending_at_first_write"]``) and
+    its update (``held["pending_at_update"]``), and the host ms from the
+    save's return to that update (``held["to_update_ms"]``)."""
+    mgr, sgd = opt.checkpoint_manager, opt.optim_methods["__all__"]
+    real_save, real_update = mgr.save, sgd.update
+    first_bn = next(m for m in opt.model.modules()
+                    if isinstance(m, BatchNormalization))
+
+    def save(tag, *args, **kwargs):
+        if tag != f"model.iter{TR_MID}":
+            return real_save(tag, *args, **kwargs)
+        for k, v in tr_live(opt).items():
+            held["tensors"][k].copy_(v)
+        spin = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        spin[0].record()
+        torch.cuda._sleep(TR_SPIN_CYCLES)
+        spin[1].record()
+        handle = real_save(tag, *args, **kwargs)
+        held["spin"], held["copies"] = spin, torch.cuda.Event()
+        held["copies"].record()     # behind the spin and the copies
+        held["saved_at"] = time.perf_counter()
+        return handle
+
+    def first_write(m, args, out):
+        if (m.training and opt.state.iteration == TR_MID
+                and "pending_at_first_write" not in held):
+            held["pending_at_first_write"] = not held["copies"].query()
+
+    def update(*args, **kwargs):
+        if opt.state.iteration == TR_MID and "pending_at_update" not in held:
+            held["pending_at_update"] = not held["copies"].query()
+            held["to_update_ms"] = 1e3 * (time.perf_counter()
+                                          - held["saved_at"])
+        return real_update(*args, **kwargs)
+
+    first_bn.register_forward_hook(first_write)
+    mgr.save, sgd.update = save, update
+
+
+def phase_train_runtime(card):
+    """The training runtime around ResNet-50's step (see the module
+    docstring); returns B1's launches on this path."""
+    t_phase = time.monotonic()
+    rs = np.random.RandomState(13)
+    x = rs.rand(TR_TRAIN, 3, TR_IMAGE, TR_IMAGE).astype(np.float32)
+    y = rs.randint(0, 1000, (TR_TRAIN,))
+    xv = rs.rand(TR_VAL, 3, TR_IMAGE, TR_IMAGE).astype(np.float32)
+    yv = rs.randint(0, 1000, (TR_VAL,))
+    handler = _LogRecords()
+    logger = logging.getLogger("bigdl_tpu_torch.optim")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    tmp = tempfile.mkdtemp(prefix="train_runtime_")
+    os.environ["BIGDL_RESIDUAL_ADD"] = "pallas"
+    try:
+        return _train_runtime(card, x, y, xv, yv, handler, tmp, t_phase)
+    finally:
+        os.environ.pop("BIGDL_RESIDUAL_ADD", None)
+        logger.removeHandler(handler)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _step_records(records):
+    return [r for r in records if hasattr(r, "step_seconds")]
+
+
+def _train_runtime(card, x, y, xv, yv, handler, tmp, t_phase):
+    # the same steps with no trigger: the throughput's baseline
+    plain = tr_optimizer(tr_resnet(), x, y, RandomGenerator(1))
+    plain.set_end_when(Trigger.max_iteration(TR_STEPS))
+    n0 = len(handler.records)
+    plain.optimize()
+    torch.cuda.synchronize()
+    plain_recs = _step_records(handler.records[n0:])
+    del plain
+    torch.cuda.empty_cache()
+
+    # the service: a seed-1 fp32 ResNet-50 that watches leg A's directory
+    ckdir = os.path.join(tmp, "ckpt")
+    served_model = tr_resnet()
+    served_model.eval()
+    svc = InferenceService(served_model, device="cuda", max_batch_size=8,
+                           max_wait_ms=2.0)
+    pool = xv[:8]
+    svc.warmup(pool[0])
+    before = tr_served(svc, pool)
+    forwards = []      # (kind, rows) of every forward in the counted window
+    svc.model.register_forward_hook(
+        lambda m, a, o: forwards.append(("served", int(a[0].shape[0]))))
+    os.makedirs(ckdir)
+    watcher = watch_checkpoints(svc, ckdir, poll_interval=TR_POLL_S)
+
+    # leg A: to iteration 4, a host copy and a copy of the directory, on
+    # to 8; the save of TR_MID held behind a spin (see tr_hold_save)
+    model_a = tr_resnet()
+    held = {}
+
+    def leg_a_forward(m, a):
+        forwards.append(("train" if m.training else "validation",
+                         int(a[0].shape[0])))
+        if m.training and "tensors" not in held:
+            # the card copies' buffers (see tr_hold_save), made at the
+            # first step so that the steps after it settle the allocator's
+            # cache with them in place
+            held["tensors"] = {k: torch.empty_like(v)
+                               for k, v in tr_live(opt).items()}
+
+    model_a.register_forward_pre_hook(leg_a_forward)
+    opt = tr_optimizer(model_a, x, y, RandomGenerator(1))
+    opt.set_validation(Trigger.several_iteration(TR_VAL_EVERY),
+                       DataSet.tensors(xv, yv),
+                       [Top1Accuracy(), Top5Accuracy(), Loss()],
+                       batch_size=TR_VAL_BATCH)
+    opt.set_checkpoint(ckdir, Trigger.several_iteration(TR_CKPT_EVERY),
+                       keep_last_n=2)
+    ts = TrainSummary(tmp, "train_runtime")
+    vs = ValidationSummary(tmp, "train_runtime")
+    opt.set_train_summary(ts).set_val_summary(vs)
+    opt.set_watchdog(120)
+    registry = obs.MetricsRegistry()
+    opt.set_metrics_registry(registry)
+    tr_hold_save(opt, held)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, with the launch count zeroed just before it
+    ra.residual_add.launches = 0
+    n1 = len(handler.records)
+    opt.set_end_when(Trigger.max_iteration(TR_HALF))
+    opt.optimize()
+    host4 = tr_host(opt)
+    copy_dir = os.path.join(tmp, f"ckpt_at_{TR_HALF}")
+    shutil.copytree(ckdir, copy_dir)
+    opt.set_end_when(Trigger.max_iteration(TR_STEPS))
+    opt.optimize()
+    torch.cuda.synchronize()
+    recs_a = _step_records(handler.records[n1:])
+    vals = [r.validation for r in handler.records[n1:]
+            if hasattr(r, "validation")]
+    val_s = sorted({r.validation_seconds for r in handler.records[n1:]
+                    if hasattr(r, "validation")})
+    deadline = time.monotonic() + TR_RELOAD_WAIT_S
+    last = f"model.iter{TR_STEPS}"
+    while ((watcher.last_entry is None or watcher.last_entry.tag != last)
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    after = tr_served(svc, pool)
+    mgr = opt.checkpoint_manager
+    save_ms, timings = list(mgr.save_ms), list(mgr.commit_timings)
+    flat = registry.collect()
+    mid = {k: v.cpu() for k, v in held.pop("tensors").items()}
+    spin_ms = held["spin"][0].elapsed_time(held["spin"][1])
+    ts.close()
+    vs.close()
+    stalled = opt.watchdog_error
+    del opt, model_a
+    torch.cuda.empty_cache()
+
+    # leg B: a fresh seed-1 model resumes the directory copied at 4; its
+    # dataset's generator is past the first epoch's permutation, as leg
+    # A's is when it goes on from 4
+    blob4, _, _ = tr_blob(copy_dir, f"model.iter{TR_HALF}")
+    rng = RandomGenerator(1)
+    rng.permutation(TR_TRAIN)
+    model_b = tr_resnet()
+    opt_b = tr_optimizer(model_b, x, y, rng)
+    opt_b.set_checkpoint(copy_dir, Trigger.several_iteration(TR_CKPT_EVERY),
+                         keep_last_n=2, auto_resume=True)
+    restored = {}
+
+    def first_forward(m, a):
+        forwards.append(("train", int(a[0].shape[0])))
+        if not restored:       # step 5's forward, before its update
+            restored.update(iteration=opt_b.state.iteration,
+                            tensors=tr_host(opt_b))
+
+    model_b.register_forward_pre_hook(first_forward)
+    n2 = len(handler.records)
+    opt_b.set_end_when(Trigger.max_iteration(TR_STEPS))
+    opt_b.optimize()
+    torch.cuda.synchronize()
+    launches = ra.residual_add.launches
+    counted = list(forwards)
+    peak = torch.cuda.max_memory_allocated()
+    recs_b = _step_records(handler.records[n2:])
+    watcher.stop(timeout=10)
+    svc.close()
+
+    # the reloaded service against a fresh model holding the last blob
+    blob8, payload8, _ = tr_blob(ckdir, last)
+    fresh = tr_resnet()
+    load_jax_params(fresh, payload8["params"], payload8["module_state"])
+    fresh.eval()
+    with torch.inference_mode():
+        want = torch.cat([fresh(torch.from_numpy(pool[i:i + 1]).cuda())
+                          for i in range(len(pool))]).cpu().numpy()
+    del fresh, model_b, opt_b
+    torch.cuda.empty_cache()
+
+    # -- checks and figures
+    entries = load_manifest(ckdir)
+    committed = [t["tag"] for t in timings]
+    print(f"[train-runtime] ResNet-50 b{TR_BATCH} bf16 + B1, SGD 0.1 / 0.9 "
+          f"/ wd 1e-4, warmup {TR_WARMUP_DELTA} x 2 then Poly(0.5, "
+          f"{TR_STEPS}), L2 clip 1.0: commits {committed}, kept "
+          f"{[e.tag for e in entries]}, each verified by size and sha256")
+    assert committed == [f"model.iter{i}" for i in
+                         range(TR_CKPT_EVERY, TR_STEPS + 1, TR_CKPT_EVERY)]
+    assert [e.step for e in entries] == [TR_STEPS - TR_CKPT_EVERY, TR_STEPS]
+    assert all(verify_entry(ckdir, e) is not None for e in entries)
+    torn = tr_bitwise(blob4, host4)
+    print(f"[train-runtime] the iteration-{TR_HALF} blob (committed before "
+          f"optimize() returned) against leg A's host copy at {TR_HALF} "
+          f"({len(host4)} tensors): bitwise equal: {not torn}")
+    assert not torn, torn[:5]
+    blob_mid, _, _ = tr_blob(ckdir, f"model.iter{TR_MID}")
+    torn = tr_bitwise(blob_mid, mid)
+    later = tr_bitwise(blob_mid, blob8)
+    wait_mid = timings[TR_MID // TR_CKPT_EVERY - 1]["copy_wait_ms"]
+    print(f"[train-runtime] the iteration-{TR_MID} blob, its save held "
+          f"behind a {spin_ms:.1f} ms spin on the training stream (save() "
+          f"{save_ms[TR_MID // TR_CKPT_EVERY - 1]:.1f} ms on the host; its "
+          f"copies still pending when step {TR_MID + 1} launched its first "
+          f"in-place write, the first BN layer's statistics: "
+          f"{held['pending_at_first_write']}; when it launched its update, "
+          f"{held['to_update_ms']:.1f} ms after the save returned: "
+          f"{held['pending_at_update']}; the writer waited {wait_mid:.1f} "
+          f"ms for them), against card copies taken on that stream just "
+          f"before the save ({len(mid)} tensors): bitwise equal: "
+          f"{not torn}; {len(later)} tensors differ at iteration "
+          f"{TR_STEPS}")
+    assert held["pending_at_first_write"]
+    assert not torn and later, torn[:5]
+    moved = tr_bitwise(restored["tensors"], blob4)
+    print(f"[train-runtime] leg B restored iteration "
+          f"{restored['iteration']}; its tensors at step "
+          f"{TR_HALF + 1}'s forward against the blob: bitwise equal: "
+          f"{not moved}")
+    assert restored["iteration"] == TR_HALF and not moved, moved[:5]
+    la = [r.loss for r in recs_a][TR_HALF:]
+    lb = [r.loss for r in recs_b]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+    bitwise = la == lb
+    print(f"[train-runtime] losses of steps {TR_HALF + 1}-{TR_STEPS}: leg A "
+          f"{' '.join(repr(v) for v in la)}, leg B "
+          f"{' '.join(repr(v) for v in lb)}: "
+          + ("bitwise equal" if bitwise else
+             f"not bitwise equal, largest relative difference {rel:.3e} "
+             f"(tol {TR_LOSS_REL:g})"))
+    assert len(lb) == len(la) == TR_STEPS - TR_HALF
+    assert bitwise or rel <= TR_LOSS_REL, (la, lb)
+    assert all(math.isfinite(v) for v in la + lb)
+    print("[train-runtime] validation: " + "; ".join(str(v) for v in vals))
+    assert [v.name for v in vals] == ["Top1Accuracy", "Top5Accuracy",
+                                      "Loss"] * 2
+    assert all(v.count == TR_VAL for v in vals), vals
+    read = {tag: ts.read_scalar(tag) for tag in ("Loss", "Throughput",
+                                                 "LearningRate")}
+    top1 = vs.read_scalar("Top1Accuracy")
+    sched = tr_schedule()
+    rates = [float(np.float32(sched(0.1, i))) for i in range(TR_STEPS)]
+    print(f"[train-runtime] summaries read back: "
+          + ", ".join(f"{t} at {[s for s, _ in v]}" for t, v in read.items())
+          + f", Top1Accuracy at {[s for s, _ in top1]}; learning rates "
+          f"{[v for _, v in read['LearningRate']]} (the schedule's fp32 "
+          f"values {rates})")
+    for tag, series in read.items():
+        assert [s for s, _ in series] == list(range(1, TR_STEPS + 1)), tag
+    assert [s for s, _ in top1] == [TR_VAL_EVERY, 2 * TR_VAL_EVERY]
+    assert [v for _, v in read["LearningRate"]] == rates
+    assert [r.args[3] for r in recs_a] == [sched(0.1, i)
+                                           for i in range(TR_STEPS)]
+    assert flat["train.iteration"] == TR_STEPS, flat
+    assert flat["train.ckpt.commits"] == len(committed), flat
+    assert stalled is None, stalled
+    rel_before = max(rel_err(before[i], want[i]) for i in range(len(pool)))
+    rel_after = max(rel_err(after[i], want[i]) for i in range(len(pool)))
+    print(f"[train-runtime] service reloads {watcher.reloads} "
+          f"(last {watcher.last_entry.tag}); its logits for {len(pool)} "
+          f"pool images against a fresh fp32 ResNet-50 holding the "
+          f"{last} blob: before any reload {rel_before:.3e}, after "
+          f"{rel_after:.3e} of the row's largest logit (tol "
+          f"{SERVE_ROW_TOL:g})")
+    assert watcher.reloads >= 1 and watcher.last_entry.tag == last
+    assert rel_before > SERVE_ROW_TOL and rel_after <= SERVE_ROW_TOL
+    rule = sum(b1_rule(rows) for _, rows in counted)
+    by_kind = {kind: [rows for k, rows in counted if k == kind]
+               for kind in ("train", "validation", "served")}
+    print(f"[train-runtime] B1 launches {launches}; the dispatch rule over "
+          f"the window's forwards (rows: {by_kind}): {rule}")
+    assert launches == rule, (launches, rule, by_kind)
+    assert by_kind["train"] == [TR_BATCH] * (2 * TR_STEPS - TR_HALF)
+    assert by_kind["validation"] == [TR_VAL_BATCH, TR_VAL_BATCH,
+                                     TR_VAL - 2 * TR_VAL_BATCH] * 2
+    assert sum(by_kind["served"]) == len(pool)
+    with_triggers = tr_images_per_s(recs_a, skip=(TR_HALF + 1, TR_MID + 1))
+    without = tr_images_per_s(plain_recs)
+    commit = {k: [round(t[k], 3) for t in timings]
+              for k in ("copy_wait_ms", "serialize_ms", "write_ms",
+                        "hash_ms")}
+    print(f"[train-runtime] images/s {with_triggers:.1f} with the triggers "
+          f"(checkpoint saves, summaries, watchdog, registry; validation "
+          f"apart) against {without:.1f} with none (iterations 2-{TR_STEPS},"
+          f" the intervals across the leg's pause at {TR_HALF} and the held "
+          f"save at {TR_MID} left out) on "
+          f"{card}")
+    print(f"[train-runtime] save() host ms on the training thread "
+          f"{[round(v, 3) for v in save_ms]}; the writer's ms per commit "
+          f"{commit}; blob bytes {timings[-1]['bytes']}; ms per validation "
+          f"pass ({TR_VAL} images) {[round(1e3 * v, 1) for v in val_s]}; "
+          f"host ms of each reload {[round(v, 1) for v in watcher.reload_ms]}"
+          f"; peak_mem_GiB={peak / 2**30:.2f}; phase seconds "
+          f"{time.monotonic() - t_phase:.1f} on {card}")
+    return launches
+
+
 def lm_inputs(vocab, mode, rs):
     """Token ids and next-token targets for the small card-vs-CPU step."""
     if mode == "translation":
@@ -4141,6 +4615,7 @@ def main() -> int:
     paths["serve_resnet"] = {"residual_add": serve_b1}
     b1 = phase_b1(card)
     paths["train"] = {"residual_add": phase_train(card)}
+    paths["train_runtime"] = {"residual_add": phase_train_runtime(card)}
     lm_launches, lm_b2_rows = phase_train_lm(card)
     paths["train_lm"] = {"flash_attention": lm_launches}
     by_path = {name: {path: counts[name] for path, counts in paths.items()

@@ -54,7 +54,10 @@ the card running B2 only and giving ``static_generate``'s and the CPU's
 streams, the int8 dot convolution's accumulators bitwise the CPU's (the
 K = 147 stem included), a service reload hammer with no torn pair, and a
 reloaded engine (float, int8) serving ``static_generate``'s streams over
-the new weights.
+the new weights. The training runtime: a checkpoint saved just before more
+in-place steps holds the saved step's tensors bitwise (the snapshot is
+not torn by the next update), and ``Top1Accuracy`` / ``Top5Accuracy``
+count on the card exactly what they count on the CPU for the same logits.
 """
 
 import math
@@ -1558,3 +1561,114 @@ def test_engine_reload_on_the_card_serves_the_new_weights(cuda):
         # each leg starts on the old weights: the engine's own copy
         assert before == old and old != static
         assert outs == static
+
+
+# ~0.3 s of spin on the H100's clock: longer than the host needs to launch
+# a save and the step after it
+_SPIN_CYCLES = 600_000_000
+
+
+@pytest.mark.gpu
+def test_checkpoint_save_then_steps_restores_the_saved_step(cuda, tmp_path):
+    """The step that is saved is still queued behind a spin on the
+    training stream when ``save()`` runs, and the next step, in place, is
+    queued right after it returns, before its copies have run; three more
+    follow. The committed blob still holds the saved step's tensors bit
+    for bit (card copies taken on that stream between the step and the
+    save)."""
+    from bigdl_tpu_torch.ckpt import CheckpointManager
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn.module import flatten_tree
+    from bigdl_tpu_torch.optim import Trigger, optimizer
+
+    rs = np.random.RandomState(0)
+    x = rs.rand(64, 3, 32, 32).astype(np.float32)
+    y = rs.randint(0, 10, 64)
+    model = build_cifar(8, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    opt = optimizer(model, DataSet.tensors(x, y), CrossEntropyCriterion(), 16)
+    opt.set_optim_method(SGD(0.1, momentum=0.9))
+    opt.set_end_when(Trigger.max_iteration(2))
+    opt.optimize()                   # two steps: the velocity exists
+    xb = torch.from_numpy(x[:16]).to(cuda)
+    yb = torch.from_numpy(y[:16]).to(cuda)
+
+    def step():
+        opt._rng, key = threefry.split(opt._rng)
+        opt._step(xb, yb, 1, key)
+
+    def tensors():
+        out = dict(model.state_dict())
+        out.update({f"velocity.{k}": v
+                    for k, v in opt.optim_state["velocity"].items()})
+        return out
+
+    def save(iteration):
+        trees = opt._checkpoint_trees()
+        return mgr.save(f"model.iter{iteration}", trees["params"],
+                        trees["module_state"], trees["optim_state"],
+                        meta={"iteration": iteration})
+
+    # no device or pinned allocation behind the spin, which would wait for
+    # it (an implicit synchronisation): the buffers are made first, two
+    # steps settle the allocator's cache with them in place, and a first
+    # save fills the pinned pool
+    before = {k: torch.empty_like(v) for k, v in tensors().items()}
+    saved = {k: torch.empty_like(v) for k, v in before.items()}
+    step()
+    step()
+    for k, v in tensors().items():
+        before[k].copy_(v)
+    with CheckpointManager(str(tmp_path)) as mgr:
+        save(4)
+        mgr.wait()                   # committed: its pinned buffers free
+        torch.cuda._sleep(_SPIN_CYCLES)
+        step()                       # the saved step, behind the spin
+        for k, v in tensors().items():
+            saved[k].copy_(v)
+        handle = save(5)
+        copies = torch.cuda.Event()
+        copies.record()              # behind the spin, the step, the copies
+        step()                       # in place, queued behind the copies
+        pending = not copies.query()
+        writer_waiting = not handle.done()
+        # three more: the card's launch queue fills behind the spin, and
+        # the host waits for it
+        for _ in range(3):
+            step()
+        handle.result()
+        payload, entry = mgr.restore_latest()
+    # the copies had not run when the next steps were launched, and the
+    # writer was still waiting for them
+    assert pending
+    assert writer_waiting
+    assert entry.step == 5
+    flat = {**flatten_tree(payload["params"]),
+            **flatten_tree(payload["module_state"])}
+    flat.update({f"velocity.{k}": v for k, v in flatten_tree(
+        payload["optim_state"]["__all__"]["velocity"]).items()})
+    assert set(flat) == set(saved)
+    for k, v in saved.items():
+        assert np.array_equal(flat[k], v.cpu().numpy()), k
+    # the saved step and the steps after it did move the weights, so a
+    # copy taken before the step or after the next ones would differ
+    now = tensors()
+    assert any(not torch.equal(before[k], v) for k, v in saved.items())
+    assert any(not torch.equal(now[k], v) for k, v in saved.items())
+
+
+@pytest.mark.gpu
+def test_top1_top5_on_the_card_equal_the_cpus(cuda):
+    from bigdl_tpu_torch.optim import Top1Accuracy, Top5Accuracy
+
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(160, 1000, generator=g)
+    labels = torch.randint(0, 1000, (160,), generator=g)
+    labels[:40] = logits[:40].argmax(-1)         # some top-1 hits
+    labels[40:80] = logits[40:80].topk(5).indices[:, 3]   # top-5 hits
+    for method in (Top1Accuracy(), Top5Accuracy()):
+        on_card = method(logits.to(cuda), labels.to(cuda))
+        on_cpu = method(logits, labels)
+        assert (on_card.value, on_card.count) == (on_cpu.value,
+                                                  on_cpu.count)
+        assert on_cpu.count == 160 and on_cpu.value >= 40

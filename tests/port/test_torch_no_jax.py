@@ -1,10 +1,12 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, nor the packages the
+card's machine lacks: flax, msgpack, tensorboard, tensorboardX.
 
 An AST scan of every module of ``bigdl_tpu_torch``, of the measurement
 scripts ``port_perf/*.py`` and of ``chip_smoke.py`` (no subprocess: a fresh interpreter per check would make this a slow
 test). It rejects ``jax``, ``jaxlib`` and anything else under a ``jax*``
-top-level name, and ``bigdl_tpu`` / ``bigdl_tpu.*`` — while accepting
-``bigdl_tpu_torch``, which shares the ``bigdl_tpu`` prefix.
+top-level name, ``bigdl_tpu`` / ``bigdl_tpu.*`` — while accepting
+``bigdl_tpu_torch``, which shares the ``bigdl_tpu`` prefix — and
+``flax``, ``msgpack``, ``tensorboard`` and ``tensorboardX``.
 """
 
 import ast
@@ -15,9 +17,13 @@ import pytest
 REPO = Path(__file__).resolve().parents[2]
 
 
+ABSENT_ON_THE_CARD = ("flax", "msgpack", "tensorboard", "tensorboardX")
+
+
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top.startswith("jax") or top == "bigdl_tpu"
+    return (top.startswith("jax") or top == "bigdl_tpu"
+            or top in ABSENT_ON_THE_CARD)
 
 
 def forbidden_imports(source: str):
@@ -62,7 +68,10 @@ def test_port_tree_is_scanned():
                    "grammar/automaton.py", "grammar/regex.py",
                    "grammar/schema.py", "obs/trace.py", "obs/endpoint.py",
                    "faults/injector.py", "faults/watchdog.py",
-                   "utils/errors.py"):
+                   "utils/errors.py", "utils/msgpack_codec.py",
+                   "utils/checkpoint.py", "ckpt/manager.py",
+                   "ckpt/manifest.py", "visualization/events.py",
+                   "serving/hot_reload.py", "optim/validation.py"):
         assert REPO / "bigdl_tpu_torch" / module in files, module
     assert len(files) >= 15, files
 
@@ -89,6 +98,12 @@ def test_no_jax_or_bigdl_tpu_import(path):
     ("import bigdl_tpu_torch.serving.engine as e", False),
     ("from . import paging", False),
     ("import torch, numpy", False),
+    ("from flax import serialization", True),
+    ("import msgpack", True),
+    ("import tensorboard", True),
+    ("from tensorboardX import SummaryWriter", True),
+    ("from torch.utils import tensorboard", False),
+    ("from bigdl_tpu_torch.utils import msgpack_codec", False),
 ])
 def test_guard_accepts_port_rejects_jax(source, rejected):
     assert bool(forbidden_imports(source)) == rejected

@@ -195,10 +195,7 @@ def test_mixed_policy_step_keeps_fp32_masters():
                for v in opt.optim_state["velocity"].values())
 
 
-@pytest.mark.parametrize("setter", [
-    "set_validation", "set_checkpoint", "set_watchdog", "set_train_summary",
-    "set_val_summary", "set_gradclip_const", "set_gradclip_l2norm",
-    "set_data_pipeline"])
+@pytest.mark.parametrize("setter", ["set_data_pipeline"])
 def test_setters_outside_the_slice_raise(setter):
     x, y = _data()
     opt = optimizer(_port_model(), DataSet.tensors(x, y),

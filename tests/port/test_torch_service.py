@@ -32,7 +32,7 @@ import bigdl_tpu.nn as jnn
 from bigdl_tpu.models import resnet as jresnet
 from bigdl_tpu.serving import InferenceService as JaxService
 from bigdl_tpu_torch import nn
-from bigdl_tpu_torch.dataset import DataSet
+from bigdl_tpu_torch.dataset import DataSet, Sample
 from bigdl_tpu_torch.interop import export_params, load_jax_params
 from bigdl_tpu_torch.models import resnet
 from bigdl_tpu_torch.nn import Transformer
@@ -470,13 +470,14 @@ def test_predictor_splits_per_sample_and_classes(setup):
 
 
 def test_predictor_sample_lists_are_queued(setup):
+    """A list of ``Sample``s predicts as its stacked features do."""
     _, _, tm, x, _ = setup
-
-    class Sample:
-        feature = x[0]
-
-    with pytest.raises(NotImplementedError, match="A.3.7"):
-        Predictor(tm, device="cpu").predict([Sample()])
+    samples = [Sample.of(x[i], i % 4) for i in range(10)]
+    p = Predictor(tm, device="cpu", batch_size=4)
+    got, want = p.predict(samples), p.predict(x[:10])
+    assert len(got) == 10
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_prediction_service_concurrent_and_batched(setup):
