@@ -1,15 +1,18 @@
 """Typed configuration (``bigdl_tpu/core/config.py`` counterpart).
 
 The fields the training loop reads: the seed, the default batch size, the
-retry budget after a failed step, the log interval and the dtype policy. Each may be overridden from an
-environment variable prefixed ``BIGDL_TPU_``, read when an instance is
-built, as in the JAX package.
+retry budget after a failed step, the log interval and the dtype policy,
+and the mesh the data-parallel trainer runs on (``mesh_shape``, axis name
+-> size, None for every rank on ``dp_axis``). The scalar fields may be
+overridden from an environment variable prefixed ``BIGDL_TPU_``, read
+when an instance is built, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -48,6 +51,9 @@ class DtypePolicy:
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     seed: int = dataclasses.field(default_factory=lambda: _env("SEED", 1, int))
+    # the mesh: ((axis name, size), ...); None puts every rank on dp_axis
+    mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None
+    dp_axis: str = "dp"
     default_batch_size: int = dataclasses.field(
         default_factory=lambda: _env("BATCH_SIZE", 128, int))
     # failure handling: how many times, and after how long, optimize()

@@ -137,9 +137,34 @@ class RandomGenerator:
             cls._default = RandomGenerator()
         return cls._default
 
+    def reseed(self, seed: int) -> "RandomGenerator":
+        """Deterministic reseed, the pipeline pool's per-element path: the
+        PCG64 state and stream increment are both derived from ``seed``
+        (the JAX package's formula), so ``reseed(s)`` draws the same
+        whatever generator it lands on — chain copies on different
+        workers draw alike for equal seeds. Other bit generators are
+        rebuilt from the seed."""
+        self._seed = seed
+        bg = self._np.bit_generator
+        st = bg.state
+        if st.get("bit_generator") != "PCG64":
+            self._np = np.random.default_rng(seed)
+            return self
+        mixed = (seed * 0x9E3779B97F4A7C15) & _M64
+        inc = (seed * 0xBF58476D1CE4E5B9 + 0x94D049BB133111EB) & _M64
+        st["state"]["state"] = (mixed << 64) | (seed & _M64)
+        st["state"]["inc"] = ((inc << 64) | (mixed ^ seed)) | 1
+        st["has_uint32"] = 0
+        st["uinteger"] = 0
+        bg.state = st
+        return self
+
     @property
     def seed(self) -> int:
         return self._seed
+
+    def numpy(self) -> np.random.Generator:
+        return self._np
 
     def permutation(self, n: int):
         return self._np.permutation(n)

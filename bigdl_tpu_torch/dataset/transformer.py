@@ -13,6 +13,12 @@ from bigdl_tpu_torch.dataset.sample import MiniBatch, PaddingParam
 
 
 class Transformer:
+    #: True when the transformer maps each element on its own (one in, any
+    #: number out, no state across elements): the worker pool
+    #: (``parallel_pipeline``) may fan such stages out. Batching and
+    #: shuffling stages set it False.
+    elementwise = True
+
     def apply(self, it: Iterator[Any]) -> Iterator[Any]:
         raise NotImplementedError
 
@@ -26,6 +32,11 @@ class Transformer:
 class ChainedTransformer(Transformer):
     def __init__(self, first: Transformer, second: Transformer):
         self.first, self.second = first, second
+
+    @property
+    def elementwise(self):   # a chain is elementwise when all links are
+        return (getattr(self.first, "elementwise", True)
+                and getattr(self.second, "elementwise", True))
 
     def apply(self, it):
         return self.second.apply(self.first.apply(it))
@@ -45,6 +56,8 @@ class SampleToMiniBatch(Transformer):
     """Group samples into ``MiniBatch``es of ``batch_size``, padded by the
     given ``PaddingParam``s; ``partial_batch`` also yields the trailing
     short batch."""
+
+    elementwise = False   # N:1 grouping stays outside a worker pool
 
     def __init__(self, batch_size: int,
                  feature_padding: Optional[PaddingParam] = None,
@@ -70,6 +83,8 @@ class SampleToMiniBatch(Transformer):
 
 class Shuffle(Transformer):
     """Shuffle the whole stream with one permutation of ``rng``."""
+
+    elementwise = False   # whole-stream state
 
     def __init__(self, rng: Optional[RandomGenerator] = None):
         self.rng = rng or RandomGenerator.default()

@@ -10,7 +10,10 @@ Leaves arrive as numpy arrays (the caller runs ``jax.device_get`` on the
 tree; this module never imports JAX). Every leaf must find its tensor
 and every tensor its leaf, with equal shapes — anything else raises
 before any copy happens. Layouts are copied as stored: an HWIO-stored
-convolution weight stays HWIO. Integer leaves (the int8 weights of a
+convolution weight stays HWIO, and the space-to-depth stem's weight keeps
+the 7x7 stem's ``(64, 3, 7, 7)``, so every ResNet layout and stem of
+``models/resnet.py`` takes the JAX package's parameters as they are
+(the module paths do not depend on the layout). Integer leaves (the int8 weights of a
 quantized serving tree) copy as they are, and only into integer tensors
 of the same dtype; float leaves only into float tensors.
 """

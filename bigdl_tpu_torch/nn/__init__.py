@@ -33,7 +33,11 @@ from bigdl_tpu_torch.nn.layers.pooling import (
     SpatialAveragePooling,
     SpatialMaxPooling,
 )
-from bigdl_tpu_torch.nn.layers.shape_ops import Padding
+from bigdl_tpu_torch.nn.layers.beam_search import (
+    SequenceBeamSearch,
+    beam_search,
+)
+from bigdl_tpu_torch.nn.layers.shape_ops import Padding, Transpose
 from bigdl_tpu_torch.nn.layers.table_ops import CAddTable
 from bigdl_tpu_torch.nn.module import Criterion
 
@@ -41,8 +45,8 @@ __all__ = ["Attention", "BatchNormalization", "CAddTable",
            "ClassNLLCriterion", "ConcatTable", "Container", "Criterion",
            "CrossEntropyCriterion", "Dropout", "FeedForwardNetwork",
            "GlobalAveragePooling2D", "Identity", "LayerNormalization",
-           "Linear", "LogSoftMax", "LookupTable", "Padding", "ReLU", "Sequential",
-           "SpatialAveragePooling", "SpatialBatchNormalization",
+           "Linear", "LogSoftMax", "LookupTable", "Padding", "ReLU",
+           "Sequential", "SequenceBeamSearch", "SpatialAveragePooling", "SpatialBatchNormalization",
            "SpatialConvolution", "SpatialMaxPooling",
            "TimeDistributedCriterion", "Transformer", "TransformerLayer",
-           "named", "position_encoding"]
+           "Transpose", "beam_search", "named", "position_encoding"]

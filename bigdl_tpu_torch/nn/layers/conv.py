@@ -1,9 +1,20 @@
 """2-D convolution (``bigdl_tpu/nn/layers/conv.py::SpatialConvolution``),
-NCHW.
+NCHW or NHWC.
 
 The weight is stored as the JAX package stores it — ``OIHW``
 ``(out, in/groups, kh, kw)`` or ``HWIO`` ``(kh, kw, in/groups, out)`` —
 so a bridged weight is a plain copy; HWIO is viewed as OIHW at the call.
+
+``data_format="NHWC"`` takes and returns ``(B, H, W, C)`` tensors, as the
+JAX package's NHWC layers do. Inside, the layer convolves the NCHW view
+of its input, ``x.permute(0, 3, 1, 2)``: for a contiguous NHWC tensor that
+view is an NCHW tensor in ``torch.channels_last`` memory format, so no
+copy is made and cuDNN runs its channels-last kernels, whose output
+(channels-last again) permutes back to a contiguous NHWC tensor, also
+without a copy. Literal NHWC tensors at the layer's edges and
+channels-last views inside keep every layer of the model in one memory
+layout, so the residual adds and batch norms between them see dense
+tensors with equal strides.
 The weight is cast to the input's dtype, and the convolution is
 ``F.conv2d`` (cuDNN on the card), as the JAX package left it to XLA.
 Arguments keep the JAX package's W-before-H order; ``pad_w = pad_h = -1``
@@ -46,10 +57,8 @@ class SpatialConvolution(nn.Module):
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if data_format != "NCHW":
-            raise NotImplementedError(
-                "the port's convolution is NCHW only; the NHWC layout is "
-                "queued in ROADMAP A.3")
+        if data_format not in ("NCHW", "NHWC"):
+            raise ValueError(f"unknown data_format {data_format}")
         if kernel_format not in ("OIHW", "HWIO"):
             raise ValueError(f"unknown kernel_format {kernel_format}")
         if n_input_plane % n_group or n_output_plane % n_group:
@@ -63,6 +72,7 @@ class SpatialConvolution(nn.Module):
         self.pad = (pad_h, pad_w)
         self.n_group = n_group
         self.kernel_format = kernel_format
+        self.data_format = data_format
         cin = n_input_plane // n_group
         fan_in = cin * kernel_h * kernel_w
         fan_out = (n_output_plane // n_group) * kernel_h * kernel_w
@@ -80,6 +90,9 @@ class SpatialConvolution(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        nhwc = self.data_format == "NHWC"
+        if nhwc:
+            x = x.permute(0, 3, 1, 2)
         w = self.weight.to(x.dtype)
         if self.kernel_format == "HWIO":
             w = w.permute(3, 2, 0, 1)
@@ -95,4 +108,4 @@ class SpatialConvolution(nn.Module):
         if self.bias is not None:
             # added to the rounded output, as the JAX package does
             y = y + self.bias.to(x.dtype)[:, None, None]
-        return y
+        return y.permute(0, 2, 3, 1) if nhwc else y

@@ -5,6 +5,15 @@ Batch norm does not use ``F.batch_norm``: its variance formula and its
 handling of bf16 differ from the JAX package's, and the port's tests hold
 the two packages' gradients leaf by leaf. The JAX package's
 ``BIGDL_BN_STATS*`` diagnostic knobs are not ported (ROADMAP A.9).
+
+Global statistics over data-parallel ranks: a batch-norm module whose
+``sync`` is ``(group, world)`` (the data-parallel trainer sets it for the
+length of its step, when ``world > 1``) all-reduces its per-channel sums
+over ``group`` in the forward and the two sums of its backward, so every
+rank normalises with the statistics of the global batch, as the JAX
+package's one SPMD step over that batch does. The affine parameters'
+gradients stay each rank's own sums: the trainer averages them with the
+other gradients.
 """
 
 from __future__ import annotations
@@ -13,6 +22,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from bigdl_tpu_torch.core.device import DeviceLike, resolve_device
@@ -74,39 +84,54 @@ class BNTrain(torch.autograd.Function):
     statistics and are not differentiated."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, axes, eps):
+    def forward(ctx, x, gamma, beta, axes, eps, sync):
         ch = next(i for i in range(x.ndim) if i not in axes)
-        mean = torch.mean(x, dim=axes, dtype=torch.float32)
-        mean_sq = torch.mean(torch.square(x.float()), dim=axes)
+        n = float(math.prod(x.shape[i] for i in axes))
+        if sync is None:
+            mean = torch.mean(x, dim=axes, dtype=torch.float32)
+            mean_sq = torch.mean(torch.square(x.float()), dim=axes)
+        else:
+            group, world = sync
+            n *= world
+            sums = torch.stack([
+                torch.sum(x, dim=axes, dtype=torch.float32),
+                torch.sum(torch.square(x.float()), dim=axes)])
+            dist.all_reduce(sums, group=group)
+            mean, mean_sq = sums[0] / n, sums[1] / n
         var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         y, inv = _bn_apply(x, mean, var, gamma, beta, eps, ch)
         ctx.save_for_backward(x, gamma, mean, inv)
-        ctx.axes, ctx.ch = axes, ch
+        ctx.axes, ctx.ch, ctx.n, ctx.sync = axes, ch, n, sync
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, g, _g_mean, _g_var):
         x, gamma, mean, inv = ctx.saved_tensors
-        axes, ch, nd = ctx.axes, ctx.ch, x.ndim
-        n = float(math.prod(x.shape[i] for i in axes))
+        axes, ch, nd, n = ctx.axes, ctx.ch, x.ndim, ctx.n
         g = g.to(x.dtype)
         xhat = (x - _bcast(mean, nd, ch).to(x.dtype)) \
             * _bcast(inv, nd, ch).to(x.dtype)
         sum_g = torch.sum(g, dim=axes, dtype=torch.float32)
         sum_g_xhat = torch.sum(g * xhat, dim=axes, dtype=torch.float32)
+        tot_g, tot_g_xhat = sum_g, sum_g_xhat
+        if ctx.sync is not None:
+            tot = torch.stack([sum_g, sum_g_xhat])
+            dist.all_reduce(tot, group=ctx.sync[0])
+            tot_g, tot_g_xhat = tot[0], tot[1]
         k1 = _bcast(inv * gamma, nd, ch).to(x.dtype)
-        mg = _bcast(sum_g / n, nd, ch).to(x.dtype)
-        mgx = _bcast(sum_g_xhat / n, nd, ch).to(x.dtype)
+        mg = _bcast(tot_g / n, nd, ch).to(x.dtype)
+        mgx = _bcast(tot_g_xhat / n, nd, ch).to(x.dtype)
         dx = k1 * (g - mg - xhat * mgx)
         return (dx, sum_g_xhat.to(gamma.dtype), sum_g.to(gamma.dtype),
-                None, None)
+                None, None, None)
 
 
-def bn_train(x, gamma, beta, axes, eps):
+def bn_train(x, gamma, beta, axes, eps, sync=None):
     """``(y, mean, var)`` of training-mode batch norm over ``axes``
-    (:class:`BNTrain`)."""
-    return BNTrain.apply(x, gamma, beta, tuple(axes), eps)
+    (:class:`BNTrain`); ``sync = (group, world)`` takes the statistics
+    over every rank of ``group``."""
+    return BNTrain.apply(x, gamma, beta, tuple(axes), eps, sync)
 
 
 class BatchNormalization(nn.Module):
@@ -132,6 +157,8 @@ class BatchNormalization(nn.Module):
         self.affine = affine
         # channel axis: 1 for NCHW, last for NHWC
         self.ch_axis = 1 if data_format == "NCHW" else -1
+        # (process group, world size) for global statistics, or None
+        self.sync = None
         n = n_output
         if affine:
             w = (weight_init or Ones())(gen, (n,), n, n)
@@ -156,9 +183,11 @@ class BatchNormalization(nn.Module):
         if not self.training:
             return _bn_apply(x, self.running_mean, self.running_var, gamma,
                              beta, self.eps, ch)[0]
-        y, mean, var = bn_train(x, gamma, beta, axes, self.eps)
+        y, mean, var = bn_train(x, gamma, beta, axes, self.eps, self.sync)
         m = self.momentum
         n = float(math.prod(x.shape[i] for i in axes))
+        if self.sync is not None:
+            n *= self.sync[1]
         with torch.no_grad():
             unbiased = var * (n / max(1.0, n - 1.0))
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
@@ -168,4 +197,5 @@ class BatchNormalization(nn.Module):
 
 
 class SpatialBatchNormalization(BatchNormalization):
-    """NCHW batch norm: statistics over N, H, W per channel."""
+    """Batch norm of images: statistics over N, H, W per channel (the
+    channel axis 1 in NCHW, last in NHWC)."""

@@ -1,4 +1,4 @@
-"""Pooling layers (``bigdl_tpu/nn/layers/pooling.py``), NCHW.
+"""Pooling layers (``bigdl_tpu/nn/layers/pooling.py``), NCHW or NHWC.
 
 Output sizes follow Torch's floor/ceil rule, as the JAX package's
 ``_pool_padding`` does; the forward passes are PyTorch's own pooling
@@ -6,7 +6,12 @@ operators, which take a padding of at most half the window (the JAX
 package takes any). Max pooling's gradient is the JAX package's
 ``_maxpool2d_bwd`` rule: every position equal to its window's max gets
 the window's gradient (PyTorch's own backward gives it to one position).
-Arguments keep the JAX package's W-before-H order.
+Arguments keep the JAX package's W-before-H order. An NHWC layer pools
+the NCHW view of its ``(B, H, W, C)`` input (channels-last in memory, no
+copy; see ``conv.py``) and returns the NHWC view of the result. Its max
+pooling keeps the rule above, where the JAX package's NHWC layer lets XLA
+give a window's gradient to one of its tied maxima: the two differ only
+at ties, which in the ResNets follow a ReLU and carry no gradient.
 """
 
 from __future__ import annotations
@@ -22,10 +27,9 @@ class _Pool2D(nn.Module):
     def __init__(self, kw, kh, dw=None, dh=None, pad_w=0, pad_h=0,
                  data_format="NCHW"):
         super().__init__()
-        if data_format != "NCHW":
-            raise NotImplementedError(
-                "the port's pooling is NCHW only; the NHWC layout is queued "
-                "in ROADMAP A.3")
+        if data_format not in ("NCHW", "NHWC"):
+            raise ValueError(f"unknown data_format {data_format}")
+        self.nhwc = data_format == "NHWC"
         self.kernel = (kh, kw)
         self.stride = (dh or kh, dw or kw)
         self.pad = (pad_h, pad_w)
@@ -38,6 +42,11 @@ class _Pool2D(nn.Module):
     def floor(self):
         self.ceil_mode = False
         return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.nhwc:
+            return self._pool(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return self._pool(x)
 
 
 class _MaxPool2d(torch.autograd.Function):
@@ -75,7 +84,7 @@ class _MaxPool2d(torch.autograd.Function):
 
 
 class SpatialMaxPooling(_Pool2D):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
         return _MaxPool2d.apply(x, self.kernel, self.stride, self.pad,
                                 self.ceil_mode)
 
@@ -89,14 +98,14 @@ class SpatialAveragePooling(_Pool2D):
         super().__init__(kw, kh, dw, dh, pad_w, pad_h, data_format)
         self.count_include_pad = count_include_pad
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
         return F.avg_pool2d(x, self.kernel, self.stride, self.pad,
                             ceil_mode=self.ceil_mode,
                             count_include_pad=self.count_include_pad)
 
 
 class GlobalAveragePooling2D(nn.Module):
-    """Mean over the spatial dims."""
+    """Mean over the spatial dims (2, 3 in NCHW; 1, 2 in NHWC)."""
 
     def __init__(self, data_format="NCHW"):
         super().__init__()

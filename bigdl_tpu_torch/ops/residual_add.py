@@ -13,9 +13,12 @@ launches) with no divisibility condition, so that fall back is gone.
 Dispatch (``_supported`` in the JAX package, with "CUDA tensor" in place
 of "running on a TPU"): both tensors on a CUDA device, same shape, same
 dtype among fp32/bf16/fp16, at least 2 dims, at least 2**20 elements.
-The kernel reads the flat element range, so a strided operand is copied to
-a contiguous one first (on the ResNet path the operands are contiguous and
-nothing is copied). Everything else is a plain
+The kernel adds the flat element range of the operands' memory, so two
+dense tensors (no gaps, no overlaps) with equal strides — contiguous,
+``channels_last``, or the NHWC activations of an NHWC ResNet — launch as
+they are, into an output of their layout (``torch.empty_like``); only
+operands whose layouts differ, or that have gaps, are first copied to
+contiguous ones. Everything else is a plain
 ``x + y`` with PyTorch's own autograd, outside the autograd Function:
 a broadcast or mixed-dtype add needs the plain add's gradients, not
 ``(g, g)``. A CPU tensor takes the plain add; a CUDA tensor that
@@ -47,10 +50,31 @@ def kernel_eligible(x: torch.Tensor, y: torch.Tensor) -> bool:
             and x.numel() >= MIN_ELEMENTS)
 
 
+def dense(t: torch.Tensor) -> bool:
+    """Whether ``t``'s elements fill ``numel`` consecutive slots of its
+    storage from ``data_ptr()`` on (any order of the dims)."""
+    expect = 1
+    for size, stride in sorted(zip(t.shape, t.stride()),
+                               key=lambda d: d[1]):
+        if size == 1:
+            continue
+        if stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def same_layout(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether the kernel can add ``x`` and ``y`` where they lie: both
+    dense, with equal strides."""
+    return x.stride() == y.stride() and dense(x) and dense(y)
+
+
 def _launch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if x.device != y.device:
         raise ValueError(f"x on {x.device}, y on {y.device}")
-    x, y = x.contiguous(), y.contiguous()
+    if not same_layout(x, y):
+        x, y = x.contiguous(), y.contiguous()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = cuda_lib.entry("residual_add")(

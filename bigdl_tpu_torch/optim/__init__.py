@@ -19,6 +19,7 @@ from bigdl_tpu_torch.optim.optimizer import (
     Optimizer,
     optimizer,
 )
+from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
 from bigdl_tpu_torch.optim.predictor import (
     Evaluator,
     PredictionService,
@@ -54,7 +55,8 @@ from bigdl_tpu_torch.optim.validation import (
     ValidationResult,
 )
 
-__all__ = ["Adadelta", "Adagrad", "Adam", "Adamax", "Default", "EpochDecay",
+__all__ = ["Adadelta", "Adagrad", "Adam", "Adamax", "Default",
+           "DistriOptimizer", "EpochDecay",
            "EpochSchedule", "EpochStep", "Evaluator", "Exponential", "Ftrl",
            "HitRatio", "LarsSGD", "LearningRateSchedule", "LocalOptimizer",
            "Loss", "MeanAveragePrecision", "MultiStep", "NDCG",

@@ -32,8 +32,20 @@ that raises is retried from the newest checkpoint, up to
 starts again from the weights the model held when ``optimize()`` first
 ran (kept on the host only when a checkpoint path is set).
 
-Not in this slice: the parallel input pipeline (``set_data_pipeline``,
-ROADMAP A.3.7) and the distributed trainer (ROADMAP A.6).
+``set_data_pipeline(n)`` fans the elementwise run of a transformed
+dataset's chain out over ``n`` workers (threads or spawned processes,
+each element reseeded from ``(config.seed, index)``), keeping batching
+and shuffling serial, and puts a staging thread (``host_prefetch``,
+``host_depth`` ready batches ahead, 2 by default) before the device copy
+(``device_prefetch``); the per-stage counters (``pipeline_stats``) are
+folded into ``metrics`` and into each step's log record (``pipeline``)
+at every log interval. Without it the loop pulls its batches itself, one
+ahead, as before: the staging thread reads ahead by as many batches as
+its timing allows, so a run stopped by its end trigger and continued by
+another ``optimize()`` would find its dataset's shuffle generator
+advanced by an amount that varies from run to run (the JAX loop stages
+by default and has that property). The data-parallel trainer is
+:class:`~bigdl_tpu_torch.optim.distri_optimizer.DistriOptimizer`.
 """
 
 from __future__ import annotations
@@ -50,8 +62,16 @@ from torch import nn
 from bigdl_tpu_torch.ckpt import CheckpointManager
 from bigdl_tpu_torch.core.config import EngineConfig
 from bigdl_tpu_torch.core.threefry import Key, key, split
-from bigdl_tpu_torch.dataset.dataset import AbstractDataSet, TensorDataSet
-from bigdl_tpu_torch.dataset.prefetch import device_prefetch
+from bigdl_tpu_torch.dataset.dataset import (
+    AbstractDataSet,
+    TensorDataSet,
+    TransformedDataSet,
+)
+from bigdl_tpu_torch.dataset.parallel_pipeline import (
+    PipelineStats,
+    parallelize_chain,
+)
+from bigdl_tpu_torch.dataset.prefetch import device_prefetch, host_prefetch
 from bigdl_tpu_torch.interop.jax_params import (
     export_params,
     export_state,
@@ -121,6 +141,17 @@ class Optimizer:
         self._groups = None
         self._given_optim_state = None
         self._initial_weights = None
+        # the staging thread's depth (0: none; set_data_pipeline turns it
+        # on, see the module docstring) and the worker pool (0 workers:
+        # the chain runs serially)
+        self.host_prefetch_depth = 0
+        self.pipeline_n_workers = 0
+        self.pipeline_depth = 2
+        self.pipeline_ordered = True
+        self.pipeline_processes = False
+        self.pipeline_chunk = 1
+        self.pipeline_max_restarts = 2
+        self.pipeline_stats: Optional[PipelineStats] = None
         # the JAX loop splits its root key once to initialise the params
         self._rng, _ = split(key(self.config.seed))
         self._keyed = "rng" in inspect.signature(model.forward).parameters
@@ -176,10 +207,29 @@ class Optimizer:
             self.checkpoint_manager.install_preemption_hook()
         return self
 
-    def set_data_pipeline(self, *args, **kwargs) -> "Optimizer":
-        raise NotImplementedError(
-            "Optimizer.set_data_pipeline: the parallel input pipeline is "
-            "not ported yet (ROADMAP A.3.7)")
+    def set_data_pipeline(self, n_workers: int = 0, *, depth: int = 2,
+                          ordered: bool = True, processes: bool = False,
+                          chunk: int = 1, host_depth: Optional[int] = None,
+                          stats: Optional[PipelineStats] = None,
+                          max_worker_restarts: int = 2) -> "Optimizer":
+        """The parallel host input pipeline: with ``n_workers > 0`` and a
+        transformed dataset, the elementwise run of the transformer chain
+        fans out over a worker pool
+        (:func:`~bigdl_tpu_torch.dataset.parallel_pipeline.
+        parallelize_chain`) seeded per element from ``config.seed``;
+        batching and shuffling stay serial. A staging thread
+        ``host_depth`` batches deep (2 unless given) runs the pipeline
+        ahead of the loop. The per-stage counters land in
+        ``self.pipeline_stats``."""
+        self.pipeline_n_workers = int(n_workers)
+        self.pipeline_depth = depth
+        self.pipeline_ordered = ordered
+        self.pipeline_processes = processes
+        self.pipeline_chunk = chunk
+        self.pipeline_max_restarts = int(max_worker_restarts)
+        self.host_prefetch_depth = 2 if host_depth is None else host_depth
+        self.pipeline_stats = stats or PipelineStats()
+        return self
 
     def set_watchdog(self, timeout: float,
                      on_stall: Optional[Callable] = None) -> "Optimizer":
@@ -309,11 +359,31 @@ class Optimizer:
         groups = self._split_params(dict(self.model.named_parameters()))
         self._groups = {k: list(g) for k, g in groups.items()}
         if self._optim_states is None:
-            self._optim_states = {k: self.optim_methods[k].init_state(g)
-                                  for k, g in groups.items()}
+            self._optim_states = {
+                k: self.optim_methods[k].init_state(self._local_params(g))
+                for k, g in groups.items()}
         if self._given_optim_state is not None:
             self._load_optim_states(self._given_optim_state)
             self._given_optim_state = None
+
+    def _local_params(self, params: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """The parts of ``params`` this process updates (all of them;
+        a sharding trainer narrows them)."""
+        return params
+
+    def _full_optim_states(self):
+        """The optim states in the one-process layout."""
+        return self._optim_states
+
+    def _should_write_checkpoint(self) -> bool:
+        """One process: it writes. A data-parallel trainer narrows this
+        to one writer per job."""
+        return True
+
+    def _rows(self, x: torch.Tensor) -> int:
+        """Records a step on ``x`` consumes (the global batch)."""
+        return int(x.shape[0])
 
     def _load_optim_states(self, tree) -> None:
         if set(tree) != set(self._optim_states):
@@ -377,7 +447,7 @@ class Optimizer:
     def _checkpoint_trees(self) -> dict:
         """The live tensors in the checkpoint layout."""
         optim = {}
-        for k, state in self._optim_states.items():
+        for k, state in self._full_optim_states().items():
             optim[k] = {name: unflatten_tree(value)
                         if isinstance(value, dict) else value
                         for name, value in state.items()}
@@ -419,10 +489,30 @@ class Optimizer:
 
     def _train_batches(self):
         """A ``TensorDataSet`` is sliced into batches; any other dataset
-        streams ``MiniBatch``es as built (``>> SampleToMiniBatch``)."""
+        streams ``MiniBatch``es as built (``>> SampleToMiniBatch``), its
+        elementwise stages on the worker pool under
+        ``set_data_pipeline(n > 0)``."""
         if isinstance(self.dataset, TensorDataSet):
             return self.dataset.batches(self.batch_size, train=True)
+        if (self.pipeline_n_workers > 0
+                and isinstance(self.dataset, TransformedDataSet)):
+            chain = parallelize_chain(
+                self.dataset.transformer, self.pipeline_n_workers,
+                depth=self.pipeline_depth, ordered=self.pipeline_ordered,
+                processes=self.pipeline_processes, chunk=self.pipeline_chunk,
+                base_seed=self.config.seed, stats=self.pipeline_stats,
+                max_worker_restarts=self.pipeline_max_restarts)
+            return chain.apply(self.dataset.base.data(train=True))
         return self.dataset.data(train=True)
+
+    def _batch_stream(self, device):
+        """The training batches on ``device``: the staging thread, then
+        the device copy."""
+        batches = self._train_batches()
+        if self.host_prefetch_depth > 0:
+            batches = host_prefetch(batches, self.host_prefetch_depth,
+                                    stats=self.pipeline_stats)
+        return device_prefetch(batches, device, stats=self.pipeline_stats)
 
     def _optimize_impl(self):
         self._ensure_initialized()
@@ -435,9 +525,14 @@ class Optimizer:
                                 self._watchdog_stalled)
             watchdog.arm("training step (batch wait + compute)")
         try:
-            self._train_loop(self.state,
-                             device_prefetch(self._train_batches(), device),
-                             self.dataset.size(), watchdog)
+            stream = self._batch_stream(device)
+            try:
+                self._train_loop(self.state, stream, self.dataset.size(),
+                                 watchdog)
+            finally:
+                # retire the staging thread and the worker pool now, not
+                # when the collector finds the generator
+                stream.close()
         finally:
             if watchdog is not None:
                 watchdog.close()
@@ -460,7 +555,7 @@ class Optimizer:
             # fetch and copy the next batch while this step runs
             batch = next(stream, None)
             loss = float(loss)
-            bsz = int(x.shape[0])
+            bsz = self._rows(x)
             dt = time.time() - t0
             state.iteration += 1
             state.records_processed_this_epoch += bsz
@@ -477,10 +572,12 @@ class Optimizer:
             self._last_lr = lr
             self._last_throughput = bsz / max(dt, 1e-9)
             if state.iteration % self.config.log_every_n_steps == 0:
+                pipeline = self._fold_pipeline_stats()
                 log.info("Epoch %d iteration %d: loss %.6f, lr %.5g. "
                          "Throughput is %.1f records/second.", state.epoch,
                          state.iteration, loss, lr, bsz / max(dt, 1e-9),
-                         extra={"loss": loss, "step_seconds": dt})
+                         extra={"loss": loss, "step_seconds": dt,
+                                "pipeline": pipeline})
             if self.train_summary is not None:
                 self._write_train_summary(state, loss, bsz / max(dt, 1e-9),
                                           lr)
@@ -514,6 +611,21 @@ class Optimizer:
                 # an iteration completed end to end, validation and
                 # checkpoint included: the deadline resets
                 watchdog.beat()
+
+    def _fold_pipeline_stats(self):
+        """The input pipeline's per-stage gauges into ``metrics`` (the
+        JAX loop's names); returns the stats' snapshot, or None."""
+        if self.pipeline_stats is None:
+            return None
+        snap = self.pipeline_stats.snapshot()
+        for name, s in snap.items():
+            self.metrics.set(f"pipeline {name} items/s", s["items_per_sec"])
+            self.metrics.set(f"pipeline {name} stall s", s["stall_s"])
+            self.metrics.set(f"pipeline {name} starve s", s["starve_s"])
+            if s["queue_cap"]:
+                self.metrics.set(f"pipeline {name} queue occupancy",
+                                 s["queue_mean"] / s["queue_cap"])
+        return snap
 
     def _write_train_summary(self, state, loss, throughput, lr):
         summary = self.train_summary
@@ -568,15 +680,16 @@ class Optimizer:
         if self.state.iteration == self._last_ckpt_iteration and not preempted:
             return  # this step is already on disk (e.g. just restored)
         trees = self._checkpoint_trees()
-        self.checkpoint_manager.save(
-            f"model.iter{self.state.iteration}", trees["params"],
-            trees["module_state"], trees["optim_state"],
-            meta={"epoch": self.state.epoch,
-                  "iteration": self.state.iteration,
-                  "records": self.state.records_processed_this_epoch,
-                  "loss": self.state.loss},
-            step=self.state.iteration, blocking=blocking,
-            preempted=preempted)
+        if self._should_write_checkpoint():
+            self.checkpoint_manager.save(
+                f"model.iter{self.state.iteration}", trees["params"],
+                trees["module_state"], trees["optim_state"],
+                meta={"epoch": self.state.epoch,
+                      "iteration": self.state.iteration,
+                      "records": self.state.records_processed_this_epoch,
+                      "loss": self.state.loss},
+                step=self.state.iteration, blocking=blocking,
+                preempted=preempted)
         self._last_ckpt_iteration = self.state.iteration
 
 
@@ -586,6 +699,13 @@ class LocalOptimizer(Optimizer):
 
 def optimizer(model, dataset, criterion, batch_size=None,
               config=None) -> Optimizer:
-    """A :class:`LocalOptimizer`; the data-parallel trainer is ROADMAP
-    A.6."""
+    """A :class:`~bigdl_tpu_torch.optim.distri_optimizer.DistriOptimizer`
+    in a process group of more than one rank, else a
+    :class:`LocalOptimizer` (the JAX factory chooses by device count)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+
+        return DistriOptimizer(model, dataset, criterion, batch_size, config)
     return LocalOptimizer(model, dataset, criterion, batch_size, config)

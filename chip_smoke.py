@@ -299,7 +299,30 @@ fails. Phases, each printed with a ``[phase]`` prefix:
              a stated tolerance; a full-width mask card vs CPU, bitwise;
              and B2 at the training shape (8, 8, 128, 64), causal, fp32
              and bf16 x bf16: error, kernel, plain, SDPA and bound times.
-26. a ``{"kernels": [...]}`` line (each row counts its launches on every
+26. train-distri — data-parallel ResNet-50 (224x224, 1000 classes, bf16,
+             B1, SGD 0.1 / momentum 0.9, global batch 128, 6 steps) fed
+             by ``set_data_pipeline(8, ordered=True)`` from 384 synthetic
+             uint8 256x256 images through ``RandomCropper(224) >> HFlip
+             >> BGRImgNormalizer``: first the pool alone (the ordered
+             stream of 8 threads and of 8 processes bitwise 1 worker's,
+             and each one's rate); then, over a world-size-1 NCCL group,
+             the plain loop, ``DistriOptimizer`` ZeRO-1 (threads, then
+             processes) and the bf16-wire overlap flavour (4 buckets).
+             Checks the ZeRO-1 losses bitwise the plain loop's, the
+             overlap leg's first loss bitwise and the rest within a
+             stated tolerance, B1's launches by the dispatch rule; prints
+             images/s per leg, the pipeline's stage table and the loop's
+             starve ms, and a ``[trace]`` of 2 ZeRO-1 steps (busy share,
+             NCCL's device ms). Then each layout (NCHW, NHWC, MIXED, NCHW
+             with the space-to-depth stem) from the NCHW model's weights:
+             fp32 logits against NCHW's, 4 bf16 steps at batch 64 (B1 by
+             the rule, images/s); beam search (batch 4, beam 4, 32 steps,
+             alpha 0.6) over the serving LM against a CPU run of the
+             plain version (sequences, scores, B2 on every layer of every
+             step); and one fp32 step of 2 ranks through gloo on the one
+             card against one rank's (which DistriOptimizer flavour, by
+             the collectives gloo carries on CUDA tensors, is printed).
+27. a ``{"kernels": [...]}`` line (each row counts its launches on every
     path, by path; B2's carries its training-shape, verify-shape,
     external-bias and dense decode-shape times), the card's name and power
     limit, and the last line
@@ -310,14 +333,17 @@ back-to-back in one CUDA graph and the graph is replayed between CUDA
 events, so host-side launch cost is excluded (``eager_ms`` adds it back).
 """
 
+import contextlib
 import copy
 import gc
 import json
 import logging
 import math
 import os
+import queue
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -331,18 +357,37 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch import faults, obs
-from bigdl_tpu_torch.core import DtypePolicy, EngineConfig, RandomGenerator
+from bigdl_tpu_torch.core import (
+    DtypePolicy,
+    Engine,
+    EngineConfig,
+    RandomGenerator,
+)
 from bigdl_tpu_torch.core import threefry
 from bigdl_tpu_torch.core.rng import split_keys, threefry_key_data, uniform_keys
 from bigdl_tpu_torch.ckpt import load_manifest
 from bigdl_tpu_torch.ckpt.manifest import verify_entry
-from bigdl_tpu_torch.dataset import DataSet
-from bigdl_tpu_torch.interop import export_params, load_jax_params
+from bigdl_tpu_torch.dataset import (
+    BGRImgNormalizer,
+    BGRImgToSample,
+    DataSet,
+    HFlip,
+    ParallelTransformer,
+    PipelineStats,
+    RandomCropper,
+    SampleToMiniBatch,
+)
+from bigdl_tpu_torch.interop import (
+    export_params,
+    export_state,
+    load_jax_params,
+)
 from bigdl_tpu_torch.models.resnet import build_cifar, build_imagenet
 from bigdl_tpu_torch.nn import (
     CrossEntropyCriterion,
     TimeDistributedCriterion,
     Transformer,
+    beam_search,
     int8,
 )
 from bigdl_tpu_torch.nn.layers import attention as attention_layers
@@ -359,6 +404,8 @@ from bigdl_tpu_torch.ops import residual_add as ra
 from bigdl_tpu_torch.ops import sampling
 from bigdl_tpu_torch.optim import (
     SGD,
+    DistriOptimizer,
+    LocalOptimizer,
     Loss,
     Poly,
     SequentialSchedule,
@@ -566,6 +613,47 @@ LM_FIRST_LOSS_FLOOR = 1.5
 # which sum in other orders (a few fp32 ulps per op)
 LM_STEP_TOL = 1e-4
 LM_SMALL = (50, 32, 4, 64, 2)
+
+# the data-parallel run: ResNet-50 at full ImageNet width (224x224 crops,
+# 1000 classes), bf16, B1, SGD 0.1 / momentum 0.9, global batch 128,
+# DistriOptimizer over a world-size-1 NCCL group, fed by
+# set_data_pipeline(8, ordered=True) from 384 synthetic uint8 256x256
+# images (numpy seed 2) through RandomCropper(224) >> HFlip >>
+# BGRImgNormalizer with the ImageNet BGR means and deviations
+DD_BATCH, DD_IMAGES, DD_SIDE, DD_CROP = 128, 384, 256, 224
+DD_STEPS, DD_WARMUP, DD_WORKERS = 6, 2, 8
+DD_MEANS, DD_STDS = (103.94, 116.78, 123.68), (57.38, 57.12, 58.4)
+# the bf16-wire overlap leg's losses against the plain loop's, relative:
+# the wire rounds each gradient to 8 significant bits (2**-9 relative),
+# which moves each update by that fraction; over 5 updates at lr 0.1 the
+# loss (~7) moves by well under 1% of itself
+DD_WIRE_LOSS_TOL = 1e-2
+# the layouts, each from the NCHW model's weights: fp32 logits at batch 8
+# against NCHW's with TF32 off (cuDNN's NHWC and NCHW kernels sum the
+# convolutions in other orders through 53 layers: relative to the largest
+# logit), then bf16 training steps at batch 64 with B1
+LAYOUTS = (("NCHW", {}), ("NHWC", {"data_format": "NHWC"}),
+           ("MIXED", {"data_format": "MIXED"}),
+           ("NCHW stem_s2d", {"stem_s2d": True}))
+LAYOUT_BATCH, LAYOUT_TRAIN_BATCH, LAYOUT_STEPS, LAYOUT_TOL = 8, 64, 4, 1e-4
+# beam search over the serving LM: batch 4, beam 4, 32 steps, alpha 0.6,
+# EOS id 1. Scores against the CPU's: each step's log-probabilities move
+# by at most twice the logits' difference (LOGITS_TOL), summed over the
+# steps, over a length penalty >= 1
+BEAM_BATCH, BEAM_K, BEAM_STEPS, BEAM_ALPHA, BEAM_EOS = 4, 4, 32, 0.6, 1
+BEAM_SCORE_TOL = 2 * BEAM_STEPS * LOGITS_TOL
+# two ranks on the one card through gloo (NCCL refuses two ranks on one
+# device): one step of ResNet-50, fp32 with TF32 off, global batch 16,
+# against one rank's step on the same global batch. The parameters and
+# statistics after it, relative to each tensor's largest entry: two ranks
+# sum the batch statistics and the gradients in other orders, and batch
+# norm's E[x^2] - E[x]^2 (the JAX package's formula) cancels most of its
+# digits where a channel's mean is large against its spread, so the
+# gradients behind 53 such layers move by far more than the sums' ulps
+# (one step only: a second at lr 0.1 grows the difference tenfold). The
+# flavour is the DistriOptimizer path whose collectives gloo carries on
+# CUDA tensors
+GLOO_BATCH, GLOO_STEPS, GLOO_TOL, GLOO_FLAVOUR = 16, 1, 1e-3, "zero1"
 
 
 def nvidia_smi() -> str:
@@ -2737,9 +2825,10 @@ def phase_engine_obs(card, model):
 
 
 def b1_rule(batch: int) -> int:
-    """B1's launches in one fp32 ResNet-50 forward at ``batch`` rows, by
-    the dispatch rule itself (``ops.residual_add.kernel_eligible`` on each
-    residual add's shape; on a card every eligible add launches)."""
+    """B1's launches in one ResNet-50 forward at ``batch`` rows of 224x224
+    images (fp32 or bf16), by the dispatch rule itself
+    (``ops.residual_add.kernel_eligible`` on each residual add's shape; on
+    a card every eligible add launches)."""
     n = 0
     for _, shape, blocks in RESNET50_ADDS:
         t = torch.empty((batch,) + shape[1:], device="meta")
@@ -4576,6 +4665,464 @@ def phase_train_lm(card):
     return launches, rows
 
 
+# ----------------------------------------- data-parallel ResNet training ----
+
+
+@contextlib.contextmanager
+def b1_training():
+    """Training with B1 on and its launch count zeroed, the loop's step
+    records kept (the handler's ``records``); synchronised on exit."""
+    handler = _LogRecords()
+    logger = logging.getLogger("bigdl_tpu_torch.optim")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    os.environ["BIGDL_RESIDUAL_ADD"] = "pallas"
+    ra.residual_add.launches = 0
+    try:
+        yield handler
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(handler)
+        os.environ.pop("BIGDL_RESIDUAL_ADD", None)
+
+
+def dd_images():
+    """The synthetic ImageNet-shaped training set: DD_IMAGES uint8
+    (3, 256, 256) images and labels in [0, 1000), numpy seed 2."""
+    rs = np.random.RandomState(2)
+    imgs = rs.randint(0, 256, (DD_IMAGES, 3, DD_SIDE, DD_SIDE),
+                      dtype=np.uint8)
+    labels = rs.randint(0, 1000, DD_IMAGES)
+    return [(imgs[i], int(labels[i])) for i in range(DD_IMAGES)]
+
+
+def dd_chain():
+    """The elementwise run the pool fans out: crop, flip, normalise."""
+    return (RandomCropper(DD_CROP, DD_CROP, rng=RandomGenerator(3))
+            >> HFlip(rng=RandomGenerator(4))
+            >> BGRImgNormalizer(DD_MEANS, DD_STDS) >> BGRImgToSample())
+
+
+def dd_dataset(elems):
+    return DataSet.array(elems, rng=RandomGenerator(0)) >> (
+        dd_chain() >> SampleToMiniBatch(DD_BATCH))
+
+
+def dd_pipeline_check(elems, card):
+    """The ordered pool's stream for 8 workers against 1, bitwise, in
+    threads and in processes; each one's rate, the pool alone, over the
+    stream's second half (a process pool's spawn and its workers'
+    imports fall in the first)."""
+    n = 2 * DD_BATCH
+    streams, rates = {}, {}
+    for workers, processes in ((1, False), (DD_WORKERS, False),
+                               (DD_WORKERS, True)):
+        pool = ParallelTransformer(dd_chain(), workers, processes=processes,
+                                   base_seed=1)
+        out, stamps = [], []
+        for item in pool.apply(iter(elems[:n])):
+            out.append(item)
+            stamps.append(time.perf_counter())
+        rates[(workers, processes)] = (n // 2) / (stamps[-1]
+                                                  - stamps[n // 2 - 1])
+        streams[(workers, processes)] = out
+    ref = streams[(1, False)]
+    for key, out in streams.items():
+        same = len(out) == n and all(
+            np.array_equal(a.feature, b.feature) and a.label == b.label
+            for a, b in zip(out, ref))
+        assert same, f"the {key} stream differs from the 1-worker one"
+    print(f"[train-distri] pipeline streams of {n} images, ordered: 8 "
+          f"threads and 8 processes bitwise equal to 1 worker; the pool "
+          f"alone: 1 thread {rates[(1, False)]:.0f} images/s, 8 threads "
+          f"{rates[(DD_WORKERS, False)]:.0f}, 8 processes "
+          f"{rates[(DD_WORKERS, True)]:.0f} (host CPUs: {os.cpu_count()}) "
+          f"on {card}")
+    return rates
+
+
+def dd_leg(elems, kind, processes, steps=DD_STEPS):
+    """ResNet-50 trained for ``steps`` global batches of the pipeline:
+    ``kind`` "plain" (``LocalOptimizer``), "zero1" or "overlap"
+    (``DistriOptimizer`` over the world-size-1 group, the latter with 4
+    buckets on a bf16 wire). -> (losses, seconds, B1 launches, the
+    optimizer)."""
+    model = build_imagenet(50, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    cfg = EngineConfig(dtypes=DtypePolicy.mixed())
+    args = (model, dd_dataset(elems), CrossEntropyCriterion(), DD_BATCH,
+            cfg)
+    if kind == "plain":
+        opt = LocalOptimizer(*args)
+    elif kind == "zero1":
+        opt = DistriOptimizer(*args, zero1=True)
+    else:
+        opt = DistriOptimizer(*args, overlap_buckets=4,
+                              overlap_wire_dtype=torch.bfloat16)
+    opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9))
+    opt.set_end_when(Trigger.max_iteration(steps))
+    opt.set_data_pipeline(DD_WORKERS, ordered=True, processes=processes)
+    # the main path, with the launch count zeroed just before it
+    with b1_training() as handler:
+        opt.optimize()
+    launches = ra.residual_add.launches
+    runs = [(r.loss, r.step_seconds) for r in handler.records]
+    assert len(runs) == steps == opt.state.iteration, (len(runs), steps)
+    return ([loss for loss, _ in runs], [dt for _, dt in runs], launches,
+            opt)
+
+
+def dd_trace(opt, step_ms, card, steps=2):
+    """torch.profiler over ``steps`` more steps of ``opt``: the card's busy
+    share of a step and the process group's (NCCL) device ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opt.set_end_when(Trigger.max_iteration(opt.state.iteration + steps))
+    with b1_training(), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        opt.optimize()
+    device_ms = report_trace(prof, steps, step_ms, card,
+                             f"ResNet-50 b{DD_BATCH} bf16 DistriOptimizer "
+                             f"step (world size 1, NCCL)", top_n=5,
+                             watch=("nccl", "residual_add_kernel"))
+    evs = [ev for ev in prof.events()
+           if ev.device_type.name == "CUDA" and "nccl" in ev.name.lower()]
+    nccl_ms = sum(ev.device_time for ev in evs) / 1e3 / steps
+    return device_ms, nccl_ms, len(evs) / steps
+
+
+def dd_layouts(card):
+    """Each layout from the NCHW model's weights (bridged as stored):
+    fp32 logits against NCHW's (TF32 off), then LAYOUT_STEPS bf16 steps
+    with B1. -> total B1 launches."""
+    g = torch.Generator().manual_seed(5)
+    base = build_imagenet(50, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    params, state = export_params(base), export_state(base)
+    x = torch.rand(LAYOUT_BATCH, 3, DD_CROP, DD_CROP, generator=g) * 2 - 1
+    rs = np.random.RandomState(6)
+    xt = rs.rand(LAYOUT_TRAIN_BATCH * 2, 3, DD_CROP, DD_CROP).astype(
+        np.float32)
+    yt = rs.randint(0, 1000, LAYOUT_TRAIN_BATCH * 2)
+    ref, total, rates = None, 0, {}
+    for name, kw in LAYOUTS:
+        nhwc = kw.get("data_format") == "NHWC"
+        model = load_jax_params(build_imagenet(50, device="cuda", **kw),
+                                params, state)
+        inp = x.permute(0, 2, 3, 1).contiguous() if nhwc else x
+        with torch.no_grad():
+            logits = model.train()(inp.cuda()).float()
+        torch.cuda.synchronize()
+        if ref is None:
+            ref = logits
+        err = max_err(logits, ref) / ref.abs().max().item()
+        data = np.ascontiguousarray(xt.transpose(0, 2, 3, 1)) if nhwc \
+            else xt
+        opt = optimizer(model, DataSet.tensors(data, yt, RandomGenerator(0)),
+                        CrossEntropyCriterion(), LAYOUT_TRAIN_BATCH,
+                        EngineConfig(dtypes=DtypePolicy.mixed()))
+        opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9))
+        opt.set_end_when(Trigger.max_iteration(LAYOUT_STEPS))
+        with b1_training() as handler:
+            opt.optimize()
+        launches = ra.residual_add.launches
+        total += launches
+        losses = [r.loss for r in handler.records]
+        secs = [r.step_seconds for r in handler.records][1:]
+        rates[name] = LAYOUT_TRAIN_BATCH * len(secs) / sum(secs)
+        want = LAYOUT_STEPS * b1_rule(LAYOUT_TRAIN_BATCH)
+        print(f"[train-distri] layout {name}: fp32 logits vs NCHW max abs "
+              f"err {err:.2e} of the largest (tol {LAYOUT_TOL:g}); bf16 "
+              f"b{LAYOUT_TRAIN_BATCH} losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}; "
+              f"{rates[name]:.1f} images/s (steps 2-{LAYOUT_STEPS}); B1 "
+              f"launches {launches} (rule {want}) on {card}")
+        assert err <= LAYOUT_TOL, (name, err)
+        assert all(math.isfinite(v) for v in losses), losses
+        assert abs(losses[0] - math.log(1000)) < 1.0, losses[0]
+        assert launches == want, (name, launches, want)
+        del model, opt
+        torch.cuda.empty_cache()
+    return total, rates
+
+
+def beam_logits_fn(model):
+    """The stateless ``symbols_to_logits_fn``: a causal forward over the
+    whole id buffer, the logits of row ``i``."""
+    def fn(ids, i, states):
+        return model(ids)[:, i], states
+    return fn
+
+
+def beam_rescore(model, seq, alpha, eos):
+    """Each sequence's beam score under ``model``: the log-probability of
+    its tokens after the first, up to and with its first EOS, over the
+    length penalty of that length (of the whole length with no EOS)."""
+    with torch.no_grad():
+        logp = torch.log_softmax(model(seq[:, :-1]).float(), dim=-1)
+    tok = seq[:, 1:]
+    step_lp = logp.gather(-1, tok[..., None].long())[..., 0]
+    scores = []
+    for row, lp in zip(tok, step_lp):
+        hits = (row == eos).nonzero()
+        n = int(hits[0]) + 1 if len(hits) else len(row)
+        pen = ((5.0 + n) / 6.0) ** alpha
+        scores.append(float(lp[:n].sum()) / pen)
+    return scores
+
+
+def dd_beam(card):
+    """Beam search over the full-width serving LM on the card against a
+    CPU run of the plain version. -> B2 launches."""
+    model = Transformer(VOCAB, HIDDEN, HEADS, FILTER, LAYERS, device="cuda",
+                        generator=torch.Generator().manual_seed(0)).eval()
+    host = copy.deepcopy(model).cpu()
+    init = torch.from_numpy(np.random.RandomState(8).randint(
+        2, VOCAB, BEAM_BATCH).astype(np.int32))
+    args = (BEAM_K, VOCAB, BEAM_ALPHA, BEAM_STEPS, BEAM_EOS)
+    torch.cuda.synchronize()
+    # the main path, with the launch count zeroed just before it
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        seq, scores = beam_search(beam_logits_fn(model), init.cuda(), *args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    with torch.no_grad():
+        hseq, hscores = beam_search(beam_logits_fn(host), init, *args)
+    seq, scores = seq.cpu(), scores.cpu()
+    err = (scores - hscores).abs().max().item()
+    differ = [b for b in range(BEAM_BATCH) if not torch.equal(seq[b],
+                                                              hseq[b])]
+    for b in differ:
+        # a near-tie: the card's beams, scored on the CPU, are the CPU's
+        # own beams' scores within the tolerance
+        mine = beam_rescore(host, seq[b], BEAM_ALPHA, BEAM_EOS)
+        assert np.allclose(mine, hscores[b].numpy(), atol=BEAM_SCORE_TOL), (
+            b, mine, hscores[b])
+    print(f"[train-distri] beam search b{BEAM_BATCH} k{BEAM_K} "
+          f"{BEAM_STEPS} steps alpha {BEAM_ALPHA} over the LM (vocab "
+          f"{VOCAB}, hidden {HIDDEN}, {LAYERS} layers): sequences equal "
+          f"the CPU's in {BEAM_BATCH - len(differ)}/{BEAM_BATCH} rows "
+          f"(others near-ties, rescored within tol), scores max abs diff "
+          f"{err:.2e} (tol {BEAM_SCORE_TOL:g}); B2 launches {launches} "
+          f"({LAYERS} layers x {BEAM_STEPS} steps); "
+          f"{1e3 * wall / BEAM_STEPS:.2f} ms a step on {card}")
+    assert seq.shape == (BEAM_BATCH, BEAM_K, BEAM_STEPS + 1)
+    assert torch.isfinite(scores).all()
+    assert err <= BEAM_SCORE_TOL, err
+    assert launches == LAYERS * BEAM_STEPS, launches
+    del model, host
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _gloo_rank(rank, port, q):
+    """One rank of the 2-rank gloo group on the one card."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        from bigdl_tpu_torch.core import Engine
+
+        Engine.init()
+        losses, params = gloo_train(GLOO_FLAVOUR)
+        if rank == 0:
+            q.put((losses, params))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_data():
+    rs = np.random.RandomState(7)
+    return (rs.rand(GLOO_BATCH * GLOO_STEPS, 3, DD_CROP, DD_CROP).astype(
+        np.float32), rs.randint(0, 1000, GLOO_BATCH * GLOO_STEPS))
+
+
+def gloo_emulated():
+    """The overlap flavour's one step on 2 ranks, in one process: each
+    half of the global batch forward alone (its own batch-norm
+    statistics), the gradients and the running statistics averaged, one
+    SGD step. -> (losses, params and buffers)."""
+    x, y = gloo_data()
+    batch = next(DataSet.tensors(x, y, RandomGenerator(0)).batches(
+        GLOO_BATCH, train=True))
+    model = build_imagenet(50, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    named = dict(model.named_parameters())
+    buffers = dict(model.named_buffers())
+    start = {k: v.clone() for k, v in buffers.items()}
+    half, grads, stats, loss = GLOO_BATCH // 2, None, [], 0.0
+    for r in range(2):
+        with torch.no_grad():
+            for k, v in buffers.items():
+                v.copy_(start[k])
+        rows = slice(r * half, (r + 1) * half)
+        out = model.train()(torch.from_numpy(batch.input[rows]).cuda())
+        lr = CrossEntropyCriterion().forward(
+            out.float(), torch.from_numpy(batch.target[rows]).cuda())
+        g = torch.autograd.grad(lr, list(named.values()))
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        stats.append({k: v.clone() for k, v in buffers.items()})
+        loss += float(lr.detach()) / 2
+    method = SGD(learning_rate=0.1, momentum=0.9)
+    with torch.no_grad():
+        for k, v in buffers.items():
+            if v.is_floating_point():
+                v.copy_((stats[0][k] + stats[1][k]) / 2)
+    method.update(dict(zip(named, [g / 2 for g in grads])), named,
+                  method.init_state(named), 1)
+    return [loss], {k: v.detach().float().cpu().numpy() for k, v in
+                    [*model.named_parameters(), *model.named_buffers()]}
+
+
+def gloo_train(kind):
+    """ResNet-50 fp32 trained for GLOO_STEPS global batches of GLOO_BATCH:
+    ``kind`` "plain" (one process), "zero1" or "overlap"
+    (``DistriOptimizer``). -> (losses, params and buffers)."""
+    x, y = gloo_data()
+    model = build_imagenet(50, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    args = (model, DataSet.tensors(x, y, RandomGenerator(0)),
+            CrossEntropyCriterion(), GLOO_BATCH, EngineConfig())
+    if kind == "plain":
+        opt = LocalOptimizer(*args)
+    elif kind == "zero1":
+        opt = DistriOptimizer(*args)
+    else:
+        opt = DistriOptimizer(*args, overlap_buckets=4)
+    opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9))
+    opt.set_end_when(Trigger.max_iteration(GLOO_STEPS))
+    with b1_training() as handler:
+        opt.optimize()
+    tensors = {k: v.detach().float().cpu().numpy() for k, v in
+               [*model.named_parameters(), *model.named_buffers()]}
+    return [r.loss for r in handler.records], tensors
+
+
+def dd_gloo(card):
+    """The 2-rank step on the one card through gloo against the 1-rank
+    step on the same global batches."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("spawn")
+    q = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, port, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        while True:
+            try:
+                losses, params = q.get(timeout=1)
+                break
+            except queue.Empty:
+                codes = [p.exitcode for p in procs]
+                assert None in codes and time.perf_counter() - t0 < 600, (
+                    f"the gloo ranks gave no result: exit codes {codes}")
+    finally:
+        for p in procs:
+            p.join(120)
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    wall = time.perf_counter() - t0
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    # the one-rank step of the same arithmetic: the plain loop for global
+    # batch norm, the per-half emulation for the overlap flavour
+    want_l, want_p = (gloo_train("plain") if GLOO_FLAVOUR == "zero1"
+                      else gloo_emulated())
+    rel = max(float(np.abs(params[k] - v).max())
+              / max(1.0, float(np.abs(v).max())) for k, v in want_p.items())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_l))
+    print(f"[train-distri] 2 ranks on one card through gloo, flavour "
+          f"{GLOO_FLAVOUR!r} (the DistriOptimizer path gloo carries on CUDA "
+          f"tensors): ResNet-50 fp32 global batch {GLOO_BATCH}, "
+          f"{GLOO_STEPS} steps; losses {losses} against 1 rank {want_l} "
+          f"(max relative diff {loss_rel:.2e}); parameters and statistics "
+          f"max diff {rel:.2e} of each tensor's largest (tol {GLOO_TOL:g}); "
+          f"{wall:.1f} s with the ranks' start on {card}")
+    assert len(losses) == GLOO_STEPS and loss_rel <= GLOO_TOL, loss_rel
+    assert rel <= GLOO_TOL, rel
+
+
+def phase_train_distri(card):
+    """Data-parallel ResNet-50 training fed by the parallel input
+    pipeline, the layouts and the stem, beam search, and a 2-rank leg."""
+    import torch.distributed as dist
+
+    t_phase = time.monotonic()
+    elems = dd_images()
+    rates = dd_pipeline_check(elems, card)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    Engine.init_multihost(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        legs = {}
+        b1 = 0
+        for kind, processes in (("plain", False), ("zero1", False),
+                                ("zero1", True), ("overlap", False)):
+            losses, secs, launches, opt = dd_leg(elems, kind, processes)
+            label = f"{kind} {'processes' if processes else 'threads'}"
+            step_ms = 1e3 * sum(secs[DD_WARMUP:]) / len(secs[DD_WARMUP:])
+            snap = opt.pipeline_stats.snapshot()
+            starve = 1e3 * snap["stage"]["starve_s"] / DD_STEPS
+            print(f"[train-distri] {label}: losses "
+                  f"{' '.join(f'{v:.4f}' for v in losses)}; images/s="
+                  f"{1e3 * DD_BATCH / step_ms:.1f} step_ms={step_ms:.2f} "
+                  f"(steps {DD_WARMUP + 1}-{DD_STEPS}); the loop starved "
+                  f"{starve:.2f} ms a step on the staging queue; B1 "
+                  f"launches {launches} on {card}")
+            print("[train-distri] pipeline stages:\n"
+                  + opt.pipeline_stats.format_table())
+            assert all(math.isfinite(v) for v in losses), losses
+            assert abs(losses[0] - math.log(1000)) < 1.0, losses[0]
+            want = DD_STEPS * b1_rule(DD_BATCH)
+            assert launches == want, (label, launches, want)
+            if kind != "plain":
+                b1 += launches
+            legs[label] = (losses, step_ms, opt)
+        plain = legs["plain threads"][0]
+        for label in ("zero1 threads", "zero1 processes"):
+            assert legs[label][0] == plain, (label, legs[label][0], plain)
+        wire = legs["overlap threads"][0]
+        wire_rel = max(abs(a - b) / b for a, b in zip(wire, plain))
+        print(f"[train-distri] world size 1: the ZeRO-1 legs' losses bitwise "
+              f"equal the plain Optimizer's (threads and processes); the "
+              f"bf16-wire overlap leg's first loss bitwise: "
+              f"{wire[0] == plain[0]}, the rest within {wire_rel:.2e} "
+              f"relative (tol {DD_WIRE_LOSS_TOL:g})")
+        assert wire[0] == plain[0] and wire_rel <= DD_WIRE_LOSS_TOL, wire
+        _, step_ms, opt = legs["zero1 threads"]
+        device_ms, nccl_ms, nccl_n = dd_trace(opt, step_ms, card)
+        print(f"[train-distri] busy share of a ZeRO-1 step: "
+              f"{device_ms / step_ms:.1%} ({device_ms:.2f} ms of device time "
+              f"in {step_ms:.2f} ms); NCCL {nccl_ms:.3f} ms a step in "
+              f"{nccl_n:g} kernels on {card}")
+        del legs, opt
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        Engine.reset()
+    layout_b1, layout_rates = dd_layouts(card)
+    beam_b2 = dd_beam(card)
+    dd_gloo(card)
+    print(f"[train-distri] the phase: {time.monotonic() - t_phase:.1f} s; "
+          f"pipeline alone {rates}; layouts images/s {layout_rates}")
+    return {"residual_add": b1 + layout_b1}, {"flash_attention": beam_b2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
@@ -4618,6 +5165,7 @@ def main() -> int:
     paths["train_runtime"] = {"residual_add": phase_train_runtime(card)}
     lm_launches, lm_b2_rows = phase_train_lm(card)
     paths["train_lm"] = {"flash_attention": lm_launches}
+    paths["train_distri"], paths["beam_search"] = phase_train_distri(card)
     by_path = {name: {path: counts[name] for path, counts in paths.items()
                       if counts.get(name)}
                for name in ("flash_attention", "paged_attention",

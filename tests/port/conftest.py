@@ -54,6 +54,22 @@ def jax_spec(jax_lm):
     return draft, dparams, fast_kernels(SpeculativeKernels(jax_lm[0], draft))
 
 
+@pytest.fixture(scope="session")
+def real_tracker_lock():
+    """The process pool hands results back through shared memory, whose
+    blocks the stdlib's resource tracker registers under its module-level
+    lock. The suite's lock sanitizer (``tests/_sanitizers.py``) keeps
+    locks made before it was installed real, to keep foreign runtimes'
+    internals out of its graph; the tracker is imported later, so its
+    lock is a tracked wrapper that lacks the ``_recursion_count`` the
+    tracker calls. Give the tracker a real lock, as if it had been
+    imported first."""
+    import _thread
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._lock = _thread.RLock()
+
+
 @pytest.fixture(autouse=True)
 def _reset_port_faults():
     """The port's fault injector is process-global by design: a site one

@@ -58,8 +58,16 @@ the new weights. The training runtime: a checkpoint saved just before more
 in-place steps holds the saved step's tensors bitwise (the snapshot is
 not torn by the next update), and ``Top1Accuracy`` / ``Top5Accuracy``
 count on the card exactly what they count on the CPU for the same logits.
+Data parallelism and layouts: B1 adds two dense operands of one layout
+(contiguous, channels-last, NHWC) where they lie, with no copy and
+bitwise ``torch.add``, and every residual add of a ResNet-50 forward in
+each layout meets that rule; a ``DistriOptimizer`` over a world-size-1
+NCCL group gives the one-process loop's losses bitwise (ZeRO-1), and the
+bf16-wire overlap flavour its first loss bitwise and the rest within
+1e-2 (bf16 gradients).
 """
 
+import logging
 import math
 import threading
 import time
@@ -1672,3 +1680,127 @@ def test_top1_top5_on_the_card_equal_the_cpus(cuda):
         assert (on_card.value, on_card.count) == (on_cpu.value,
                                                   on_cpu.count)
         assert on_cpu.count == 160 and on_cpu.value >= 40
+
+
+class _CopyCounter(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the aten calls that copy a tensor's elements."""
+
+    COPIES = ("clone", "copy_", "_to_copy", "contiguous")
+
+    def __init__(self):
+        super().__init__()
+        self.copies = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.__name__.split(".")[0] in self.COPIES:
+            self.copies.append(func.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "nhwc"])
+def test_residual_add_makes_no_copy_in_any_layout(cuda, layout, dtype):
+    """B1 adds two dense operands of one layout where they lie: no copy,
+    an output of their layout, bitwise ``torch.add``."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    shape = (8, 256, 56, 56)          # ResNet-50 layer1's add at batch 8
+    x, y = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    if layout == "channels_last":
+        x, y = (t.to(memory_format=torch.channels_last) for t in (x, y))
+    elif layout == "nhwc":
+        x, y = (t.permute(0, 2, 3, 1).contiguous() for t in (x, y))
+    assert ra.same_layout(x, y)
+    before = ra.residual_add.launches
+    with _CopyCounter() as counter:
+        out = ra.residual_add(x, y)
+    assert ra.residual_add.launches == before + 1
+    assert counter.copies == []
+    assert out.stride() == x.stride()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.add(x, y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC", "MIXED"])
+def test_resnet_adds_meet_b1_in_one_layout(cuda, layout, monkeypatch):
+    """In every layout each residual add of a ResNet-50 forward finds its
+    two operands dense with equal strides, so B1 copies nothing."""
+    from bigdl_tpu_torch.models.resnet import build_imagenet
+
+    monkeypatch.setenv("BIGDL_RESIDUAL_ADD", "pallas")
+    model = build_imagenet(50, data_format=layout, device=cuda)
+    seen = []
+    for m in model.modules():
+        if isinstance(m, CAddTable):
+            m.register_forward_pre_hook(
+                lambda mod, args: seen.append(ra.same_layout(*args[0])))
+    x = torch.randn(8, 3, 128, 128, device=cuda)
+    if layout == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    before = ra.residual_add.launches
+    with torch.no_grad():
+        model(x)
+    assert len(seen) == 16 and all(seen), seen
+    # by the dispatch rule: layer1's 3 adds (8x256x32x32) and layer2's 4
+    # (8x512x16x16 = 2**20) qualify, layer3's and layer4's are smaller
+    assert ra.residual_add.launches - before == 7
+
+
+@pytest.mark.gpu
+def test_distri_optimizer_world_size_one_is_the_local_step(cuda):
+    """A world-size-1 NCCL group: ``DistriOptimizer`` (ZeRO-1) gives the
+    one-process loop's losses bitwise; the bf16-wire overlap flavour its
+    first loss bitwise and the rest within 1e-2 (bf16 gradients)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.core import Engine, EngineConfig, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import (
+        DistriOptimizer,
+        LocalOptimizer,
+        Trigger,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    Engine.init_multihost(f"127.0.0.1:{port}", 1, 0)
+    try:
+        rs = np.random.RandomState(0)
+        x = rs.standard_normal((32, 3, 32, 32)).astype(np.float32)
+        y = rs.randint(0, 10, (32,))
+
+        def run(cls, **kw):
+            model = build_cifar(8, device=cuda,
+                                generator=torch.Generator().manual_seed(0))
+            opt = cls(model, DataSet.tensors(x, y, RandomGenerator(0)),
+                      CrossEntropyCriterion(), 16,
+                      EngineConfig(dtypes=DtypePolicy.mixed()), **kw)
+            opt.set_optim_method(SGD(0.1, momentum=0.9))
+            opt.set_end_when(Trigger.max_iteration(4))
+            losses = []
+            handler = logging.Handler()
+            handler.emit = lambda r: losses.append(r.loss)
+            logger = logging.getLogger("bigdl_tpu_torch.optim")
+            logger.addHandler(handler)
+            logger.setLevel(logging.INFO)
+            try:
+                opt.optimize()
+            finally:
+                logger.removeHandler(handler)
+            return losses
+
+        local = run(LocalOptimizer)
+        assert run(DistriOptimizer) == local
+        wire = run(DistriOptimizer, overlap_buckets=4,
+                   overlap_wire_dtype=torch.bfloat16)
+        assert wire[0] == local[0]
+        np.testing.assert_allclose(wire, local, atol=1e-2)
+    finally:
+        dist.destroy_process_group()
+        Engine.reset()

@@ -197,11 +197,20 @@ def test_mixed_policy_step_keeps_fp32_masters():
 
 @pytest.mark.parametrize("setter", ["set_data_pipeline"])
 def test_setters_outside_the_slice_raise(setter):
+    """The setter is ported: a worker count that is not a number raises
+    the JAX loop's ``TypeError``, and a count is kept with a fresh
+    ``PipelineStats``, as the JAX loop keeps it."""
     x, y = _data()
     opt = optimizer(_port_model(), DataSet.tensors(x, y),
                     nn.CrossEntropyCriterion(), BATCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        getattr(opt, setter)(None)
+    ref = JaxLocalOptimizer(jnn.Linear(2, 2), JaxDataSet.tensors(x, y),
+                            jnn.CrossEntropyCriterion(), BATCH)
+    for o in (opt, ref):
+        with pytest.raises(TypeError):
+            getattr(o, setter)(None)
+        assert getattr(o, setter)(3, host_depth=5) is o
+        assert (o.pipeline_n_workers, o.host_prefetch_depth) == (3, 5)
+        assert o.pipeline_stats.snapshot() == {}
 
 
 @pytest.mark.parametrize("seed", [0, 4])

@@ -122,8 +122,12 @@ ON_CPU = _OnCpu()
     lambda m: m.build_imagenet(18),
     lambda m: m.basic_block(16, 32, 2, shortcut_type="A"),
     lambda m: m.shortcut(64, 256, 1, "B"),
+    lambda m: m.build_imagenet(50, data_format="NHWC"),
+    lambda m: m.build_imagenet(50, data_format="MIXED"),
+    lambda m: m.build_imagenet(50, stem_s2d=True),
 ], ids=["cifar8", "cifar20_100", "imagenet50", "imagenet50_hwio",
-        "imagenet18", "basic_block_A", "shortcut_B"])
+        "imagenet18", "basic_block_A", "shortcut_B", "imagenet50_nhwc",
+        "imagenet50_mixed", "imagenet50_s2d"])
 def test_parameter_and_state_paths_are_jax_paths(build):
     """Every parameter and buffer of the port sits at its JAX tree path,
     with the JAX leaf's shape (HWIO weights stay HWIO)."""
@@ -171,5 +175,19 @@ def test_bottleneck_hwio_training_matches_jax():
                                 dict(stem_s2d=True)],
                          ids=["nhwc", "mixed", "s2d"])
 def test_queued_variants_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        resnet.build_imagenet(50, device="cpu", **kw)
+    """The variants once queued are built now, each in its layout: NHWC
+    layers throughout, MIXED's one transpose before layer2, the
+    space-to-depth stem."""
+    model = resnet.build_imagenet(50, device="cpu", **kw)
+    convs = [m for m in model.modules()
+             if isinstance(m, resnet.nn.SpatialConvolution)]
+    layouts = [c.data_format for c in convs]
+    if kw.get("data_format") == "NHWC":
+        assert set(layouts) == {"NHWC"}
+    elif kw.get("data_format") == "MIXED":
+        names = list(dict(model.named_children()))
+        assert names.index("to_nhwc") == names.index("layer2_0") - 1
+        assert layouts[0] == "NCHW" and layouts[-1] == "NHWC"
+    else:
+        assert isinstance(model.conv1, resnet.Conv1SpaceToDepth)
+        assert tuple(model.conv1.weight.shape) == (64, 3, 7, 7)
